@@ -6,13 +6,18 @@ Phases, one line each: the card's name and power limit; the kernels' build
 (nvcc, one process per source, all started together, into build/kernels/);
 the data (the paper's large-scale setting: N = 10^7 points of a 10-cluster
 Gaussian mixture in R^10, m = 1000 frequencies); each kernel held against its
-plain PyTorch version at the main path's shapes and at ragged ones; ckm.fit,
-ckm.fit_streaming and lloyd.kmeans, each with the launch counts it caused;
-the SSE of CKM against k-means with 5 replicates; where fit's time goes (the
-sketch pass alone, and a short decode under torch.profiler); then one JSON
-line of per-kernel numbers and, last, the device line.  Any failed check
-raises and the script exits non-zero before the last line.  Without a CUDA
-card it exits non-zero and prints no result.
+plain PyTorch version at the main path's shapes and at ragged ones (the
+quantized and structured kernels also for bitwise repeatability over two
+launches and, for integer sums, exact split invariance), and the structured
+kernels again at the wide shape n = d = 2048, m = 20,000; ckm.fit,
+ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
+streaming structured, structured 1-bit QCKM), each with the launch counts it
+caused; the SSE of each CKM fit against k-means with 5 replicates; where
+fit's time goes (the sketch pass alone, and a short decode, dense and
+structured, under torch.profiler); one JSON line of per-kernel numbers, the total wall time
+and, last, the device line.  Any failed check raises and the script exits
+non-zero before the last line.  Without a CUDA card it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ KMEANS_REPLICATES = 5
 RAGGED_N = 1_000_003
 DATA_SEED, FIT_SEED, KMEANS_SEED = 0, 1, 2
 TIMED_LAUNCHES = 10
+# The structured kernels' generic d > 32 path, at the width of the
+# reference's frequency-operator benchmark (n = 2048), with a ragged last
+# frequency block and a ragged N.
+WIDE_N, WIDE_DIM, WIDE_M = 100_003, 2048, 20_000
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -48,6 +57,11 @@ SKETCH_TOL = 1e-4
 # expression orders, differs by a few ulps of its largest terms: the bar is
 # 32 ulps (4e-6) of max ||x_i||^2 + max ||c_k||^2.
 DIST_RTOL = 4e-6
+# Integer code sums (quantized kernels) against their plain versions: equal
+# except where a code's argument sits on a rounding boundary, where the
+# kernel's and PyTorch's phases or trig round apart; the flips are held to
+# max |dq| / N <= 1e-4.
+CODE_TOL = 1e-4
 # |z_stream - z|: the same points summed over other batch boundaries.
 STREAM_TOL = 1e-5
 # CKM's SSE over k-means x5 SSE: CKM's decode varies with the seed, and this
@@ -93,6 +107,31 @@ def sketch_bound(n_pts: int, n: int, m: int) -> tuple[float, str]:
     return bound(n_bytes, n_pts * m * (2 * n + 6))
 
 
+def qsketch_bound(n_pts: int, n: int, m: int) -> tuple[float, str]:
+    # Bytes: x, w and the dither read once, the two (m,) int32 sums written
+    # once.  Operations per (point, frequency): the phase (2n), the dither
+    # add (1), sin and cos (one each), the two codes (2) and the two integer
+    # accumulates (2).
+    n_bytes = 4 * (n_pts * n + n * m + m) + 8 * m
+    return bound(n_bytes, n_pts * m * (2 * n + 7))
+
+
+def structured_bound(n_pts: int, n: int, d: int, nblocks: int, quantized: bool):
+    # Per (point, frequency) of the (nblocks, d) output: three stages of a
+    # sign multiply, the butterfly's log2(d) adds and a scale multiply, then
+    # the radius multiply (1), sin and cos (2), and either two weighted FMA
+    # accumulates (4) or the dither add, two codes and two integer adds (5).
+    # Bytes: x (unpadded), the signs, radii (and dither) read once, beta read
+    # once on the float path, the two outputs written once.
+    width = nblocks * d
+    per = 3 * (2 + d.bit_length() - 1) + (8 if quantized else 7)
+    if quantized:
+        n_bytes = 4 * (n_pts * n + 5 * width) + 8 * width
+    else:
+        n_bytes = 4 * (n_pts * n + 4 * width + n_pts) + 8 * width
+    return bound(n_bytes, n_pts * width * per)
+
+
 def assign_bound(n_pts: int, n: int, k: int) -> tuple[float, str]:
     # Bytes: x and c read once, labels and distances written once (8 B a
     # point).  Operations per (point, centroid): the dot product (2n), the
@@ -116,6 +155,19 @@ def ptxas_summary(log: str) -> str:
     return f"registers per kernel {regs}, spills {'yes' if spilled else 'none'}"
 
 
+def _timed(out, kernel, plain, bound_fn, line):
+    """Add kernel, plain and bound ms to ``out`` and print ``line`` with them."""
+    out["ms"] = median_ms(kernel)
+    out["plain_ms"] = median_ms(plain)
+    out["bound_ms"], out["bound_by"] = bound_fn()
+    print(
+        f"{line}  kernel {out['ms']:.3f} ms  plain {out['plain_ms']:.3f} ms  "
+        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']})",
+        flush=True,
+    )
+    return out
+
+
 def check_sketch(fs, x, w, beta, label):
     """fourier_sketch kernel vs its plain version on the card."""
     n_pts = x.shape[0]
@@ -133,16 +185,103 @@ def check_sketch(fs, x, w, beta, label):
         f"[fourier_sketch {label}] N={n_pts} n={x.shape[1]} m={w.shape[1]} "
         f"max|d(sums/N)|={err:.3e} (tol {SKETCH_TOL}) bitwise-repeatable"
     )
-    out = {"max_abs_err": err}
-    out["ms"] = median_ms(lambda: fs.fourier_sketch_sums(x, w, beta))
-    out["plain_ms"] = median_ms(lambda: fs.fourier_sketch_sums_plain(x, w, beta))
-    out["bound_ms"], out["bound_by"] = sketch_bound(n_pts, x.shape[1], w.shape[1])
-    line += (
-        f"  kernel {out['ms']:.3f} ms  plain {out['plain_ms']:.3f} ms  "
-        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']})"
+    return _timed(
+        {"max_abs_err": err},
+        lambda: fs.fourier_sketch_sums(x, w, beta),
+        lambda: fs.fourier_sketch_sums_plain(x, w, beta),
+        lambda: sketch_bound(n_pts, x.shape[1], w.shape[1]),
+        line,
     )
-    print(line, flush=True)
-    return out
+
+
+def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn):
+    """An integer-sum kernel against its plain version on the card.
+
+    ``kernel(lo, hi)`` and ``plain(lo, hi)`` return the (qcos, qsin) sums of
+    rows [lo, hi).  Checks: two launches bitwise equal; kernel(rows [0, a)) +
+    kernel(rows [a, N)) == kernel(all rows) exactly; entries differing from
+    the plain version counted, with max |dq| / N <= CODE_TOL."""
+    q1, q2 = kernel(0, n_pts), kernel(0, n_pts)
+    parts = [kernel(0, split_at), kernel(split_at, n_pts)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(q1, q2)), f"{name} {label}: two launches differ")
+    check(
+        all(torch.equal(a + b, c) for a, b, c in zip(parts[0], parts[1], q1)),
+        f"{name} {label}: split at {split_at} is not exact",
+    )
+    ref = plain(0, n_pts)
+    diff = [torch.abs(a.long() - b.long()) for a, b in zip(q1, ref)]
+    n_diff = sum(int((d > 0).sum()) for d in diff)
+    err = max(float(d.max()) for d in diff) / n_pts
+    check(err <= CODE_TOL, f"{name} {label}: max|dq|/N {err:.3e} > {CODE_TOL}")
+    line = (
+        f"[{name} {label}] N={n_pts} differing entries={n_diff} of {2 * q1[0].numel()} "
+        f"max|dq|/N={err:.3e} (tol {CODE_TOL}) bitwise-repeatable split-exact"
+    )
+    return _timed({"max_abs_err": err}, lambda: kernel(0, n_pts), lambda: plain(0, n_pts),
+                  bound_fn, line)
+
+
+def check_structured(ft, x, op, beta, label):
+    """structured_sketch kernel vs its plain version on the card."""
+    n_pts = x.shape[0]
+    args = (op.diags, op.radii, beta)
+    c1, s1 = ft.structured_sketch_sums(x, *args)
+    c2, s2 = ft.structured_sketch_sums(x, *args)
+    torch.cuda.synchronize()
+    pc, ps = ft.structured_sketch_sums_plain(x, *args)
+    err = max(
+        float(torch.amax(torch.abs(c1 - pc))), float(torch.amax(torch.abs(s1 - ps)))
+    ) / n_pts
+    check(err <= SKETCH_TOL, f"structured_sketch {label}: max|d(sums/N)| {err:.3e} > {SKETCH_TOL}")
+    check(torch.equal(c1, c2) and torch.equal(s1, s2),
+          f"structured_sketch {label}: two launches differ bitwise")
+    line = (
+        f"[structured_sketch {label}] N={n_pts} n={x.shape[1]} d={op.d} m={op.m} "
+        f"max|d(sums/N)|={err:.3e} (tol {SKETCH_TOL}) bitwise-repeatable"
+    )
+    return _timed(
+        {"max_abs_err": err},
+        lambda: ft.structured_sketch_sums(x, *args),
+        lambda: ft.structured_sketch_sums_plain(x, *args),
+        lambda: structured_bound(n_pts, x.shape[1], op.d, op.nblocks, False),
+        line,
+    )
+
+
+def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None):
+    """Kernels 3-5 at one shape: kernel 3 at 1 and 4 bits (skipped when
+    ``w`` is None), kernel 4, and kernel 5 at 1 and 4 bits.  The 1-bit
+    numbers go to ``results`` when given."""
+    n_pts, n = x.shape
+    out = {}
+    if w is not None:
+        for bits in (1, 4):
+            out[("quantized_fourier_sketch", bits)] = check_codes(
+                "quantized_fourier_sketch", f"{label} {bits}bit",
+                lambda lo, hi, b=bits: fs.quantized_fourier_sketch_sums(x[lo:hi], w, dither, b),
+                lambda lo, hi, b=bits: fs.quantized_fourier_sketch_sums_plain(
+                    x[lo:hi], w, dither, b),
+                n_pts, split_at, lambda: qsketch_bound(n_pts, n, w.shape[1]),
+            )
+    out[("structured_sketch", 1)] = check_structured(
+        ft, x, op, torch.ones((n_pts,), dtype=torch.float32, device=x.device), label
+    )
+    padded = torch.nn.functional.pad(dither, (0, op.nblocks * op.d - op.m))
+    padded = padded.reshape(op.nblocks, op.d).contiguous()
+    for bits in (1, 4):
+        out[("quantized_structured_sketch", bits)] = check_codes(
+            "quantized_structured_sketch", f"{label} d={op.d} {bits}bit",
+            lambda lo, hi, b=bits: ft.quantized_structured_sketch_sums(
+                x[lo:hi], op.diags, op.radii, padded, b),
+            lambda lo, hi, b=bits: ft.quantized_structured_sketch_sums_plain(
+                x[lo:hi], op.diags, op.radii, padded, b),
+            n_pts, split_at, lambda: structured_bound(n_pts, n, op.d, op.nblocks, True),
+        )
+    if results is not None:
+        for (name, bits), r in out.items():
+            if bits == 1:
+                results[name] = r
 
 
 def check_assign(aa, x, c, label, dup_of=None):
@@ -170,16 +309,13 @@ def check_assign(aa, x, c, label, dup_of=None):
     if dup_of is not None:
         check(int((lab == dup_of[1]).sum()) == 0, f"assign_argmin {label}: tie not to lowest index")
         line += " ties-to-lowest"
-    out = {"max_abs_err": err}
-    out["ms"] = median_ms(lambda: aa.assign_argmin(x, c))
-    out["plain_ms"] = median_ms(lambda: aa.assign_argmin_plain(x, c))
-    out["bound_ms"], out["bound_by"] = assign_bound(x.shape[0], x.shape[1], c.shape[0])
-    line += (
-        f"  kernel {out['ms']:.3f} ms  plain {out['plain_ms']:.3f} ms  "
-        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']})"
+    return _timed(
+        {"max_abs_err": err},
+        lambda: aa.assign_argmin(x, c),
+        lambda: aa.assign_argmin_plain(x, c),
+        lambda: assign_bound(x.shape[0], x.shape[1], c.shape[0]),
+        line,
     )
-    print(line, flush=True)
-    return out
 
 
 def main() -> None:
@@ -187,11 +323,14 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
 
-    from repro_torch.core import ckm, frequencies, lloyd
+    from repro_torch.core import ckm, freq_ops, frequencies, lloyd, quantize
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import assign_argmin as aa
     from repro_torch.kernels import fourier_sketch as fs
+    from repro_torch.kernels import freq_transform as ft
+
+    smoke_t0 = time.perf_counter()
 
     # Full-precision FP32 for every product the plain versions take.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -244,17 +383,42 @@ def main() -> None:
         cs = torch.randn((7, n_small), generator=gen, device=dev) * 3
         check_assign(aa, xs, cs, f"n={n_small}")
 
+    # 4b. The slice-2 kernels (quantized dense, structured float and
+    # quantized) at the main path's shapes: the fit's operator and dither.
+    g_dither = ckm.stream_keys(FIT_SEED, dev)[2]
+    dither = quantize.draw_dither(g_dither, M)
+    op = freq_ops.make_operator("structured", g_freq, M, DIM, sigma2, device=dev)
+    check_slice2_kernels(fs, ft, x, w, op, dither, "fit shape", N // 3, results)
+    check_slice2_kernels(fs, ft, x[:chunk], w, op, dither, "stream-batch shape", chunk // 3)
+    check_slice2_kernels(fs, ft, x[:RAGGED_N], w, op, dither, "ragged", 333_333)
+
+    # 4c. The structured kernels' generic path (d > 32) at the wide shape.
+    xw = synthetic.gaussian_mixture(DATA_SEED, WIDE_N, K, WIDE_DIM, device=dev)
+    sigma2_w = frequencies.estimate_sigma2(g_sig, xw[: cfg.sigma2_sample], device=dev)
+    op_w = freq_ops.make_operator("structured", g_freq, WIDE_M, WIDE_DIM, sigma2_w, device=dev)
+    check_slice2_kernels(fs, ft, xw, None, op_w, quantize.draw_dither(g_dither, WIDE_M),
+                         "wide", WIDE_N // 3)
+    del xw
+
     # 5-7. The main path, each phase with the launch counts it caused.
-    launches = {"fourier_sketch": 0, "assign_argmin": 0}
+    counters = {
+        "fourier_sketch": (fs, "LAUNCHES"),
+        "assign_argmin": (aa, "LAUNCHES"),
+        "quantized_fourier_sketch": (fs, "QUANTIZED_LAUNCHES"),
+        "structured_sketch": (ft, "STRUCTURED_LAUNCHES"),
+        "quantized_structured_sketch": (ft, "QUANTIZED_STRUCTURED_LAUNCHES"),
+    }
+    launches = dict.fromkeys(counters, 0)
     phase_s = {}
 
     def run(label, fn, needs):
-        fs.LAUNCHES = aa.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = phase_s[label] = time.perf_counter() - t0
-        counts = {"fourier_sketch": fs.LAUNCHES, "assign_argmin": aa.LAUNCHES}
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         for name, n_launch in counts.items():
             launches[name] += n_launch
         check(counts[needs] >= 1, f"{label} did not launch the {needs} kernel")
@@ -299,6 +463,42 @@ def main() -> None:
     )
     check(rel <= MAX_RELATIVE_SSE, f"relative SSE {rel:.4f} > {MAX_RELATIVE_SSE}")
 
+    # 8b. The slice-2 paths: each fit through its kernel, its sketch pass
+    # timed alone, its SSE against k-means x5.
+    slice2 = [
+        ("fit-1bit", "quantized_fourier_sketch", False,
+         dataclasses.replace(cfg, sketch_quantization="1bit")),
+        ("fit-structured", "structured_sketch", True,
+         dataclasses.replace(cfg, freq_op="structured")),
+        ("fit-structured-1bit", "quantized_structured_sketch", False,
+         dataclasses.replace(cfg, freq_op="structured", sketch_quantization="1bit")),
+    ]
+    slice2_res = {}
+    for label, kernel, streaming, cfg2 in slice2:
+        if streaming:
+            r2 = run(label, lambda c=cfg2: ckm.fit_streaming(FIT_SEED, iter(batches), c,
+                                                              device=dev), kernel)
+            t0 = time.perf_counter()
+            ckm.compute_sketch_streaming(FIT_SEED, iter(batches), cfg2, device=dev)
+        else:
+            r2 = run(label, lambda c=cfg2: ckm.fit(FIT_SEED, x, c, device=dev), kernel)
+            t0 = time.perf_counter()
+            ckm.compute_sketch(FIT_SEED, x, cfg2, device=dev)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        check(tuple(r2.centroids.shape) == (K, DIM), f"{label} centroids shape")
+        check(bool(torch.isfinite(r2.centroids).all()), f"{label} centroids finite")
+        check(abs(float(r2.weights.sum()) - 1.0) < 1e-4, f"{label} weights sum to 1")
+        slice2_res[label] = r2
+        rel2 = float(ckm.sse(x, r2.centroids, device=dev)) / N / sse_km
+        print(
+            f"[{label} quality] sketch pass {pass_s:.3f}s, decode "
+            f"{phase_s[label] - pass_s:.2f}s; SSE/N {rel2 * sse_km:.4f}, relative SSE "
+            f"{rel2:.4f} (limit {MAX_RELATIVE_SSE})",
+            flush=True,
+        )
+        check(rel2 <= MAX_RELATIVE_SSE, f"{label}: relative SSE {rel2:.4f} > {MAX_RELATIVE_SSE}")
+
     # 9. Where fit's time goes: the sketch pass alone, then a short decode
     # under the profiler (its wall time includes the profiler's own cost).
     t0 = time.perf_counter()
@@ -308,22 +508,31 @@ def main() -> None:
     short = dataclasses.replace(cfg, atom_steps=30, joint_steps=20, final_steps=100)
     adam_steps = 2 * K * (short.atom_steps + short.joint_steps) + short.final_steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        ckm.decode_sketch(FIT_SEED, res.sketch, res.freq_op, *res.bounds, short, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in device_ops) / 1e6
-    n_ops = sum(e.count for e in device_ops)
+
+    def profile_decode(r):
+        """Wall seconds, device-busy seconds and device operations of a
+        short decode of ``r``'s sketch under the profiler."""
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            ckm.decode_sketch(FIT_SEED, r.sketch, r.freq_op, *r.bounds, short, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in device_ops) / 1e6
+        n_ops = sum(e.count for e in device_ops)
+        return (
+            f"profiled short decode ({adam_steps} Adam steps): wall {wall:.2f}s, device busy "
+            f"{busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device operations, "
+            f"{n_ops / adam_steps:.1f} per Adam step"
+            + ("" if busy else " (the profiler saw no device time: busy share not measured)")
+        )
+
     print(
         f"[fit time] fit {phase_s['fit']:.2f}s = sketch pass {sketch_s:.3f}s + decode "
-        f"{phase_s['fit'] - sketch_s:.2f}s; profiled short decode ({adam_steps} Adam "
-        f"steps): wall {wall:.2f}s, device busy {busy:.3f}s ({100 * busy / wall:.1f}%), "
-        f"{n_ops} device operations, {n_ops / adam_steps:.1f} per Adam step"
-        + ("" if busy else " (the profiler saw no device time: busy share not measured)"),
+        f"{phase_s['fit'] - sketch_s:.2f}s; {profile_decode(res)}",
         flush=True,
     )
+    print(f"[fit-structured time] {profile_decode(slice2_res['fit-structured'])}", flush=True)
 
     # 10. Per-kernel numbers.
     meta = {
@@ -331,6 +540,12 @@ def main() -> None:
                            "src/repro/kernels/fourier_sketch.py:131"),
         "assign_argmin": ("src/repro_torch/kernels/csrc/assign_argmin.cu",
                           "src/repro/kernels/assign_argmin.py:35"),
+        "quantized_fourier_sketch": ("src/repro_torch/kernels/csrc/quantized_fourier_sketch.cu",
+                                     "src/repro/kernels/fourier_sketch.py:88"),
+        "structured_sketch": ("src/repro_torch/kernels/csrc/structured_sketch.cu",
+                              "src/repro/kernels/freq_transform.py:181"),
+        "quantized_structured_sketch": ("src/repro_torch/kernels/csrc/structured_sketch.cu",
+                                        "src/repro/kernels/freq_transform.py:217"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
@@ -342,6 +557,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": None,
         })
     print(json.dumps({"kernels": rows}), flush=True)
+    print(f"[smoke] total wall time {time.perf_counter() - smoke_t0:.1f}s", flush=True)
 
     # 11. The device line.
     print(json.dumps({

@@ -1,9 +1,11 @@
 """Carry the reference's values into the port.
 
 This system has no model weights: what both packages must share to compute
-the same thing is the frequency matrix and the sketch state (and, for Lloyd,
-the starting centroids).  Each function takes the reference's value as a
-numpy array (``np.asarray`` of a JAX array) and returns the port's.
+the same thing is the frequency operator (a dense matrix, or the structured
+operator's signs and radii), the quantizer's dither, the sketch state (float
+or quantized) and, for Lloyd, the starting centroids.  Each function takes
+the reference's value as a numpy array (``np.asarray`` of a JAX array) and
+returns the port's.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as dev_mod
-from repro_torch.core.engine import SketchEngineState
-from repro_torch.core.freq_ops import DenseOperator
+from repro_torch.core import quantize as qz
+from repro_torch.core.engine import QuantizedSketchEngineState, SketchEngineState
+from repro_torch.core.freq_ops import DenseOperator, StructuredOperator
 
 
 def _f32(a, dev: torch.device) -> torch.Tensor:
@@ -28,6 +31,37 @@ def operator_from_numpy(w: np.ndarray, device=dev_mod.DEFAULT) -> DenseOperator:
     return DenseOperator(_f32(w, dev_mod.resolve(device)))
 
 
+def structured_operator_from_numpy(
+    diags, radii, rho, n: int, m: int, device=dev_mod.DEFAULT
+) -> StructuredOperator:
+    """A reference ``StructuredOperator``'s ``diags (nblocks, 3, d)``,
+    ``radii`` and ``rho (nblocks, d)`` -> the port's operator."""
+    dev = dev_mod.resolve(device)
+    return StructuredOperator(_f32(diags, dev), _f32(radii, dev), _f32(rho, dev), int(n), int(m))
+
+
+def quantizer_from_numpy(bits: int, dither, device=dev_mod.DEFAULT) -> qz.SketchQuantizer:
+    """A reference ``SketchQuantizer``'s bits and ``(m,)`` dither -> the port's."""
+    dither = np.asarray(dither)
+    if dither.ndim != 1:
+        raise ValueError(f"expected an (m,) dither, got shape {dither.shape}")
+    if not 1 <= int(bits) <= 16:
+        raise ValueError(f"bits must be in 1..16, got {bits}")
+    return qz.SketchQuantizer(int(bits), _f32(dither, dev_mod.resolve(device)))
+
+
+def _check_state(state) -> None:
+    acc, n = state[0].shape, state.lower.shape
+    if (
+        state[1].shape != acc or state.upper.shape != n or len(acc) != 1 or len(n) != 1
+        or state.weight_sum.ndim or state.count.ndim
+    ):
+        raise ValueError(
+            "inconsistent state shapes: "
+            + ", ".join(f"{f}={tuple(getattr(state, f).shape)}" for f in state._fields)
+        )
+
+
 def state_from_numpy(
     cos_acc, sin_acc, weight_sum, lower, upper, count, device=dev_mod.DEFAULT
 ) -> SketchEngineState:
@@ -36,12 +70,24 @@ def state_from_numpy(
     state = SketchEngineState(
         *(_f32(a, dev) for a in (cos_acc, sin_acc, weight_sum, lower, upper, count))
     )
-    m, n = state.cos_acc.shape, state.lower.shape
-    if state.sin_acc.shape != m or state.upper.shape != n or state.weight_sum.ndim or state.count.ndim:
-        raise ValueError(
-            "inconsistent state shapes: "
-            + ", ".join(f"{f}={tuple(getattr(state, f).shape)}" for f in state._fields)
-        )
+    _check_state(state)
+    return state
+
+
+def quantized_state_from_numpy(
+    qcos_acc, qsin_acc, weight_sum, lower, upper, count, device=dev_mod.DEFAULT
+) -> QuantizedSketchEngineState:
+    """The fields of a reference ``QuantizedSketchEngineState`` -> the port's
+    (int32 accumulators, float32 rest)."""
+    dev = dev_mod.resolve(device)
+
+    def i32(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(dev)
+
+    state = QuantizedSketchEngineState(
+        i32(qcos_acc), i32(qsin_acc), *(_f32(a, dev) for a in (weight_sum, lower, upper, count))
+    )
+    _check_state(state)
     return state
 
 

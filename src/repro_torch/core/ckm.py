@@ -6,17 +6,20 @@ The pipeline is the paper's four steps:
 1. choose a frequency scale sigma^2 on a small fraction of the data
    (``frequencies.estimate_sigma2``),
 2. draw the frequency operator for ``m`` frequencies from the adapted-radius
-   distribution (``core.freq_ops``, ``"dense"``),
+   distribution (``core.freq_ops``: ``"dense"`` or ``"structured"``),
 3. compute the sketch ``z = Sk(X, 1/N)`` in one pass through
-   ``core.engine.SketchEngine`` (the fused CUDA kernel on the card), together
-   with the box bounds ``l, u``,
+   ``core.engine.SketchEngine`` (the operator family's fused CUDA kernel on
+   the card), together with the box bounds ``l, u`` — float, or quantized
+   to integer codes (QCKM, ``CKMConfig.sketch_quantization``) and
+   dequantized before decoding,
 4. decode K centroids from the sketch with a registered decoder (CLOMPR).
 
 Replicates run one after another and the one with the lowest sketch-domain
 cost (4) wins — the SSE is not available once the data is discarded.
 
 Randomness: a fit takes an integer ``seed``.  :func:`stream_keys` fans it out
-into the sketch pass's three generators ``(sigma2, frequencies, dither)``,
+into the sketch pass's three generators ``(sigma2, frequencies, dither)`` —
+so turning quantization on does not move sigma^2 or the frequencies —
 and replicate ``r`` of a decode draws from ``derive_seed(seed, r)``, so the
 replicate streams for R replicates are a prefix of those for R' > R.
 """
@@ -32,6 +35,7 @@ from repro_torch import device as dev_mod
 from repro_torch.core import decoders as dec_mod
 from repro_torch.core import freq_ops as fo
 from repro_torch.core import frequencies as freq_mod
+from repro_torch.core import quantize as qz
 from repro_torch.core.decoders import CLOMPRConfig
 from repro_torch.core.engine import SketchEngine
 from repro_torch.kernels import ops as kops
@@ -60,6 +64,11 @@ class CKMConfig:
     # Sketch-computation backend (core.engine.BACKENDS): "kernel", the fused
     # CUDA kernel (plain PyTorch version on the CPU).
     sketch_backend: str = "kernel"
+    # Universal quantization of the sketch (QCKM): "none" | "1bit" | "<b>bit".
+    # Per-point contributions become integer codes of the dithered phase,
+    # summed in int32; finalize dequantizes (E[sign] correction) before the
+    # decoder sees the sketch (see core.quantize).
+    sketch_quantization: str = "none"
     decoder: str = "clompr"
 
     def sketch_size(self, n: int) -> int:
@@ -99,16 +108,24 @@ def stream_keys(
     seed: int, device=dev_mod.DEFAULT
 ) -> tuple[torch.Generator, torch.Generator, torch.Generator]:
     """The sketch pass's three generators ``(sigma2, frequencies, dither)``,
-    each seeded from its own child of ``seed``.  The dither stream is unused
-    until the quantized sketch is ported; it exists so that enabling it will
-    not perturb the other two."""
+    each seeded from its own child of ``seed``, so a quantized run draws the
+    same sigma^2 and frequencies as its float twin."""
     dev = dev_mod.resolve(device)
     return tuple(dev_mod.generator(dev_mod.derive_seed(seed, i), dev) for i in range(3))
 
 
-def make_engine(w, cfg: CKMConfig, device=dev_mod.DEFAULT) -> SketchEngine:
+def make_quantizer(seed: int, cfg: CKMConfig, m: int, device=dev_mod.DEFAULT):
+    """The sketch quantizer for ``cfg`` (or ``None`` for the float path),
+    drawn only from the dither generator of :func:`stream_keys`."""
+    if qz.parse_bits(cfg.sketch_quantization) is None:
+        return None
+    _, _, g_dither = stream_keys(seed, device)
+    return qz.make_quantizer(g_dither, m, cfg.sketch_quantization)
+
+
+def make_engine(w, cfg: CKMConfig, device=dev_mod.DEFAULT, quantizer=None) -> SketchEngine:
     """The SketchEngine for ``cfg`` on ``device``."""
-    return SketchEngine(w, cfg.sketch_backend, device=device)
+    return SketchEngine(w, cfg.sketch_backend, device=device, quantizer=quantizer)
 
 
 def _draw_freqs(seed: int, sample: torch.Tensor, n: int, cfg: CKMConfig, dev):
@@ -136,7 +153,8 @@ def compute_sketch(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DE
     dev = dev_mod.resolve(device)
     x = _f32_on(x, dev)
     op, sigma2 = _draw_freqs(seed, x, x.shape[1], cfg, dev)
-    z, lo, hi = make_engine(op, cfg, dev).sketch(x)
+    quantizer = make_quantizer(seed, cfg, op.m, dev)
+    z, lo, hi = make_engine(op, cfg, dev, quantizer).sketch(x)
     return z, op, sigma2, (lo, hi)
 
 
@@ -158,7 +176,7 @@ def compute_sketch_streaming(
     except StopIteration:
         raise ValueError("compute_sketch_streaming needs at least one batch") from None
     op, sigma2 = _draw_freqs(seed, first, first.shape[1], cfg, dev)
-    eng = make_engine(op, cfg, dev)
+    eng = make_engine(op, cfg, dev, make_quantizer(seed, cfg, op.m, dev))
     state = eng.update(eng.init_state(), first)
     for batch in it:
         state = eng.update(state, batch)

@@ -1,7 +1,7 @@
 """Pluggable frequency operators (``core.freq_ops``) — see ``base.py``.
 
-This slice registers the paper's ``"dense"`` operator; the structured
-fast-transform family is still to be ported.
+Two families are registered: the paper's ``"dense"`` matrix and the
+``"structured"`` fast-transform blocks.
 """
 
 from repro_torch.core.freq_ops.base import (
@@ -14,11 +14,13 @@ from repro_torch.core.freq_ops.base import (
     register_freq_op,
 )
 from repro_torch.core.freq_ops.dense import DenseOperator
+from repro_torch.core.freq_ops.structured import StructuredOperator
 
 __all__ = [
     "FREQ_OPS",
     "FrequencyOperator",
     "DenseOperator",
+    "StructuredOperator",
     "as_operator",
     "available_freq_ops",
     "get_freq_op",

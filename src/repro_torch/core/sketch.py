@@ -1,5 +1,5 @@
 """The sketching operator ``Sk`` / ``A`` (paper §3.1) — counterpart of
-``repro.core.sketch`` (float path).
+``repro.core.sketch``.
 
 The sketch of weighted points ``(Y, beta)`` at frequencies ``W`` is
 
@@ -21,9 +21,11 @@ import math
 import torch
 
 from repro_torch.core import freq_ops as fo
+from repro_torch.core import quantize as qz
 
 __all__ = [
     "sketch",
+    "sketch_quantized",
     "to_complex",
     "from_complex",
     "atom",
@@ -76,6 +78,36 @@ def sketch(
         cos_acc = cos_acc + b @ torch.cos(proj)
         sin_acc = sin_acc + b @ torch.sin(proj)
     return _stacked(cos_acc, sin_acc)
+
+
+def sketch_quantized(
+    x: torch.Tensor,
+    w,
+    dither: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    bits: int = 1,
+    chunk: int = 8192,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Universally quantized sketch sums (QCKM) over any operator.
+
+    Returns int32 ``(q_cos_sum, q_sin_sum)`` of shape ``(m,)``: the per-point
+    codes ``quantize.quantize_codes(op.apply(x), dither, bits)`` summed over
+    N, chunked so the ``(N, m)`` projection never materialises.  Codes are a
+    deterministic function of each point, so the sums are exactly
+    split-invariant.  ``valid`` is a 0/1 row mask (masked rows contribute
+    zero codes).
+    """
+    op = fo.as_operator(w)
+    x = torch.as_tensor(x, dtype=torch.float32)
+    qcos = torch.zeros((op.m,), dtype=torch.int32, device=x.device)
+    qsin = torch.zeros_like(qcos)
+    for start in range(0, x.shape[0], chunk):
+        proj = op.apply(x[start : start + chunk]).to(torch.float32)  # (chunk, m)
+        v = None if valid is None else valid[start : start + chunk, None]
+        qc, qs = qz.quantize_codes(proj, dither, bits, valid=v)
+        qcos += qc.sum(dim=0, dtype=torch.int32)
+        qsin += qs.sum(dim=0, dtype=torch.int32)
+    return qcos, qsin
 
 
 def atom(c: torch.Tensor, w) -> torch.Tensor:

@@ -1,14 +1,24 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-=================  ===================================  =========================================
-kernel             source                               replaces (TPU kernel)
-=================  ===================================  =========================================
-fourier_sketch     ``csrc/fourier_sketch.cu``           ``repro/kernels/fourier_sketch.py``
-                                                        ``fourier_sketch_kernel``
-assign_argmin      ``csrc/assign_argmin.cu``            ``repro/kernels/assign_argmin.py``
-                                                        ``assign_argmin_kernel``
-=================  ===================================  =========================================
+===========================  =====================================  ==============================================
+kernel                       source                                 replaces (TPU kernel)
+===========================  =====================================  ==============================================
+fourier_sketch               ``csrc/fourier_sketch.cu``             ``repro/kernels/fourier_sketch.py``
+                                                                    ``fourier_sketch_kernel``
+assign_argmin                ``csrc/assign_argmin.cu``              ``repro/kernels/assign_argmin.py``
+                                                                    ``assign_argmin_kernel``
+quantized_fourier_sketch     ``csrc/quantized_fourier_sketch.cu``   ``repro/kernels/fourier_sketch.py``
+                                                                    ``quantized_fourier_sketch_kernel``
+structured_sketch            ``csrc/structured_sketch.cu``          ``repro/kernels/freq_transform.py``
+                                                                    ``structured_sketch_kernel``
+quantized_structured_sketch  ``csrc/structured_sketch.cu``          ``repro/kernels/freq_transform.py``
+                                                                    ``quantized_structured_sketch_kernel``
+===========================  =====================================  ==============================================
 
-``kernels.ops`` dispatches on the tensor's device; ``kernels._build`` compiles
-the sources with nvcc on first use and loads them with ctypes.
+The Python wrappers live in ``fourier_sketch.py`` (the first and third),
+``assign_argmin.py`` and ``freq_transform.py`` (the last two).
+``kernels.ops`` dispatches on the tensor's device and the operator's family;
+``kernels._build`` compiles the sources with nvcc on first use and loads them
+with ctypes; ``kernels._launch`` holds the wrappers' device checks and grid
+sizing.
 """

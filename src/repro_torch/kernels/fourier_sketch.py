@@ -1,17 +1,25 @@
-"""Fused random-Fourier-feature sketch sums: the CUDA kernel and its plain twin.
+"""Fused random-Fourier-feature sketch sums, float and quantized: the CUDA
+kernels and their plain twins.
 
-Counterpart of ``repro.kernels.fourier_sketch.fourier_sketch_kernel``.  Both
-functions here compute, for ``x (N, n)``, ``w (n, m)`` and ``beta (N,)``:
+Counterpart of ``repro.kernels.fourier_sketch``.  For ``x (N, n)`` and
+``w (n, m)``:
 
-    (sum_i beta_i cos(x_i W)  (m,),   sum_i beta_i sin(x_i W)  (m,))
+- :func:`fourier_sketch_sums` (``csrc/fourier_sketch.cu``, the reference's
+  ``fourier_sketch_kernel``) computes, with weights ``beta (N,)``,
 
-- :func:`fourier_sketch_sums` launches ``csrc/fourier_sketch.cu`` on a CUDA
-  tensor (or raises) and counts each launch in ``LAUNCHES``;
-- :func:`fourier_sketch_sums_plain` is the plain PyTorch version, written as
-  the reference oracle ``repro.kernels.ref.fourier_sketch_ref`` is, over
-  chunks of rows so the ``(chunk, m)`` projection stays bounded.
+      (sum_i beta_i cos(x_i W)  (m,),   sum_i beta_i sin(x_i W)  (m,))
 
-``kernels.ops`` picks between them by the tensor's device.
+  and counts each launch in ``LAUNCHES``;
+- :func:`quantized_fourier_sketch_sums` (``csrc/quantized_fourier_sketch.cu``,
+  the reference's ``quantized_fourier_sketch_kernel``) computes the int32 sums
+  of the QCKM codes of the dithered phases ``x_i W + xi``
+  (``core.quantize.quantize_codes``), optionally masked by ``valid (N,)``, and
+  counts each launch in ``QUANTIZED_LAUNCHES``.
+
+Each launches its kernel on CUDA tensors or raises.  Beside each is its plain
+PyTorch version (``*_plain``), summed over chunks of rows so the ``(chunk, m)``
+projection stays bounded; ``kernels.ops`` picks between them by the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -20,10 +28,14 @@ import ctypes
 
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import check_cuda, grid_rows, sm_count
 
-# Kernel launches since the count was last reset (plain calls do not count).
+# Kernel launches since the counts were last reset (plain calls do not count).
 LAUNCHES = 0
+QUANTIZED_LAUNCHES = 0
+_THREADS = 256  # frequencies per block of the quantized kernel
 
 # Rows each block sums before its partial goes to the second pass: short
 # enough that the float32 register accumulators stay accurate, long enough
@@ -115,3 +127,92 @@ def fourier_sketch_sums_plain(
         cos_s += b @ torch.cos(proj)
         sin_s += b @ torch.sin(proj)
     return cos_s, sin_s
+
+
+def _qlib() -> ctypes.CDLL:
+    lib = _build.load("quantized_fourier_sketch")
+    fn = lib.quantized_fourier_sketch_sums
+    if fn.argtypes is None:
+        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i64, i32, ptr, ptr, ptr]
+        fn.restype = i32
+        lib.quantized_fourier_sketch_error_string.argtypes = [i32]
+        lib.quantized_fourier_sketch_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_quantized(x, w, dither, valid) -> None:
+    if x.ndim != 2 or w.ndim != 2 or dither.ndim != 1:
+        raise ValueError(
+            f"expected x (N, n), w (n, m), dither (m,); got {tuple(x.shape)}, "
+            f"{tuple(w.shape)}, {tuple(dither.shape)}"
+        )
+    if x.shape[1] != w.shape[0] or dither.shape[0] != w.shape[1] or (
+        valid is not None and tuple(valid.shape) != (x.shape[0],)
+    ):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, dither "
+            f"{tuple(dither.shape)}, valid {None if valid is None else tuple(valid.shape)}"
+        )
+    for name, t in (("x", x), ("w", w), ("dither", dither), ("valid", valid)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def quantized_fourier_sketch_sums(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    dither: torch.Tensor,
+    bits: int,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel: int32 ``(qcos_sums (m,), qsin_sums (m,))``.
+
+    Raises for anything the kernel does not take.  Integer sums are exact,
+    so the result is bitwise repeatable and any split of the rows adds up to
+    the same bits.
+    """
+    global QUANTIZED_LAUNCHES
+    _check_quantized(x, w, dither, valid)
+    dev = check_cuda((("x", x), ("w", w), ("dither", dither), ("valid", valid)))
+    n_pts, n = x.shape
+    m = w.shape[1]
+    if m > 65535 * _THREADS:
+        raise ValueError(f"m = {m} exceeds the kernel's grid limit")
+    rows, groups = grid_rows(n_pts, -(-m // _THREADS), sm_count(dev))
+    lib = _qlib()
+    with torch.cuda.device(dev):
+        qcos = torch.zeros((m,), dtype=torch.int32, device=dev)
+        qsin = torch.zeros_like(qcos)
+        status = lib.quantized_fourier_sketch_sums(
+            x.data_ptr(), w.data_ptr(), dither.data_ptr(),
+            None if valid is None else valid.data_ptr(), n_pts, n, m, int(bits == 1),
+            float(qz.quantization_scale(bits)), rows, groups, qcos.data_ptr(),
+            qsin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if status != 0:
+        msg = lib.quantized_fourier_sketch_error_string(status).decode()
+        raise RuntimeError(f"quantized_fourier_sketch kernel launch failed: {msg} ({status})")
+    QUANTIZED_LAUNCHES += 1
+    return qcos, qsin
+
+
+def quantized_fourier_sketch_sums_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    dither: torch.Tensor,
+    bits: int,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: chunks of ``x @ w`` through
+    ``quantize.quantize_codes``, summed in int32."""
+    _check_quantized(x, w, dither, valid)
+    m = w.shape[1]
+    qcos = torch.zeros((m,), dtype=torch.int32, device=x.device)
+    qsin = torch.zeros_like(qcos)
+    for start in range(0, x.shape[0], _PLAIN_CHUNK):
+        v = None if valid is None else valid[start : start + _PLAIN_CHUNK, None]
+        qc, qs = qz.quantize_codes(x[start : start + _PLAIN_CHUNK] @ w, dither, bits, valid=v)
+        qcos += qc.sum(dim=0, dtype=torch.int32)
+        qsin += qs.sum(dim=0, dtype=torch.int32)
+    return qcos, qsin

@@ -1,17 +1,28 @@
-"""Device dispatch for the kernels (counterpart of ``repro.kernels.ops``).
+"""Device and operator-family dispatch for the kernels (counterpart of
+``repro.kernels.ops``).
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the kernel's plain PyTorch version.  Nothing else chooses
 between them, and no ``try`` falls back from one to the other.  Unlike the
-reference there is no padding here: the kernels mask their ragged edges.
+reference there is no padding of the data here: the kernels mask their
+ragged edges.
+
+The sketch-side entry points take a frequency operator (a raw ``(n, m)``
+tensor is wrapped as a dense one) and dispatch on its family: ``"dense"``
+runs the matmul-and-trig kernels (``kernels.fourier_sketch``),
+``"structured"`` the WHT-chain kernels (``kernels.freq_transform``).  An
+operator family with no kernel raises ``TypeError``: there is no unfused
+fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import freq_ops as fo
 from repro_torch.kernels import assign_argmin as _assign
 from repro_torch.kernels import fourier_sketch as _sketch
+from repro_torch.kernels import freq_transform as _ft
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -22,14 +33,57 @@ def _on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
-def fourier_sketch_sums(
-    x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor
+def _no_kernel(op) -> TypeError:
+    return TypeError(
+        f"no sketch kernel for the {type(op).__name__} operator family; the "
+        "kernels take 'dense' and 'structured' operators"
+    )
+
+
+def _pad_dither(dither: torch.Tensor, op: fo.StructuredOperator) -> torch.Tensor:
+    """The ``(m,)`` dither zero-padded to the block tail, as ``(nblocks, d)``
+    (the tail's codes are sliced off)."""
+    pad = op.nblocks * op.d - dither.shape[0]
+    return torch.nn.functional.pad(dither, (0, pad)).reshape(op.nblocks, op.d)
+
+
+def fourier_sketch_sums(x: torch.Tensor, w, beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw fused sums ``(sum b cos(x Ω) (m,), sum b sin(x Ω) (m,))`` — the
+    engine's float batch statistics: no ``1/N``, no stacked-real packaging."""
+    op = fo.as_operator(w)
+    cuda = _on_cuda(x)
+    if isinstance(op, fo.StructuredOperator):
+        fn = _ft.structured_sketch_sums if cuda else _ft.structured_sketch_sums_plain
+        c, s = fn(x, op.diags, op.radii, beta)
+        return c.reshape(-1)[: op.m], s.reshape(-1)[: op.m]
+    if isinstance(op, fo.DenseOperator):
+        fn = _sketch.fourier_sketch_sums if cuda else _sketch.fourier_sketch_sums_plain
+        return fn(x, op.w, beta)
+    raise _no_kernel(op)
+
+
+def quantized_fourier_sketch_sums(
+    x: torch.Tensor,
+    w,
+    dither: torch.Tensor,
+    bits: int,
+    valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raw fused sums ``(sum b cos(xW) (m,), sum b sin(xW) (m,))`` — the
-    engine's batch statistics: no ``1/N``, no stacked-real packaging."""
-    if _on_cuda(x):
-        return _sketch.fourier_sketch_sums(x, w, beta)
-    return _sketch.fourier_sketch_sums_plain(x, w, beta)
+    """QCKM encoder: int32 ``(q_cos_sums (m,), q_sin_sums (m,))`` of the codes
+    of the dithered phases ``x Ω + xi`` (``core.quantize.quantize_codes``);
+    rows with ``valid = 0`` contribute nothing."""
+    op = fo.as_operator(w)
+    cuda = _on_cuda(x)
+    if isinstance(op, fo.StructuredOperator):
+        fn = (_ft.quantized_structured_sketch_sums if cuda
+              else _ft.quantized_structured_sketch_sums_plain)
+        qc, qs = fn(x, op.diags, op.radii, _pad_dither(dither, op), bits, valid)
+        return qc.reshape(-1)[: op.m], qs.reshape(-1)[: op.m]
+    if isinstance(op, fo.DenseOperator):
+        fn = (_sketch.quantized_fourier_sketch_sums if cuda
+              else _sketch.quantized_fourier_sketch_sums_plain)
+        return fn(x, op.w, dither, bits, valid)
+    raise _no_kernel(op)
 
 
 def assign_argmin(

@@ -2,14 +2,19 @@
 smoke run's configuration (N = 10^7, K = n = 10, m = 1000, default budgets).
 
     PYTHONPATH=src python3 -m repro_torch.tools.decode_spread   (one CUDA card)
+        [--freq-op dense|structured] [--quantization none|1bit|<b>bit]
 
-Prints the k-means x5 SSE/N; whether two sketches of the same data, and two
+The options pick the sketch path (``CKMConfig.freq_op`` and
+``CKMConfig.sketch_quantization``; default the float dense path).  Prints
+the k-means x5 SSE/N; whether two sketches of the same data, and two
 decodes of the same sketch, are bitwise equal (also under
 ``torch.use_deterministic_algorithms``); then the relative SSE (CKM over
 k-means x5) of ``ckm.fit`` for seeds 1-8, and of ``ckm.fit`` with 3
 replicates for seeds 1-3.
 """
 
+import argparse
+import dataclasses
 import os
 import time
 
@@ -21,13 +26,21 @@ from repro_torch.data import synthetic
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--freq-op", default="dense", choices=("dense", "structured"))
+    parser.add_argument("--quantization", default="none")
+    args = parser.parse_args()
     # Deterministic cuBLAS needs this before the first CUDA call.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     x = synthetic.gaussian_mixture(0, 10_000_000, 10, 10, device=dev)
-    cfg = ckm.CKMConfig(k=10, m=1000)
+    cfg = ckm.CKMConfig(
+        k=10, m=1000, freq_op=args.freq_op, sketch_quantization=args.quantization
+    )
+    print(f"path: freq_op={cfg.freq_op} sketch_quantization={cfg.sketch_quantization}",
+          flush=True)
     km = lloyd.kmeans(2, x, lloyd.LloydConfig(k=10, replicates=5), device=dev)
     ref = float(km.sse)
     print("kmeans sse/N", ref / 1e7, flush=True)
@@ -69,7 +82,7 @@ def main() -> None:
             flush=True,
         )
     for seed in range(1, 4):
-        r = ckm.fit(seed, x, ckm.CKMConfig(k=10, m=1000, replicates=3), device=dev)
+        r = ckm.fit(seed, x, dataclasses.replace(cfg, replicates=3), device=dev)
         print(
             f"fit x3 seed {seed}: rel {float(ckm.sse(x, r.centroids, device=dev)) / ref:.4f}",
             flush=True,

@@ -93,11 +93,13 @@ def test_dense_operator_matches_reference():
 
 
 def test_registry_contract():
-    assert tfo.available_freq_ops() == ["dense"]
+    assert tfo.available_freq_ops() == ["dense", "structured"]
     op = tfo.make_operator("dense", _gen(4), 30, 3, 1.5, device="cpu")
     assert isinstance(op, tfo.DenseOperator) and op.materialize().shape == (3, 30)
     assert tfo.as_operator(op) is op
+    sop = tfo.make_operator("structured", _gen(4), 30, 3, 1.5, device="cpu")
+    assert isinstance(sop, tfo.StructuredOperator) and sop.materialize().shape == (3, 30)
     with pytest.raises(KeyError, match="available"):
-        tfo.make_operator("structured", _gen(4), 30, 3, 1.5, device="cpu")
+        tfo.make_operator("fastfood", _gen(4), 30, 3, 1.5, device="cpu")
     with pytest.raises(ValueError, match="already registered"):
         tfo.register_freq_op("dense")(lambda *a, **k: None)

@@ -69,3 +69,41 @@ def test_kernel_sources_avoid_fast_math_trig():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == set(_build.SOURCES)
+
+
+def test_kernel_sources_round_half_to_even():
+    """QCKM b-bit codes round half to even (``torch.round``/``jnp.round``):
+    ``__float2int_rn``, never ``roundf``, which rounds half away from zero."""
+    for name in ("quantized_fourier_sketch", "structured_sketch"):
+        code = re.sub(r"//.*", "", (PORT / "kernels" / "csrc" / f"{name}.cu").read_text())
+        assert "__float2int_rn" in code and not re.search(r"\bround[f]?\s*\(", code), name
+
+
+def test_new_entry_points_default_to_the_card():
+    """The slice's entry points that create data ask for the card by default:
+    on a CPU-only host they raise instead of running on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import ckm, freq_ops
+    from repro_torch.core.engine import SketchEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    gen = torch.Generator().manual_seed(0)
+    cfg = ckm.CKMConfig(k=2, m=40, freq_op="structured", sketch_quantization="1bit")
+    w = torch.zeros((2, 40))
+    for call in (
+        lambda: freq_ops.make_operator("structured", gen, 40, 2, 1.0),
+        lambda: ckm.make_quantizer(0, cfg, 40),
+        lambda: ckm.fit(0, torch.zeros((64, 2)), cfg),
+        lambda: convert.structured_operator_from_numpy(
+            np.ones((2, 3, 32)), np.ones((2, 32)), np.ones((2, 32)), 2, 40),
+        lambda: convert.quantizer_from_numpy(1, np.zeros(40)),
+        lambda: convert.quantized_state_from_numpy(
+            np.zeros(40), np.zeros(40), 0.0, np.zeros(2), np.zeros(2), 0.0),
+        lambda: SketchEngine(w, quantizer=convert.quantizer_from_numpy(1, np.zeros(40), "cpu")),
+    ):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()

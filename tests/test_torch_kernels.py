@@ -13,8 +13,11 @@ import torch
 
 from repro.core import freq_ops as jfo
 from repro.kernels import ops as jops
+from repro_torch.core import freq_ops as tfo
+from repro_torch.core.engine import SketchEngine
 from repro_torch.kernels import assign_argmin as aa
 from repro_torch.kernels import fourier_sketch as fs
+from repro_torch.kernels import freq_transform as ft
 from repro_torch.kernels import ops as kops
 
 pytestmark = pytest.mark.torch_port
@@ -105,15 +108,98 @@ def test_ops_dispatch_cpu_tensors_to_the_plain_versions(monkeypatch):
     assert (fs.LAUNCHES, aa.LAUNCHES) == before  # plain calls do not count
 
 
-@pytest.mark.parametrize("kernel", ["fourier_sketch", "assign_argmin"])
+def _structured(n=3, m=40):
+    return tfo.make_operator("structured", torch.Generator().manual_seed(0), m, n, 1.0,
+                             device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kernel",
+    ["fourier_sketch", "assign_argmin", "quantized_fourier_sketch", "structured_sketch",
+     "quantized_structured_sketch"],
+)
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The kernel wrappers launch on CUDA tensors or raise: no fallback."""
     x, w, beta = (torch.from_numpy(a) for a in _sketch_inputs(3, 20, 3, 8))
+    op = _structured()
+    dth = torch.zeros((op.nblocks, op.d))
+    calls = {
+        "fourier_sketch": lambda: fs.fourier_sketch_sums(x, w, beta),
+        "assign_argmin": lambda: aa.assign_argmin(x, x[:2].contiguous()),
+        "quantized_fourier_sketch": lambda: fs.quantized_fourier_sketch_sums(
+            x, w, torch.zeros(8), 1),
+        "structured_sketch": lambda: ft.structured_sketch_sums(x, op.diags, op.radii, beta),
+        "quantized_structured_sketch": lambda: ft.quantized_structured_sketch_sums(
+            x, op.diags, op.radii, dth, 4),
+    }
     with pytest.raises(ValueError, match="CUDA tensor"):
-        if kernel == "fourier_sketch":
-            fs.fourier_sketch_sums(x, w, beta)
-        else:
-            aa.assign_argmin(x, x[:2].contiguous())
+        calls[kernel]()
+
+
+def test_ops_dispatch_new_kernels_by_device_and_operator_family(monkeypatch):
+    """CPU tensors reach the plain versions of kernels 3-5 (dense quantized,
+    structured float and quantized) and never the kernel wrappers; each
+    result equals its plain version; no launch is counted."""
+
+    def no_kernel(*args):
+        raise AssertionError("kernel wrapper called for a CPU tensor")
+
+    for mod, name in ((fs, "quantized_fourier_sketch_sums"), (ft, "structured_sketch_sums"),
+                      (ft, "quantized_structured_sketch_sums")):
+        monkeypatch.setattr(mod, name, no_kernel)
+    x, w, beta = (torch.from_numpy(a) for a in _sketch_inputs(5, 50, 3, 40))
+    op = _structured()
+    dither = torch.rand(40, generator=torch.Generator().manual_seed(1))
+    before = (fs.QUANTIZED_LAUNCHES, ft.STRUCTURED_LAUNCHES, ft.QUANTIZED_STRUCTURED_LAUNCHES)
+    got = kops.quantized_fourier_sketch_sums(x, w, dither, 1)
+    want = fs.quantized_fourier_sketch_sums_plain(x, w, dither, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    c, s = kops.fourier_sketch_sums(x, op, beta)
+    pc, ps = ft.structured_sketch_sums_plain(x, op.diags, op.radii, beta)
+    assert torch.equal(c, pc.reshape(-1)[:40]) and torch.equal(s, ps.reshape(-1)[:40])
+    qc, qs = kops.quantized_fourier_sketch_sums(x, op, dither, 4)
+    padded = torch.nn.functional.pad(dither, (0, op.nblocks * op.d - 40)).reshape(op.nblocks, op.d)
+    pqc, pqs = ft.quantized_structured_sketch_sums_plain(x, op.diags, op.radii, padded, 4)
+    assert torch.equal(qc, pqc.reshape(-1)[:40]) and torch.equal(qs, pqs.reshape(-1)[:40])
+    assert (fs.QUANTIZED_LAUNCHES, ft.STRUCTURED_LAUNCHES,
+            ft.QUANTIZED_STRUCTURED_LAUNCHES) == before
+
+
+def test_operator_family_without_a_kernel_is_refused():
+    """No unfused fallback: ops and the engine raise for a family that has
+    no sketch kernel."""
+
+    class Identity(tfo.FrequencyOperator):
+        n = m = 3
+
+        def apply(self, x):
+            return x
+
+        def to(self, device):
+            return self
+
+    x = torch.zeros((4, 3))
+    with pytest.raises(TypeError, match="no sketch kernel"):
+        kops.fourier_sketch_sums(x, Identity(), torch.ones(4))
+    with pytest.raises(TypeError, match="no sketch kernel"):
+        kops.quantized_fourier_sketch_sums(x, Identity(), torch.zeros(3), 1)
+    with pytest.raises(TypeError, match="no sketch kernel"):
+        SketchEngine(Identity(), device="cpu")
+
+
+def test_structured_wrappers_check_shapes():
+    op = _structured()
+    x, _, beta = (torch.from_numpy(a) for a in _sketch_inputs(6, 20, 3, 8))
+    with pytest.raises(ValueError, match="radii must be"):
+        ft.structured_sketch_sums_plain(x, op.diags, op.radii[:, :4], beta)
+    with pytest.raises(ValueError, match="power of two"):
+        ft.structured_sketch_sums_plain(torch.zeros((2, 40)), op.diags, op.radii, beta[:2])
+    with pytest.raises(ValueError, match="dither must be"):
+        ft.quantized_structured_sketch_sums_plain(x, op.diags, op.radii, torch.zeros(40), 1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fs.quantized_fourier_sketch_sums_plain(x, torch.zeros((3, 8)), torch.zeros(7), 1)
+    with pytest.raises(TypeError, match="float32"):
+        ft.structured_sketch_sums_plain(x.double(), op.diags, op.radii, beta)
 
 
 def test_wrappers_check_shapes_and_dtypes():
