@@ -9,13 +9,17 @@ Gaussian mixture in R^10, m = 1000 frequencies); each kernel held against its
 plain PyTorch version at the main path's shapes and at ragged ones (the
 quantized and structured kernels also for bitwise repeatability over two
 launches and, for integer sums, exact split invariance), and the structured
-kernels again at the wide shape n = d = 2048, m = 20,000; ckm.fit,
-ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
-streaming structured, structured 1-bit QCKM), each with the launch counts it
-caused; the SSE of each CKM fit against k-means with 5 replicates; where
-fit's time goes (the sketch pass alone, and a short decode, dense and
-structured, under torch.profiler); one JSON line of per-kernel numbers, the total wall time
-and, last, the device line.  Any failed check raises and the script exits
+kernels again at the wide shape n = d = 2048, m = 20,000; the decoder
+kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
+wide shape; amp_denoise at the decoder's shape, a wide one, the deep tail
+and open boxes); ckm.fit, ckm.fit_streaming and lloyd.kmeans, then the
+slice-2 fits (dense 1-bit QCKM, streaming structured, structured 1-bit QCKM)
+and the slice-3 fits (fit with decoder="sketch_shift", fit_streaming with
+decoder="amp"), each with the launch counts it caused; the SSE of each CKM
+fit against k-means with 5 replicates; where fit's time goes (the sketch
+pass alone, and short decodes under torch.profiler: CLOMPR dense and
+structured, sketch_shift, amp); one JSON line of per-kernel numbers, the
+total wall time and, last, the device line.  Any failed check raises and the script exits
 non-zero before the last line.  Without a CUDA card it exits non-zero and
 prints no result.
 """
@@ -45,6 +49,10 @@ TIMED_LAUNCHES = 10
 # reference's frequency-operator benchmark (n = 2048), with a ragged last
 # frequency block and a ragged N.
 WIDE_N, WIDE_DIM, WIDE_M = 100_003, 2048, 20_000
+# The sketch_shift decoder's swarm: CKMConfig.shift_candidates (8) per
+# cluster; a ragged swarm and sketch for the masked edges.
+SHIFT_P = 8 * K
+RAGGED_P, RAGGED_M = 83, 1003
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -62,6 +70,14 @@ DIST_RTOL = 4e-6
 # kernel's and PyTorch's phases or trig round apart; the flips are held to
 # max |dq| / N <= 1e-4.
 CODE_TOL = 1e-4
+# sketch_shift score and gradient after the division by m: the engine's
+# 1e-4 bar (the kernel's FMA chain and cuBLAS round the phase apart).
+SHIFT_TOL = 1e-4
+# amp_denoise, in the natural units of each moment (mean / max(1, sqrt q),
+# variance / max(1, q)): the reference's 1e-5 bar.  Kernel and plain version
+# call the same erfcf, expf and sqrtf on the card and round each operation
+# alike.
+DENOISE_TOL = 1e-5
 # |z_stream - z|: the same points summed over other batch boundaries.
 STREAM_TOL = 1e-5
 # CKM's SSE over k-means x5 SSE: CKM's decode varies with the seed, and this
@@ -138,6 +154,21 @@ def assign_bound(n_pts: int, n: int, k: int) -> tuple[float, str]:
     # scale-and-subtract and the compare (3).
     n_bytes = 4 * (n_pts * n + k * n) + 8 * n_pts
     return bound(n_bytes, n_pts * k * (2 * n + 3))
+
+
+def shift_bound(p_cand: int, n: int, m: int) -> tuple[float, str]:
+    # Per (candidate, frequency): the phase (2n), sincosf (2, one each), the
+    # density's two multiply-adds (4), t (4) and the gradient's n FMAs (2n).
+    # Bytes: c, w, z1, z2 read once, f and g written once.
+    n_bytes = 4 * (2 * p_cand * n + n * m + 2 * m + p_cand)
+    return bound(n_bytes, p_cand * m * (4 * n + 10))
+
+
+def denoise_bound(k_est: int, n: int) -> tuple[float, str]:
+    # About 30 operations an entry (two divisions, two exps, two erfcs, the
+    # moments and the clips, each counted as one); r read and the two
+    # moments written once, lo, hi and q once per coordinate.
+    return bound(4 * (3 * k_est * n + 3 * n), 30 * k_est * n)
 
 
 def card_line() -> str:
@@ -284,6 +315,63 @@ def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None
                 results[name] = r
 
 
+def check_shift(ks, c, w, z, label):
+    """sketch_shift kernel vs its plain version on the card, after the
+    division by m; bitwise repeatable over two launches."""
+    m = w.shape[1]
+    z1, z2 = z[:m], z[m:]
+    f1, g1 = ks.sketch_shift_sums(c, w, z1, z2)
+    f2, g2 = ks.sketch_shift_sums(c, w, z1, z2)
+    torch.cuda.synchronize()
+    pf, pg = ks.sketch_shift_sums_plain(c, w, z1, z2)
+    err_f = float(torch.amax(torch.abs(f1 - pf))) / m
+    err_g = float(torch.amax(torch.abs(g1 - pg))) / m
+    err = max(err_f, err_g)
+    check(err <= SHIFT_TOL, f"sketch_shift {label}: max|d(f, g)/m| {err:.3e} > {SHIFT_TOL}")
+    check(torch.equal(f1, f2) and torch.equal(g1, g2),
+          f"sketch_shift {label}: two launches differ bitwise")
+    line = (
+        f"[sketch_shift {label}] P={c.shape[0]} n={c.shape[1]} m={m} max|df/m|={err_f:.3e} "
+        f"max|dg/m|={err_g:.3e} (tol {SHIFT_TOL}) bitwise-repeatable"
+    )
+    return _timed(
+        {"max_abs_err": err},
+        lambda: ks.sketch_shift_sums(c, w, z1, z2),
+        lambda: ks.sketch_shift_sums_plain(c, w, z1, z2),
+        lambda: shift_bound(c.shape[0], c.shape[1], m),
+        line,
+    )
+
+
+def check_denoise(kd, r, q, lo, hi, label):
+    """amp_denoise kernel vs its plain version on the card, in the natural
+    units of each moment; finite moments inside their bounds."""
+    qt = torch.tensor(q, dtype=torch.float32, device=r.device)
+    mean, var = kd.amp_denoise(r, qt, lo, hi)
+    torch.cuda.synchronize()
+    pm, pv = kd.amp_denoise_plain(r, qt, lo, hi)
+    err = max(
+        float(torch.amax(torch.abs(mean - pm))) / max(1.0, q ** 0.5),
+        float(torch.amax(torch.abs(var - pv))) / max(1.0, q),
+    )
+    check(err <= DENOISE_TOL, f"amp_denoise {label}: max error {err:.3e} > {DENOISE_TOL}")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+          f"amp_denoise {label}: non-finite moments")
+    check(bool(((mean >= lo) & (mean <= hi)).all() and (var > 0).all() and (var <= qt).all()),
+          f"amp_denoise {label}: moments outside their bounds")
+    line = (
+        f"[amp_denoise {label}] K={r.shape[0]} n={r.shape[1]} q={q} max err (natural units)="
+        f"{err:.3e} (tol {DENOISE_TOL})"
+    )
+    return _timed(
+        {"max_abs_err": err},
+        lambda: kd.amp_denoise(r, qt, lo, hi),
+        lambda: kd.amp_denoise_plain(r, qt, lo, hi),
+        lambda: denoise_bound(r.shape[0], r.shape[1]),
+        line,
+    )
+
+
 def check_assign(aa, x, c, label, dup_of=None):
     """assign_argmin kernel vs its plain version on the card.  Labels may
     differ only at near-ties, where the distances to both labels agree within
@@ -323,12 +411,15 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
 
+    from repro_torch import device as device_mod
     from repro_torch.core import ckm, freq_ops, frequencies, lloyd, quantize
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
+    from repro_torch.kernels import amp_denoise as kd
     from repro_torch.kernels import assign_argmin as aa
     from repro_torch.kernels import fourier_sketch as fs
     from repro_torch.kernels import freq_transform as ft
+    from repro_torch.kernels import sketch_shift as ks
 
     smoke_t0 = time.perf_counter()
 
@@ -398,7 +489,50 @@ def main() -> None:
     op_w = freq_ops.make_operator("structured", g_freq, WIDE_M, WIDE_DIM, sigma2_w, device=dev)
     check_slice2_kernels(fs, ft, xw, None, op_w, quantize.draw_dither(g_dither, WIDE_M),
                          "wide", WIDE_N // 3)
-    del xw
+
+    # 4d. The decoder kernels.  sketch_shift at the decoder's swarm on the
+    # fit's operator and sketch, at a ragged swarm and sketch, and on the
+    # materialised wide structured operator (what the decoder scores a
+    # structured fit through).
+    lo_x, hi_x = torch.amin(x, 0), torch.amax(x, 0)
+
+    def swarm(p_cand, lo, hi):
+        return (lo + torch.rand((p_cand, lo.shape[0]), generator=gen, device=dev)
+                * (hi - lo)).contiguous()
+
+    def dense_sketch(xs, ws):
+        c_s, s_s = fs.fourier_sketch_sums(xs, ws, ones[: xs.shape[0]])
+        return torch.cat([c_s, -s_s]) / xs.shape[0]
+
+    z_fit, op_fit, _, _ = ckm.compute_sketch(device_mod.derive_seed(FIT_SEED, 0), x, cfg,
+                                             device=dev)
+    results["sketch_shift"] = check_shift(ks, swarm(SHIFT_P, lo_x, hi_x), op_fit.w, z_fit,
+                                          "decoder shape")
+    w_r = frequencies.draw_frequencies(g_freq, RAGGED_M, DIM, sigma2, device=dev)
+    check_shift(ks, swarm(RAGGED_P, lo_x, hi_x), w_r, dense_sketch(x[:RAGGED_N], w_r), "ragged")
+    c_w, s_w = ft.structured_sketch_sums(xw, op_w.diags, op_w.radii, ones[:WIDE_N])
+    z_w = torch.cat([c_w.reshape(-1)[:WIDE_M], -s_w.reshape(-1)[:WIDE_M]]) / WIDE_N
+    check_shift(ks, swarm(SHIFT_P, torch.amin(xw, 0), torch.amax(xw, 0)),
+                op_w.materialize().contiguous(), z_w, "wide structured")
+    del xw, c_w, s_w, z_w
+
+    # amp_denoise at the decoder's shape (K estimates in the data's box), a
+    # wide one across three variances, the deep tail and open boxes.
+    r_k = (lo_x + (torch.rand((K, DIM), generator=gen, device=dev) * 1.4 - 0.2)
+           * (hi_x - lo_x)).contiguous()
+    results["amp_denoise"] = check_denoise(kd, r_k, 0.5, lo_x, hi_x, "decoder shape")
+    r_w = torch.randn((256, 130), generator=gen, device=dev) * 4
+    lo_w = -torch.abs(torch.randn((130,), generator=gen, device=dev)) - 0.1
+    hi_w = torch.abs(torch.randn((130,), generator=gen, device=dev)) + 0.1
+    for q in (1e-4, 0.5, 25.0):
+        check_denoise(kd, r_w, q, lo_w, hi_w, "wide")
+    tail = torch.tensor([[1e6] * 8, [-1e6] * 8, [50.0] * 8], device=dev)
+    check_denoise(kd, tail, 1.0, -torch.ones(8, device=dev), torch.ones(8, device=dev),
+                  "deep tail")
+    inf = float("inf")
+    check_denoise(kd, torch.tensor([[0.3, -2.0, 5.0, -5.0]], device=dev), 2.0,
+                  torch.tensor([-inf, -1.0, -inf, -1.0], device=dev),
+                  torch.tensor([inf, inf, 1.0, 1.0], device=dev), "open boxes")
 
     # 5-7. The main path, each phase with the launch counts it caused.
     counters = {
@@ -407,6 +541,8 @@ def main() -> None:
         "quantized_fourier_sketch": (fs, "QUANTIZED_LAUNCHES"),
         "structured_sketch": (ft, "STRUCTURED_LAUNCHES"),
         "quantized_structured_sketch": (ft, "QUANTIZED_STRUCTURED_LAUNCHES"),
+        "sketch_shift": (ks, "LAUNCHES"),
+        "amp_denoise": (kd, "LAUNCHES"),
     }
     launches = dict.fromkeys(counters, 0)
     phase_s = {}
@@ -463,8 +599,9 @@ def main() -> None:
     )
     check(rel <= MAX_RELATIVE_SSE, f"relative SSE {rel:.4f} > {MAX_RELATIVE_SSE}")
 
-    # 8b. The slice-2 paths: each fit through its kernel, its sketch pass
-    # timed alone, its SSE against k-means x5.
+    # 8b. The slice-2 paths (sketch kernels) and the slice-3 paths (decoder
+    # kernels): each fit through its kernel, its sketch pass timed alone,
+    # its SSE against k-means x5.
     slice2 = [
         ("fit-1bit", "quantized_fourier_sketch", False,
          dataclasses.replace(cfg, sketch_quantization="1bit")),
@@ -472,6 +609,9 @@ def main() -> None:
          dataclasses.replace(cfg, freq_op="structured")),
         ("fit-structured-1bit", "quantized_structured_sketch", False,
          dataclasses.replace(cfg, freq_op="structured", sketch_quantization="1bit")),
+        ("fit-sketch_shift", "sketch_shift", False,
+         dataclasses.replace(cfg, decoder="sketch_shift")),
+        ("fit-amp", "amp_denoise", True, dataclasses.replace(cfg, decoder="amp")),
     ]
     slice2_res = {}
     for label, kernel, streaming, cfg2 in slice2:
@@ -509,30 +649,45 @@ def main() -> None:
     adam_steps = 2 * K * (short.atom_steps + short.joint_steps) + short.final_steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
-    def profile_decode(r):
+    def profile_decode(r, short_cfg, n_units, unit):
         """Wall seconds, device-busy seconds and device operations of a
-        short decode of ``r``'s sketch under the profiler."""
+        short decode of ``r``'s sketch under the profiler, and the device
+        operations per ``unit`` (``n_units`` of them in the decode)."""
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            ckm.decode_sketch(FIT_SEED, r.sketch, r.freq_op, *r.bounds, short, device=dev)
+            ckm.decode_sketch(FIT_SEED, r.sketch, r.freq_op, *r.bounds, short_cfg, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in device_ops) / 1e6
         n_ops = sum(e.count for e in device_ops)
         return (
-            f"profiled short decode ({adam_steps} Adam steps): wall {wall:.2f}s, device busy "
+            f"profiled short decode ({n_units} {unit}s): wall {wall:.2f}s, device busy "
             f"{busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device operations, "
-            f"{n_ops / adam_steps:.1f} per Adam step"
+            f"{n_ops / n_units:.1f} per {unit}"
             + ("" if busy else " (the profiler saw no device time: busy share not measured)")
         )
 
     print(
         f"[fit time] fit {phase_s['fit']:.2f}s = sketch pass {sketch_s:.3f}s + decode "
-        f"{phase_s['fit'] - sketch_s:.2f}s; {profile_decode(res)}",
+        f"{phase_s['fit'] - sketch_s:.2f}s; {profile_decode(res, short, adam_steps, 'Adam step')}",
         flush=True,
     )
-    print(f"[fit-structured time] {profile_decode(slice2_res['fit-structured'])}", flush=True)
+    print(f"[fit-structured time] "
+          f"{profile_decode(slice2_res['fit-structured'], short, adam_steps, 'Adam step')}",
+          flush=True)
+    # The decoders' loops alone (no polish): K rounds of mean-shift steps
+    # (plus one harvest score a round, NNLS and deflation), and GAMP
+    # iterations (each with its inner NNLS weight refresh).
+    short_ss = dataclasses.replace(cfg, decoder="sketch_shift", shift_steps=30,
+                                   shift_polish_steps=0)
+    print(f"[fit-sketch_shift time] "
+          f"{profile_decode(slice2_res['fit-sketch_shift'], short_ss, K * 30, 'mean-shift step')}",
+          flush=True)
+    short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
+    print(f"[fit-amp time] "
+          f"{profile_decode(slice2_res['fit-amp'], short_amp, 30, 'GAMP iteration')}",
+          flush=True)
 
     # 10. Per-kernel numbers.
     meta = {
@@ -546,6 +701,10 @@ def main() -> None:
                               "src/repro/kernels/freq_transform.py:181"),
         "quantized_structured_sketch": ("src/repro_torch/kernels/csrc/structured_sketch.cu",
                                         "src/repro/kernels/freq_transform.py:217"),
+        "sketch_shift": ("src/repro_torch/kernels/csrc/sketch_shift.cu",
+                         "src/repro/kernels/sketch_shift.py:67"),
+        "amp_denoise": ("src/repro_torch/kernels/csrc/amp_denoise.cu",
+                        "src/repro/kernels/amp_denoise.py:79"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -36,14 +36,19 @@ from repro_torch.core import decoders as dec_mod
 from repro_torch.core import freq_ops as fo
 from repro_torch.core import frequencies as freq_mod
 from repro_torch.core import quantize as qz
-from repro_torch.core.decoders import CLOMPRConfig
+from repro_torch.core.decoders import AMPConfig, CLOMPRConfig, SketchShiftConfig
 from repro_torch.core.engine import SketchEngine
 from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
 class CKMConfig:
-    """The fields of the reference's ``CKMConfig`` that this port honours."""
+    """The fields of the reference's ``CKMConfig`` that this port honours.
+
+    ``shift_impl`` and ``amp_impl`` have no counterpart (the tensor's device
+    picks the kernel or its plain version), nor has ``trace_convergence``
+    (the decoders' tracing comes with the obs port).
+    """
 
     k: int
     m: int | None = None  # sketch size; default m = 10*K*n
@@ -69,10 +74,49 @@ class CKMConfig:
     # summed in int32; finalize dequantizes (E[sign] correction) before the
     # decoder sees the sketch (see core.quantize).
     sketch_quantization: str = "none"
+    # Sketch decoder (core.decoders registry): "clompr" (paper Algorithm 1),
+    # "sketch_shift" (mean shift on the residual sketched density) or "amp"
+    # (CL-AMP joint message passing, accurate at small m).
     decoder: str = "clompr"
+    # sketch_shift knobs (nnls_iters, joint_lr and init above are shared).
+    shift_candidates: int = 8  # mean-shift swarm size per cluster (P = 8*K)
+    shift_steps: int = 150  # fixed-point iterations per round
+    shift_step_scale: float = 1.0  # multiplier on the natural step h^2
+    shift_polish_steps: int = 400  # joint (C, alpha) Adam after the rounds
+    # Mode-harvest dedup radius in units of 1/median||omega|| (one kernel
+    # std), deliberately tighter than clompr's merge_radius_scale.
+    shift_dedup_scale: float = 1.0
+    # amp (CL-AMP) knobs (nnls_iters, joint_lr and init above are shared).
+    amp_iters: int = 300  # GAMP iterations
+    amp_damp: float = 0.3  # damping on the message updates (1 = undamped)
+    amp_polish_steps: int = 600  # joint (C, alpha) Adam after the loop
 
     def sketch_size(self, n: int) -> int:
         return self.m if self.m is not None else 10 * self.k * n
+
+    def sketch_shift_config(self) -> SketchShiftConfig:
+        return SketchShiftConfig(
+            k=self.k,
+            candidates=max(self.shift_candidates * self.k, self.k),
+            shift_steps=self.shift_steps,
+            step_scale=self.shift_step_scale,
+            nnls_iters=self.nnls_iters,
+            polish_steps=self.shift_polish_steps,
+            polish_lr=self.joint_lr,
+            init=self.init,
+            dedup_radius_scale=self.shift_dedup_scale,
+        )
+
+    def amp_config(self) -> AMPConfig:
+        return AMPConfig(
+            k=self.k,
+            iters=self.amp_iters,
+            damp=self.amp_damp,
+            nnls_iters=self.nnls_iters,
+            polish_steps=self.amp_polish_steps,
+            polish_lr=self.joint_lr,
+            init=self.init,
+        )
 
     def clompr_config(self) -> CLOMPRConfig:
         return CLOMPRConfig(

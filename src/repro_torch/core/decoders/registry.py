@@ -10,7 +10,8 @@ reference's PRNG key), ``z`` the stacked-real ``(2m,)`` sketch, ``w`` the
 frequency operator, ``(lower, upper)`` the box bounds harvested by the engine
 and ``cfg`` a ``ckm.CKMConfig``-shaped object.  ``cost`` is the sketch-domain
 objective ``||z - A(C) alpha||^2``, the same for every decoder, so replicate
-selection compares like with like.  This slice registers ``"clompr"``.
+selection compares like with like.  Built-ins: ``"clompr"``,
+``"sketch_shift"`` and ``"amp"``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ tensor is wrapped as a dense one) and dispatch on its family: ``"dense"``
 runs the matmul-and-trig kernels (``kernels.fourier_sketch``),
 ``"structured"`` the WHT-chain kernels (``kernels.freq_transform``).  An
 operator family with no kernel raises ``TypeError``: there is no unfused
-fallback.
+fallback.  The decoders' entry points (``sketch_shift_scores``,
+``amp_denoise``) take plain tensors: a dense ``(n, m)`` frequency matrix and
+the sketch, or the pseudo-data, its variance and the box.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import freq_ops as fo
+from repro_torch.kernels import amp_denoise as _amp
 from repro_torch.kernels import assign_argmin as _assign
 from repro_torch.kernels import fourier_sketch as _sketch
 from repro_torch.kernels import freq_transform as _ft
+from repro_torch.kernels import sketch_shift as _shift
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -93,3 +97,38 @@ def assign_argmin(
     if _on_cuda(x):
         return _assign.assign_argmin(x, c)
     return _assign.assign_argmin_plain(x, c)
+
+
+def sketch_shift_scores(
+    c: torch.Tensor, w: torch.Tensor, z: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sketched-density score and gradient at candidates ``c (P, n)``:
+
+        f(c)  = (1/m) sum_j [cos(w_j c) z1_j - sin(w_j c) z2_j]       (P,)
+        grad  = (1/m) sum_j w_j [-sin(w_j c) z1_j - cos(w_j c) z2_j]  (P, n)
+
+    for the stacked-real sketch ``z = [z1, z2] (2m,)`` and a dense ``(n, m)``
+    frequency matrix ``w`` (a structured operator is materialised by the
+    caller, once per decode).  The inner step of the sketch_shift decoder.
+    """
+    m = w.shape[1]
+    fn = _shift.sketch_shift_sums if _on_cuda(c) else _shift.sketch_shift_sums_plain
+    f, g = fn(c, w, z[:m], z[m:])
+    return f / m, g / m
+
+
+def amp_denoise(
+    r: torch.Tensor, q: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Truncated-normal posterior ``(mean (K, n), var (K, n))`` of the
+    pseudo-data ``r`` with pseudo-variance ``q`` under the box prior
+    ``[lower, upper]`` (the CL-AMP input channel).  ``q`` is clamped at 1e-20
+    on its own device and never read by the host; the bounds broadcast to
+    ``(n,)``."""
+    n = r.shape[1]
+    q = torch.clamp(torch.as_tensor(q, dtype=torch.float32, device=r.device).reshape(()),
+                    min=1e-20)
+    lo = torch.broadcast_to(lower.to(torch.float32), (n,)).contiguous()
+    hi = torch.broadcast_to(upper.to(torch.float32), (n,)).contiguous()
+    fn = _amp.amp_denoise if _on_cuda(r) else _amp.amp_denoise_plain
+    return fn(r, q, lo, hi)

@@ -3,9 +3,11 @@ smoke run's configuration (N = 10^7, K = n = 10, m = 1000, default budgets).
 
     PYTHONPATH=src python3 -m repro_torch.tools.decode_spread   (one CUDA card)
         [--freq-op dense|structured] [--quantization none|1bit|<b>bit]
+        [--decoder clompr|sketch_shift|amp]
 
 The options pick the sketch path (``CKMConfig.freq_op`` and
-``CKMConfig.sketch_quantization``; default the float dense path).  Prints
+``CKMConfig.sketch_quantization``; default the float dense path) and the
+decoder (``CKMConfig.decoder``; default CLOMPR).  Prints
 the k-means x5 SSE/N; whether two sketches of the same data, and two
 decodes of the same sketch, are bitwise equal (also under
 ``torch.use_deterministic_algorithms``); then the relative SSE (CKM over
@@ -29,6 +31,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--freq-op", default="dense", choices=("dense", "structured"))
     parser.add_argument("--quantization", default="none")
+    parser.add_argument("--decoder", default="clompr", choices=("clompr", "sketch_shift", "amp"))
     args = parser.parse_args()
     # Deterministic cuBLAS needs this before the first CUDA call.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -37,10 +40,11 @@ def main() -> None:
     dev = torch.device("cuda")
     x = synthetic.gaussian_mixture(0, 10_000_000, 10, 10, device=dev)
     cfg = ckm.CKMConfig(
-        k=10, m=1000, freq_op=args.freq_op, sketch_quantization=args.quantization
+        k=10, m=1000, freq_op=args.freq_op, sketch_quantization=args.quantization,
+        decoder=args.decoder,
     )
-    print(f"path: freq_op={cfg.freq_op} sketch_quantization={cfg.sketch_quantization}",
-          flush=True)
+    print(f"path: freq_op={cfg.freq_op} sketch_quantization={cfg.sketch_quantization} "
+          f"decoder={cfg.decoder}", flush=True)
     km = lloyd.kmeans(2, x, lloyd.LloydConfig(k=10, replicates=5), device=dev)
     ref = float(km.sse)
     print("kmeans sse/N", ref / 1e7, flush=True)

@@ -2,6 +2,8 @@
 CLOMPR decoding the reference's sketch, the port's own fit and streaming fit,
 the evaluation helpers, and the device rule of the entry points."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -140,6 +142,8 @@ def test_entry_points_raise_without_a_card_instead_of_running_on_the_cpu():
     for call in (
         lambda: tckm.fit(0, x, cfg),
         lambda: tckm.fit_streaming(0, [x], cfg),
+        lambda: tckm.fit(0, x, dataclasses.replace(cfg, decoder="sketch_shift")),
+        lambda: tckm.fit_streaming(0, [x], dataclasses.replace(cfg, decoder="amp")),
         lambda: tckm.sse(x, x[:2]),
         lambda: tsynth.gaussian_mixture(0, 10, 2, 2),
         lambda: convert.operator_from_numpy(np.ones((2, 3))),

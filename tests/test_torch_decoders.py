@@ -93,9 +93,11 @@ def test_residual_cost_and_resolution_radius_match_reference():
 
 
 def test_decoder_registry_contract():
-    assert tdec.available_decoders() == ["clompr"]
+    assert tdec.available_decoders() == ["amp", "clompr", "sketch_shift"]
     assert tdec.get_decoder("clompr") is tdec.DECODERS["clompr"]
+    assert tdec.get_decoder("amp").__name__ == "decode_amp"
+    assert tdec.get_decoder("sketch_shift").__name__ == "decode_sketch_shift"
     with pytest.raises(KeyError, match="available"):
-        tdec.get_decoder("amp")
+        tdec.get_decoder("no_such_decoder")
     with pytest.raises(ValueError, match="already registered"):
         tdec.register_decoder("clompr")(lambda *a: None)

@@ -71,6 +71,19 @@ def test_kernel_sources_avoid_fast_math_trig():
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == set(_build.SOURCES)
 
 
+def test_amp_denoise_source_uses_the_accurate_math_functions():
+    """The denoiser keeps the reference's numerics: expf, erfcf and sqrtf,
+    none of the fast __ intrinsics, and no float atomics in the decoder
+    kernels (their sums must repeat bitwise)."""
+    code = re.sub(r"//.*", "", (PORT / "kernels" / "csrc" / "amp_denoise.cu").read_text())
+    for fn in ("expf(", "erfcf(", "sqrtf("):
+        assert fn in code, fn
+    assert not re.search(r"__(expf|exp10f|logf|powf|fdividef)\b", code)
+    for name in ("amp_denoise", "sketch_shift"):
+        code = re.sub(r"//.*", "", (PORT / "kernels" / "csrc" / f"{name}.cu").read_text())
+        assert "atomicAdd" not in code, name
+
+
 def test_kernel_sources_round_half_to_even():
     """QCKM b-bit codes round half to even (``torch.round``/``jnp.round``):
     ``__float2int_rn``, never ``roundf``, which rounds half away from zero."""

@@ -15,10 +15,12 @@ from repro.core import freq_ops as jfo
 from repro.kernels import ops as jops
 from repro_torch.core import freq_ops as tfo
 from repro_torch.core.engine import SketchEngine
+from repro_torch.kernels import amp_denoise as kamp
 from repro_torch.kernels import assign_argmin as aa
 from repro_torch.kernels import fourier_sketch as fs
 from repro_torch.kernels import freq_transform as ft
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import sketch_shift as kss
 
 pytestmark = pytest.mark.torch_port
 
@@ -116,7 +118,7 @@ def _structured(n=3, m=40):
 @pytest.mark.parametrize(
     "kernel",
     ["fourier_sketch", "assign_argmin", "quantized_fourier_sketch", "structured_sketch",
-     "quantized_structured_sketch"],
+     "quantized_structured_sketch", "sketch_shift", "amp_denoise"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The kernel wrappers launch on CUDA tensors or raise: no fallback."""
@@ -131,6 +133,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
         "structured_sketch": lambda: ft.structured_sketch_sums(x, op.diags, op.radii, beta),
         "quantized_structured_sketch": lambda: ft.quantized_structured_sketch_sums(
             x, op.diags, op.radii, dth, 4),
+        "sketch_shift": lambda: kss.sketch_shift_sums(x, w, w[0], w[1]),
+        "amp_denoise": lambda: kamp.amp_denoise(x, torch.tensor(1.0), x[0], x[1]),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[kernel]()
