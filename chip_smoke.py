@@ -12,17 +12,24 @@ launches and, for integer sums, exact split invariance), and the structured
 kernels again at the wide shape n = d = 2048, m = 20,000; the decoder
 kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
 wide shape; amp_denoise at the decoder's shape, a wide one, the deep tail
-and open boxes); ckm.fit, ckm.fit_streaming and lloyd.kmeans, then the
-slice-2 fits (dense 1-bit QCKM, streaming structured, structured 1-bit QCKM)
-and the slice-3 fits (fit with decoder="sketch_shift", fit_streaming with
-decoder="amp"), each with the launch counts it caused; the SSE of each CKM
-fit against k-means with 5 replicates; where fit's time goes (the sketch
-pass alone, and short decodes under torch.profiler: CLOMPR dense and
-structured, sketch_shift, amp); one JSON line of per-kernel numbers, the
-total wall time and, last, the device line.  Any failed check raises and the script exits
-non-zero before the last line.  Without a CUDA card it exits non-zero and
-prints no result.
-"""
+and open boxes); the sweep of the sketch kernels' widths at N = 20,001
+(kernels 1-3 at n = 3 to 100, kernels 4-5 at d = 64 to 1024); flash
+attention (kernel 8) at its edge cases and at the llama3.2-1B, gemma3-1B
+local-layer and 32k-prefill shapes, beside SDPA's time; ckm.fit,
+ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
+streaming structured, structured 1-bit QCKM) and the slice-3 fits (fit with
+decoder="sketch_shift", fit_streaming with decoder="amp"), each with the
+launch counts it caused; the SSE of each CKM fit against k-means with 5
+replicates; each decoder's full decode again with its loops eager, against
+the fits' graphed decodes (bits, launch counts, seconds); where fit's time
+goes (the sketch pass alone, and short decodes, eager then graphed, each
+timed alone and under torch.profiler: CLOMPR dense and structured,
+sketch_shift, amp); the attention
+entry point (ops.flash_attention) at the three model shapes, with its launch
+counts; one JSON line of per-kernel numbers, the total wall time and, last,
+the device line.  Any failed check raises and the script exits non-zero
+before the last line.  Without a CUDA card it exits non-zero and prints no
+result."""
 
 from __future__ import annotations
 
@@ -54,9 +61,42 @@ WIDE_N, WIDE_DIM, WIDE_M = 100_003, 2048, 20_000
 SHIFT_P = 8 * K
 RAGGED_P, RAGGED_M = 83, 1003
 
+# The sweep of the sketch kernels' template instances and generic paths, at
+# small N: kernels 1-3 at every NP (4 to 64) and beyond (generic), kernels
+# 4-5 at d = 64, 128, 256, 512, 1024 (every case of the structured switch
+# not reached by the main path's d = 32 and the wide d = 2048).
+SWEEP_N, SWEEP_M = 20_001, 300
+SWEEP_DENSE_NS = (3, 6, 16, 24, 48, 100)
+SWEEP_STRUCTURED_NS = (40, 100, 200, 500, 1000)
+# Flash attention at the reference's model widths (src/repro/configs/):
+# llama3.2-1B (H = 32, KV = 8, hd = 64) at S = 4096 and at the 32k-token
+# prefill that models/layers.py names, and a gemma3-1B local layer (H = 4,
+# KV = 1, hd = 256, window 512); (B, S, H, KV, hd, window, dtype).
+ATTENTION_SHAPES = {
+    "llama3.2-1b bf16": (1, 4096, 32, 8, 64, 0, torch.bfloat16),
+    "llama3.2-1b f32": (1, 4096, 32, 8, 64, 0, torch.float32),
+    "gemma3-1b local bf16": (1, 4096, 4, 1, 256, 512, torch.bfloat16),
+    "llama3.2-1b prefill-32k bf16": (1, 32768, 32, 8, 64, 0, torch.bfloat16),
+}
+# The plain version's q chunk at long S (its (BH, chunk, S) float32 scores).
+PLAIN_Q_CHUNK = 512
+# Edge cases: (BH, BKV, S_q, S_kv, hd, causal, window, dtype).
+FLASH_EDGES = (
+    *((4, 2, 100, 100, hd, True, 0, torch.float32) for hd in (8, 16, 32, 64, 128, 256)),
+    *((4, 2, 100, 100, hd, True, 0, torch.bfloat16) for hd in (8, 64, 256)),
+    (4, 2, 130, 70, 64, True, 0, torch.float32),     # S_q > S_kv
+    (4, 2, 70, 130, 64, False, 0, torch.float32),    # S_q < S_kv, non-causal
+    (4, 1, 300, 300, 64, True, 50, torch.float32),   # sliding window
+    (4, 1, 300, 100, 32, True, 40, torch.float32),   # rows with no key
+    (4, 1, 300, 100, 32, False, 40, torch.float32),  # rows with no key, window only
+    (8, 8, 1000, 1000, 128, True, 0, torch.bfloat16),  # ragged causal S
+    (4, 4, 257, 257, 72, True, 0, torch.float32),    # hd not a power of two
+)
+
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # Tolerances against the plain versions on the card, with their reasons.
 # fourier_sketch, on sums / N: the repo's 1e-4 bar across engine backends.
@@ -83,6 +123,16 @@ STREAM_TOL = 1e-5
 # CKM's SSE over k-means x5 SSE: CKM's decode varies with the seed, and this
 # bar catches a broken port, not that variation.
 MAX_RELATIVE_SSE = 1.5
+# Flash attention against its plain version: float32 outputs to 2e-5; bf16
+# outputs to 2^-7 |o| + 1e-4 (both sides round float32 sums to bf16, one ulp
+# apart at most); the LSE (float32 in both) to 1e-5.
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0**-7, 1e-4
+FLASH_LSE_TOL = 1e-5
+# Graphed decodes against eager ones (profiled short decodes): at most this
+# share of the eager wall time, with the device busy for at least this share.
+GRAPHED_WALL_SHARE = 0.5
+GRAPHED_MIN_BUSY = 0.4
 
 
 def check(cond: bool, what: str) -> None:
@@ -106,11 +156,12 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the
-    memory rate and FP32 operations over the FP32 peak, in ms."""
+    memory rate and operations over their type's peak (FP32 by default), in
+    ms."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -171,6 +222,21 @@ def denoise_bound(k_est: int, n: int) -> tuple[float, str]:
     return bound(4 * (3 * k_est * n + 3 * n), 30 * k_est * n)
 
 
+def flash_bound(bh, bkv, s_q, s_kv, hd, causal, window, dtype) -> tuple[float, str]:
+    # Bytes: q, k, v read once, o and the float32 LSE written once.
+    # Operations: 4 hd per unmasked (q, k) pair (the score's and the
+    # output's multiply-adds), counted for this call's masks, at the bf16
+    # tensor-core peak for bf16 inputs and the FP32 peak for float32.
+    i = torch.arange(s_q, dtype=torch.int64)
+    hi = torch.clamp(i, max=s_kv - 1) if causal else torch.full_like(i, s_kv - 1)
+    lo = torch.clamp(i - window + 1, min=0) if window > 0 else torch.zeros_like(i)
+    pairs = int(torch.clamp(hi - lo + 1, min=0).sum())
+    esize = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = esize * (2 * bh * s_q * hd + 2 * bkv * s_kv * hd) + 4 * bh * s_q
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_PER_S
+    return bound(n_bytes, 4 * bh * hd * pairs, peak)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -182,8 +248,11 @@ def card_line() -> str:
 def ptxas_summary(log: str) -> str:
     lines = log.splitlines()
     regs = [ln.split("Used ")[1].split(" registers")[0] for ln in lines if "Used " in ln]
-    spilled = any("spill stores" in ln and " 0 bytes spill stores" not in ln for ln in lines)
-    return f"registers per kernel {regs}, spills {'yes' if spilled else 'none'}"
+    spills = [int(ln.split(" bytes spill stores")[0].split(",")[-1]) for ln in lines
+              if "bytes spill stores" in ln]
+    spilled = [b for b in spills if b]
+    return (f"registers per kernel {regs}, spill stores "
+            + (f"{spilled} bytes in {len(spilled)} of {len(spills)} kernels" if spilled else "none"))
 
 
 def _timed(out, kernel, plain, bound_fn, line):
@@ -378,6 +447,10 @@ def check_assign(aa, x, c, label, dup_of=None):
     the distance tolerance.  With ``dup_of = (i, j)``, centroid j repeats centroid
     i < j and must never win (ties go to the lowest index)."""
     lab, dist = aa.assign_argmin(x, c)
+    lab2, dist2 = aa.assign_argmin(x, c)
+    torch.cuda.synchronize()
+    check(torch.equal(lab, lab2) and torch.equal(dist, dist2),
+          f"assign_argmin {label}: two launches differ bitwise")
     plab, pdist = aa.assign_argmin_plain(x, c)
     scale = float(torch.amax(torch.sum(x * x, dim=1)) + torch.amax(torch.sum(c * c, dim=1)))
     tol = DIST_RTOL * scale
@@ -392,7 +465,8 @@ def check_assign(aa, x, c, label, dup_of=None):
         check(float(gap.max()) <= tol, f"assign_argmin {label}: label mismatch off a tie")
     line = (
         f"[assign_argmin {label}] N={x.shape[0]} n={x.shape[1]} K={c.shape[0]} "
-        f"max|d dist|={err:.3e} (tol {tol:.2e}) near-tie label flips={diff.numel()}"
+        f"max|d dist|={err:.3e} (tol {tol:.2e}) near-tie label flips={diff.numel()} "
+        "bitwise-repeatable"
     )
     if dup_of is not None:
         check(int((lab == dup_of[1]).sum()) == 0, f"assign_argmin {label}: tie not to lowest index")
@@ -406,6 +480,80 @@ def check_assign(aa, x, c, label, dup_of=None):
     )
 
 
+def check_flash(fa, label, q, k, v, rep, causal, window, time_it=False, q_chunk=None):
+    """flash_attention kernel vs its plain version on the card: output and
+    LSE within their bars, bitwise repeatable over two launches, rows with
+    no key at LSE -1e30.  Returns the numbers and the kernel's output."""
+    o1, l1 = fa.flash_attention_kernel(q, k, v, rep, causal, window)
+    o2, l2 = fa.flash_attention_kernel(q, k, v, rep, causal, window)
+    torch.cuda.synchronize()
+    check(torch.equal(o1, o2) and torch.equal(l1, l2),
+          f"flash_attention {label}: two launches differ bitwise")
+    po, pl = fa.flash_attention_plain(q, k, v, rep, causal, window, q_chunk)
+    do = torch.abs(o1.float() - po.float())
+    err_o, err_l = float(do.max()), float(torch.amax(torch.abs(l1 - pl)))
+    del o2, l2
+    if q.dtype == torch.bfloat16:
+        used = float(torch.amax(do / (FLASH_BF16_RTOL * torch.abs(po.float()) + FLASH_BF16_ATOL)))
+        bar = f"|do| <= 2^-7 |o| + {FLASH_BF16_ATOL}: {used:.3f} of it"
+        check(used <= 1.0, f"flash_attention {label}: |do| over its bar ({used:.3f})")
+    else:
+        bar = f"tol {FLASH_F32_TOL}"
+        check(err_o <= FLASH_F32_TOL, f"flash_attention {label}: max|do| {err_o:.3e}")
+    check(err_l <= FLASH_LSE_TOL, f"flash_attention {label}: max|dlse| {err_l:.3e}")
+    bh, s_q, hd = q.shape
+    s_kv = k.shape[1]
+    keyless = max(0, s_q - (s_kv + window - 1)) if window > 0 else 0
+    if keyless:
+        check(bool((l1[:, s_q - keyless:] == -1e30).all()),
+              f"flash_attention {label}: a row with no key has an LSE other than -1e30")
+    line = (
+        f"[flash_attention {label}] BH={bh} BKV={k.shape[0]} S_q={s_q} S_kv={s_kv} hd={hd} "
+        f"causal={causal} window={window} {str(q.dtype).split('.')[-1]} rows-without-key="
+        f"{keyless} max|do|={err_o:.3e} ({bar}) max|dlse|={err_l:.3e} (tol {FLASH_LSE_TOL}) "
+        "bitwise-repeatable"
+    )
+    out = {"max_abs_err": err_o, "o": o1}
+    if not time_it:
+        print(line, flush=True)
+        return out
+    return _timed(
+        out,
+        lambda: fa.flash_attention_kernel(q, k, v, rep, causal, window),
+        lambda: fa.flash_attention_plain(q, k, v, rep, causal, window, q_chunk),
+        lambda: flash_bound(bh, k.shape[0], s_q, s_kv, hd, causal, window, q.dtype),
+        line,
+    )
+
+
+def sdpa_ms(q, k, v, b, h, kvh, causal, window) -> tuple[float, str]:
+    """The time of one torch.nn.functional.scaled_dot_product_attention call
+    on the same (flattened-head) inputs, viewed as (B, H, S, hd), with the
+    backend PyTorch picks, and the name of its longest device kernel.  Timed
+    only: the port never calls it."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    q4, k4, v4 = q.view(b, h, s_q, -1), k.view(b, kvh, s_kv, -1), v.view(b, kvh, s_kv, -1)
+    mask = None
+    if window > 0:
+        i = torch.arange(s_q, device=q.device)[:, None]
+        j = torch.arange(s_kv, device=q.device)[None, :]
+        mask = (i - j < window) & ((i >= j) | (not causal))
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=h != kvh)
+
+    ms = median_ms(call)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    top = (max(kernels, key=lambda e: e.self_device_time_total).key if kernels
+           else "its kernels not seen by the profiler")
+    return ms, top[:90]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -416,9 +564,12 @@ def main() -> None:
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import amp_denoise as kd
+    from repro_torch.core import graphs
     from repro_torch.kernels import assign_argmin as aa
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fourier_sketch as fs
     from repro_torch.kernels import freq_transform as ft
+    from repro_torch.kernels import ops
     from repro_torch.kernels import sketch_shift as ks
 
     smoke_t0 = time.perf_counter()
@@ -430,6 +581,7 @@ def main() -> None:
 
     # 1. The card.
     print(card_line(), flush=True)
+    print(f"[torch] {torch.__version__} CUDA {torch.version.cuda}", flush=True)
 
     # 2. The build.
     t0 = time.perf_counter()
@@ -534,6 +686,57 @@ def main() -> None:
                   torch.tensor([-inf, -1.0, -inf, -1.0], device=dev),
                   torch.tensor([inf, inf, 1.0, 1.0], device=dev), "open boxes")
 
+    # 4e. The sweep of the sketch kernels' widths at small N: every template
+    # instance and generic path of kernels 1-3, every case of the structured
+    # switch of kernels 4-5; the bars of the main path's shapes.
+    sweep_beta = torch.rand((SWEEP_N,), generator=gen, device=dev)
+    sweep_dither = quantize.draw_dither(g_dither, SWEEP_M)
+    for n_s in SWEEP_DENSE_NS:
+        xs = torch.randn((SWEEP_N, n_s), generator=gen, device=dev) * 2
+        ws = torch.randn((n_s, SWEEP_M), generator=gen, device=dev)
+        check_sketch(fs, xs, ws, sweep_beta, f"sweep n={n_s}")
+        cs = torch.randn((7, n_s), generator=gen, device=dev) * 2
+        check_assign(aa, xs, cs, f"sweep n={n_s}")
+        for bits in (1, 4):
+            check_codes(
+                "quantized_fourier_sketch", f"sweep n={n_s} {bits}bit",
+                lambda lo, hi, b=bits: fs.quantized_fourier_sketch_sums(
+                    xs[lo:hi], ws, sweep_dither, b),
+                lambda lo, hi, b=bits: fs.quantized_fourier_sketch_sums_plain(
+                    xs[lo:hi], ws, sweep_dither, b),
+                SWEEP_N, SWEEP_N // 3, lambda: qsketch_bound(SWEEP_N, n_s, SWEEP_M),
+            )
+    for n_s in SWEEP_STRUCTURED_NS:
+        xs = torch.randn((SWEEP_N, n_s), generator=gen, device=dev)
+        d_s = 1 << (n_s - 1).bit_length()
+        m_s = 3 * d_s - 5  # three blocks, the last one ragged
+        op_s = freq_ops.make_operator("structured", g_freq, m_s, n_s, 1.0, device=dev)
+        check(op_s.d == d_s, f"sweep n={n_s}: block width {op_s.d}, expected {d_s}")
+        check_slice2_kernels(fs, ft, xs, None, op_s, quantize.draw_dither(g_dither, m_s),
+                             f"sweep n={n_s}", SWEEP_N // 3)
+    del xs
+
+    # 4f. Flash attention against its plain version: the edge cases, then
+    # the model shapes (timed beside SDPA, which the port never calls).
+    for bh, bkv, s_q, s_kv, hd, causal, window, dtype in FLASH_EDGES:
+        q, k, v = (torch.randn((n_h, s, hd), generator=gen, device=dev).to(dtype)
+                   for n_h, s in ((bh, s_q), (bkv, s_kv), (bkv, s_kv)))
+        check_flash(fa, "edge", q, k, v, bh // bkv, causal, window)
+    attention = {}
+    for label, (b, s_a, h, kvh, hd, window, dtype) in ATTENTION_SHAPES.items():
+        q4, k4, v4 = (torch.randn((b, s_a, n_h, hd), generator=gen, device=dev).to(dtype)
+                      for n_h in (h, kvh, kvh))
+        qf, kf, vf = (t.transpose(1, 2).reshape(-1, s_a, hd).contiguous() for t in (q4, k4, v4))
+        r = check_flash(fa, label, qf, kf, vf, h // kvh, True, window, time_it=True,
+                        q_chunk=PLAIN_Q_CHUNK)
+        r["library_ms"], backend = sdpa_ms(qf, kf, vf, b, h, kvh, True, window)
+        print(f"[flash_attention {label}] SDPA {r['library_ms']:.3f} ms ({backend}); kernel "
+              f"{r['ms'] / r['library_ms']:.1f}x SDPA", flush=True)
+        attention[label] = (q4, k4, v4, window, r.pop("o"))
+        if label == "llama3.2-1b bf16":
+            results["flash_attention"] = r
+        del qf, kf, vf
+
     # 5-7. The main path, each phase with the launch counts it caused.
     counters = {
         "fourier_sketch": (fs, "LAUNCHES"),
@@ -543,9 +746,10 @@ def main() -> None:
         "quantized_structured_sketch": (ft, "QUANTIZED_STRUCTURED_LAUNCHES"),
         "sketch_shift": (ks, "LAUNCHES"),
         "amp_denoise": (kd, "LAUNCHES"),
+        "flash_attention": (fa, "LAUNCHES"),
     }
     launches = dict.fromkeys(counters, 0)
-    phase_s = {}
+    phase_s, phase_counts = {}, {}
 
     def run(label, fn, needs):
         for mod, attr in counters.values():
@@ -554,7 +758,8 @@ def main() -> None:
         out = fn()
         torch.cuda.synchronize()
         secs = phase_s[label] = time.perf_counter() - t0
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        counts = phase_counts[label] = {
+            name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         for name, n_launch in counts.items():
             launches[name] += n_launch
         check(counts[needs] >= 1, f"{label} did not launch the {needs} kernel")
@@ -613,7 +818,7 @@ def main() -> None:
          dataclasses.replace(cfg, decoder="sketch_shift")),
         ("fit-amp", "amp_denoise", True, dataclasses.replace(cfg, decoder="amp")),
     ]
-    slice2_res = {}
+    slice2_res, path_cfg, pass_of, rel_of = {}, {"fit": cfg}, {}, {"fit": rel}
     for label, kernel, streaming, cfg2 in slice2:
         if streaming:
             r2 = run(label, lambda c=cfg2: ckm.fit_streaming(FIT_SEED, iter(batches), c,
@@ -629,8 +834,8 @@ def main() -> None:
         check(tuple(r2.centroids.shape) == (K, DIM), f"{label} centroids shape")
         check(bool(torch.isfinite(r2.centroids).all()), f"{label} centroids finite")
         check(abs(float(r2.weights.sum()) - 1.0) < 1e-4, f"{label} weights sum to 1")
-        slice2_res[label] = r2
-        rel2 = float(ckm.sse(x, r2.centroids, device=dev)) / N / sse_km
+        slice2_res[label], path_cfg[label], pass_of[label] = r2, cfg2, pass_s
+        rel2 = rel_of[label] = float(ckm.sse(x, r2.centroids, device=dev)) / N / sse_km
         print(
             f"[{label} quality] sketch pass {pass_s:.3f}s, decode "
             f"{phase_s[label] - pass_s:.2f}s; SSE/N {rel2 * sse_km:.4f}, relative SSE "
@@ -639,55 +844,136 @@ def main() -> None:
         )
         check(rel2 <= MAX_RELATIVE_SSE, f"{label}: relative SSE {rel2:.4f} > {MAX_RELATIVE_SSE}")
 
-    # 9. Where fit's time goes: the sketch pass alone, then a short decode
-    # under the profiler (its wall time includes the profiler's own cost).
+    # 8c. Each decoder's full decode with its loops eager, against the fit's
+    # graphed decode of the same sketch: the same bits (or, where they
+    # differ, the same relative SSE to 4 digits), the same launches of the
+    # decoder kernels, and both decode times.
     t0 = time.perf_counter()
     ckm.compute_sketch(FIT_SEED, x, cfg, device=dev)
     torch.cuda.synchronize()
-    sketch_s = time.perf_counter() - t0
+    pass_of["fit"] = time.perf_counter() - t0
+    fit_res = {"fit": res, **slice2_res}
+    print(
+        f"[fit vs kmeans] fit {phase_s['fit']:.2f}s (sketch pass {pass_of['fit']:.3f}s, graphed "
+        f"decode {phase_s['fit'] - pass_of['fit']:.2f}s) against kmeans x{KMEANS_REPLICATES} "
+        f"{phase_s['kmeans']:.2f}s: fit is {phase_s['kmeans'] / phase_s['fit']:.2f}x faster",
+        flush=True,
+    )
+    for label in ("fit", "fit-structured", "fit-sketch_shift", "fit-amp"):
+        r = fit_res[label]
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        out = ckm.decode_sketch(device_mod.derive_seed(FIT_SEED, 1), r.sketch, r.freq_op,
+                                *r.bounds, path_cfg[label], device=dev, eager=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        same = all(torch.equal(a, b) for a, b in zip(out, (r.centroids, r.weights, r.cost)))
+        rel_e = float(ckm.sse(x, out[0], device=dev)) / N / sse_km
+        print(
+            f"[{label} eager decode] {secs:.2f}s against the graphed "
+            f"{phase_s[label] - pass_of[label]:.2f}s ({(phase_s[label] - pass_of[label]) / secs:.3f} "
+            f"of it); bitwise equal to the graphed decode: {same}; relative SSE eager "
+            f"{rel_e:.4f}, graphed {rel_of[label]:.4f}; decoder-kernel launches eager "
+            f"{counts['sketch_shift']}/{counts['amp_denoise']}, graphed "
+            f"{phase_counts[label]['sketch_shift']}/{phase_counts[label]['amp_denoise']} "
+            "(sketch_shift/amp_denoise)",
+            flush=True,
+        )
+        check(same or f"{rel_e:.4f}" == f"{rel_of[label]:.4f}",
+              f"{label}: the eager decode's relative SSE {rel_e:.4f} differs from the graphed "
+              f"{rel_of[label]:.4f}")
+        for name in ("sketch_shift", "amp_denoise"):
+            check(counts[name] == phase_counts[label][name],
+                  f"{label}: {name} launched {counts[name]} times eager, "
+                  f"{phase_counts[label][name]} graphed")
+
+    # 9. Where a decode's time goes: short decodes, eager then graphed, each
+    # timed alone and then once more under the profiler for its device time
+    # and operations (the profiler's own host cost inflates a profiled wall
+    # time, so the busy share is the device time over the unprofiled wall).
     short = dataclasses.replace(cfg, atom_steps=30, joint_steps=20, final_steps=100)
     adam_steps = 2 * K * (short.atom_steps + short.joint_steps) + short.final_steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
-    def profile_decode(r, short_cfg, n_units, unit):
-        """Wall seconds, device-busy seconds and device operations of a
-        short decode of ``r``'s sketch under the profiler, and the device
-        operations per ``unit`` (``n_units`` of them in the decode)."""
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            ckm.decode_sketch(FIT_SEED, r.sketch, r.freq_op, *r.bounds, short_cfg, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        busy = sum(e.self_device_time_total for e in device_ops) / 1e6
-        n_ops = sum(e.count for e in device_ops)
-        return (
-            f"profiled short decode ({n_units} {unit}s): wall {wall:.2f}s, device busy "
-            f"{busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device operations, "
-            f"{n_ops / n_units:.1f} per {unit}"
-            + ("" if busy else " (the profiler saw no device time: busy share not measured)")
-        )
+    def decode_once(r, short_cfg, eager):
+        graphs.CAPTURES = graphs.REPLAYS = 0
+        t0 = time.perf_counter()
+        out = ckm.decode_sketch(FIT_SEED, r.sketch, r.freq_op, *r.bounds, short_cfg,
+                                device=dev, eager=eager)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (graphs.CAPTURES, graphs.REPLAYS)
 
-    print(
-        f"[fit time] fit {phase_s['fit']:.2f}s = sketch pass {sketch_s:.3f}s + decode "
-        f"{phase_s['fit'] - sketch_s:.2f}s; {profile_decode(res, short, adam_steps, 'Adam step')}",
-        flush=True,
-    )
-    print(f"[fit-structured time] "
-          f"{profile_decode(slice2_res['fit-structured'], short, adam_steps, 'Adam step')}",
-          flush=True)
+    def short_decode(label, r, short_cfg, n_units, unit):
+        """A short decode of ``r``'s sketch, eager then graphed: wall
+        seconds, device-busy seconds and device operations per ``unit``
+        (``n_units`` of them in the decode); the two must give the same
+        bits (or the same relative SSE to 4 digits)."""
+        runs, parts = {}, []
+        for eager in (True, False):
+            out, wall, (caps, reps) = decode_once(r, short_cfg, eager)
+            with torch.profiler.profile(activities=activities) as prof:
+                out_p, wall_p, _ = decode_once(r, short_cfg, eager)
+            check(all(torch.equal(a, b) for a, b in zip(out, out_p)),
+                  f"{label}: a repeated short decode differs")
+            device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+            busy = sum(e.self_device_time_total for e in device_ops) / 1e6
+            n_ops = sum(e.count for e in device_ops)
+            runs[eager] = (out, wall, busy)
+            parts.append(
+                f"{'eager' if eager else 'graphed'} wall {wall:.3f}s (profiled {wall_p:.3f}s), "
+                f"device busy {busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device "
+                f"operations, {n_ops / n_units:.1f} per {unit}"
+                + ("" if eager else f", {caps} captures, {reps} replays")
+                + ("" if busy else " (the profiler saw no device time: busy share not measured)")
+            )
+        (out_e, wall_e, _), (out_g, wall_g, busy_g) = runs[True], runs[False]
+        same = all(torch.equal(a, b) for a, b in zip(out_e, out_g))
+        rel_e, rel_g = (float(ckm.sse(x, o[0], device=dev)) / N / sse_km for o in (out_e, out_g))
+        print(
+            f"[{label} time] short decode ({n_units} {unit}s): {'; '.join(parts)}; graphed/eager "
+            f"wall {wall_g / wall_e:.3f}; bitwise equal: {same} (relative SSE {rel_e:.4f} / "
+            f"{rel_g:.4f})",
+            flush=True,
+        )
+        check(same or f"{rel_e:.4f}" == f"{rel_g:.4f}",
+              f"{label}: short decodes differ (relative SSE {rel_e:.4f} / {rel_g:.4f})")
+        check(wall_g <= GRAPHED_WALL_SHARE * wall_e,
+              f"{label}: graphed short decode {wall_g:.3f}s, over {GRAPHED_WALL_SHARE} of the "
+              f"eager {wall_e:.3f}s")
+        check(busy_g >= GRAPHED_MIN_BUSY * wall_g,
+              f"{label}: device busy {busy_g:.3f}s of a graphed {wall_g:.3f}s")
+
+    short_decode("fit", res, short, adam_steps, "Adam step")
+    short_decode("fit-structured", slice2_res["fit-structured"], short, adam_steps, "Adam step")
     # The decoders' loops alone (no polish): K rounds of mean-shift steps
     # (plus one harvest score a round, NNLS and deflation), and GAMP
     # iterations (each with its inner NNLS weight refresh).
     short_ss = dataclasses.replace(cfg, decoder="sketch_shift", shift_steps=30,
                                    shift_polish_steps=0)
-    print(f"[fit-sketch_shift time] "
-          f"{profile_decode(slice2_res['fit-sketch_shift'], short_ss, K * 30, 'mean-shift step')}",
-          flush=True)
+    short_decode("fit-sketch_shift", slice2_res["fit-sketch_shift"], short_ss, K * 30,
+                 "mean-shift step")
     short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
-    print(f"[fit-amp time] "
-          f"{profile_decode(slice2_res['fit-amp'], short_amp, 30, 'GAMP iteration')}",
-          flush=True)
+    short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
+
+    # 9b. The attention entry point (ops.flash_attention, the reference's
+    # (B, S, H, hd) layout) at the model shapes: the same bits as the kernel
+    # checked above on the same inputs.
+    outs = run(
+        "attention",
+        lambda: {label: ops.flash_attention(q4, k4, v4, causal=True, window=window)
+                 for label, (q4, k4, v4, window, _) in attention.items()},
+        "flash_attention",
+    )
+    for label, (q4, _, _, _, o_kernel) in attention.items():
+        b, s_a, h, hd = q4.shape
+        want = o_kernel.reshape(b, h, s_a, hd).transpose(1, 2).reshape(b, s_a, h * hd)
+        check(outs[label].dtype == q4.dtype and torch.equal(outs[label], want),
+              f"attention {label}: the entry point differs from the checked kernel")
+    print(f"[attention] {len(outs)} shapes through ops.flash_attention: the checked kernel's "
+          "bits", flush=True)
+    del outs, attention
 
     # 10. Per-kernel numbers.
     meta = {
@@ -705,6 +991,8 @@ def main() -> None:
                          "src/repro/kernels/sketch_shift.py:67"),
         "amp_denoise": ("src/repro_torch/kernels/csrc/amp_denoise.cu",
                         "src/repro/kernels/amp_denoise.py:79"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:83"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
@@ -713,7 +1001,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"[smoke] total wall time {time.perf_counter() - smoke_t0:.1f}s", flush=True)

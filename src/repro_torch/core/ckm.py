@@ -238,10 +238,13 @@ def decode_sketch(
     cfg: CKMConfig,
     x_init: torch.Tensor | None = None,
     device=dev_mod.DEFAULT,
+    *,
+    eager: bool = False,
 ):
     """Step 4: decode with ``cfg.decoder``; of ``cfg.replicates`` runs, the one
     with the lowest cost (4) wins (the first on ties), so more replicates can
-    never return a higher cost."""
+    never return a higher cost.  On the card the decoders' loops run as CUDA
+    graphs; ``eager`` runs them eagerly (for comparisons only)."""
     dev = dev_mod.resolve(device)
     w = fo.as_operator(w).to(dev)
     z, lower, upper = (_f32_on(t, dev) for t in (z, lower, upper))
@@ -251,7 +254,7 @@ def decode_sketch(
     best = None
     for r in range(cfg.replicates):
         gen = dev_mod.generator(dev_mod.derive_seed(seed, r), dev)
-        out = decode(gen, z, w, lower, upper, cfg, x_init)
+        out = decode(gen, z, w, lower, upper, cfg, x_init, eager=eager)
         if best is None or float(out[2]) < float(best[2]):
             best = out
     return best

@@ -22,10 +22,12 @@ Weights are refreshed by NNLS each iteration; the loop ends with a final
 NNLS and the joint Adam polish on ``||z - A(C) alpha||^2`` that every
 registry decoder reports.
 
-The reference's ``fori_loop`` is a Python loop here with no host sync inside:
-every variance (``q_p``, ``q_z``, ``q_s``, ``q_r``, ``q_x``) is a 0-d tensor
-on the device, and the clamps with a traced bound use ``torch.minimum`` /
-``torch.maximum``.
+The reference's ``fori_loop`` is a loop with no host sync inside: every
+variance (``q_p``, ``q_z``, ``q_s``, ``q_r``, ``q_x``) is a 0-d tensor on the
+device, and the clamps with a traced bound use ``torch.minimum`` /
+``torch.maximum``.  On the card the GAMP iteration (with its inner NNLS
+weight refresh), the final NNLS and the polish run as CUDA graphs
+(``core.graphs``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import freq_ops as fo
+from repro_torch.core import graphs
 from repro_torch.core import nnls as nnls_mod
 from repro_torch.core import sketch as sk
 from repro_torch.core.decoders import common
@@ -42,6 +45,8 @@ from repro_torch.core.decoders.registry import register_decoder
 from repro_torch.kernels import ops
 
 _TWO_PI = 6.283185307179586
+# GAMP iterations per captured graph (a divisor of the count, at most this).
+_GAMP_UNROLL = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +96,63 @@ def _estimates_init(gen, cfg: AMPConfig, lo, hi, span, x_init):
     return c_buf
 
 
+def _gamp_step(state, inputs, row, w, const):
+    """One GAMP iteration: the linear stage, the von Mises output channel,
+    the truncated-normal input channel and the NNLS weight refresh."""
+    k, damp, alpha_floor, noise_floor, nnls_iters, eager = const
+    cents, s_mat, q_x, alpha = state
+    z, anorm2, lo, hi, all_k = inputs
+    n, m = w.n, w.m
+    # Stacked-real z = [sum b cos, -sum b sin]: the sampled CF is z1 - i z2.
+    y_re, y_im = z[:m], -z[m:]
+    # Linear stage out: pseudo-measurement means with the Onsager term.
+    q_p = torch.clamp(q_x * anorm2 / m, min=1e-12)
+    p_mat = w.apply(cents).to(torch.float32) - q_p * s_mat
+
+    # Output channel: von Mises posterior per (component, frequency).
+    al = torch.clamp(alpha, min=alpha_floor / k)[:, None]  # (K, 1)
+    rho = torch.exp(-0.5 * q_p)  # |E e^{i theta}| under N(p, q_p)
+    cos_p, sin_p = torch.cos(p_mat), torch.sin(p_mat)
+    g_re, g_im = rho * cos_p, rho * sin_p  # (K, m)
+    yhat_re = torch.sum(al * g_re, dim=0)  # (m,)
+    yhat_im = torch.sum(al * g_im, dim=0)
+    # Output-noise level: the unexplained measurement energy.
+    v = torch.mean((y_re - yhat_re) ** 2 + (y_im - yhat_im) ** 2) + noise_floor
+    # Leave-one-out residual: what frequency j says about component k.
+    res_re = (y_re - yhat_re)[None, :] + al * g_re
+    res_im = (y_im - yhat_im)[None, :] + al * g_im
+    res_abs = torch.sqrt(res_re**2 + res_im**2)
+    kappa_y = 2.0 * al * res_abs / v  # likelihood concentration
+    safe = torch.clamp(res_abs, min=1e-20)
+    # Prior (concentration 1/q_p at angle p) + likelihood (kappa_y at the
+    # residual's angle) add as complex vectors.
+    vec_re = cos_p / q_p + kappa_y * res_re / safe
+    vec_im = sin_p / q_p + kappa_y * res_im / safe
+    kappa = torch.clamp(torch.sqrt(vec_re**2 + vec_im**2), min=1e-20)
+    mu = torch.atan2(vec_im, vec_re)
+    z_hat = p_mat + _wrap(mu - p_mat)  # unwrap onto the prior's sheet
+    # Posterior phase variance ~ 1/kappa, capped below q_p so that q_s
+    # stays positive (the cap is a device tensor: no host sync).
+    q_z = torch.minimum(torch.clamp(torch.mean(1.0 / kappa), min=1e-12), 0.999 * q_p)
+
+    s_new = (z_hat - p_mat) / q_p
+    s_mat = damp * s_new + (1.0 - damp) * s_mat
+    q_s = torch.clamp((1.0 - q_z / q_p) / q_p, min=1e-12)
+
+    # Linear stage in + input channel: the truncated-normal denoiser.
+    q_r = n / (anorm2 * q_s)
+    r_mat = cents + q_r * w.adjoint(s_mat).to(torch.float32)
+    c_new, v_new = ops.amp_denoise(r_mat, q_r, lo, hi)
+    cents = damp * c_new + (1.0 - damp) * cents
+    q_x = torch.clamp(torch.mean(v_new), min=1e-12)
+
+    # Weight refresh.
+    alpha = nnls_mod.nnls(sk.atoms(cents, w).T, z, all_k, iters=nnls_iters,
+                          eager=eager)
+    alpha = alpha / torch.clamp(torch.sum(alpha), min=1e-20)
+    return cents, s_mat, q_x, alpha
+
+
 def cl_amp(
     gen: torch.Generator,
     z: torch.Tensor,
@@ -99,6 +161,8 @@ def cl_amp(
     upper: torch.Tensor,
     cfg: AMPConfig,
     x_init: torch.Tensor | None = None,
+    *,
+    eager: bool = False,
 ):
     """Decode K centroids jointly from the sketch ``z`` by simplified hybrid
     GAMP on the sketched characteristic function.
@@ -106,7 +170,8 @@ def cl_amp(
     Returns ``(centroids (K, n), weights (K,), cost)`` with ``cost`` the
     shared objective ``||z - A(C) alpha||^2``.  ``x_init`` seeds the
     estimates with data rows when ``cfg.init != "range"``.  All tensors live
-    on ``z``'s device, and ``gen`` must live there too.
+    on ``z``'s device, and ``gen`` must live there too.  ``eager`` runs the
+    loops eagerly on the card too (for comparisons only).
     """
     w = fo.as_operator(w)
     dev = z.device
@@ -115,76 +180,27 @@ def cl_amp(
     lo = lower.to(torch.float32)
     hi = upper.to(torch.float32)
     span = torch.clamp(hi - lo, min=1e-12)
-    # Stacked-real z = [sum b cos, -sum b sin]: the sampled CF is z1 - i z2.
-    y_re, y_im = z[:m], -z[m:]
     # ||A||_F^2 of the linear stage: the only operator statistic the
     # scalar-variance GAMP needs beyond apply/adjoint.
     anorm2 = torch.clamp(torch.sum(w.col_sq_norms()), min=1e-12)
     all_k = torch.ones((k,), dtype=torch.bool, device=dev)
 
-    def refresh_alpha(cents, iters):
-        a = sk.atoms(cents, w)  # (K, 2m)
-        alpha = nnls_mod.nnls(a.T, z, all_k, iters=iters)
-        return alpha / torch.clamp(torch.sum(alpha), min=1e-20)
-
     cents = _estimates_init(gen, cfg, lo, hi, span, x_init)
     s_mat = torch.zeros((k, m), dtype=torch.float32, device=dev)
     q_x = torch.mean(span * span) / 12.0  # variance of the box prior
     alpha = torch.full((k,), 1.0 / k, dtype=torch.float32, device=dev)
-    for _ in range(cfg.iters):
-        # Linear stage out: pseudo-measurement means with the Onsager term.
-        q_p = torch.clamp(q_x * anorm2 / m, min=1e-12)
-        p_mat = w.apply(cents).to(torch.float32) - q_p * s_mat
-
-        # Output channel: von Mises posterior per (component, frequency).
-        al = torch.clamp(alpha, min=cfg.alpha_floor / k)[:, None]  # (K, 1)
-        rho = torch.exp(-0.5 * q_p)  # |E e^{i theta}| under N(p, q_p)
-        cos_p, sin_p = torch.cos(p_mat), torch.sin(p_mat)
-        g_re, g_im = rho * cos_p, rho * sin_p  # (K, m)
-        yhat_re = torch.sum(al * g_re, dim=0)  # (m,)
-        yhat_im = torch.sum(al * g_im, dim=0)
-        # Output-noise level: the unexplained measurement energy.
-        v = torch.mean((y_re - yhat_re) ** 2 + (y_im - yhat_im) ** 2) + cfg.noise_floor
-        # Leave-one-out residual: what frequency j says about component k.
-        res_re = (y_re - yhat_re)[None, :] + al * g_re
-        res_im = (y_im - yhat_im)[None, :] + al * g_im
-        res_abs = torch.sqrt(res_re**2 + res_im**2)
-        kappa_y = 2.0 * al * res_abs / v  # likelihood concentration
-        safe = torch.clamp(res_abs, min=1e-20)
-        # Prior (concentration 1/q_p at angle p) + likelihood (kappa_y at the
-        # residual's angle) add as complex vectors.
-        vec_re = cos_p / q_p + kappa_y * res_re / safe
-        vec_im = sin_p / q_p + kappa_y * res_im / safe
-        kappa = torch.clamp(torch.sqrt(vec_re**2 + vec_im**2), min=1e-20)
-        mu = torch.atan2(vec_im, vec_re)
-        z_hat = p_mat + _wrap(mu - p_mat)  # unwrap onto the prior's sheet
-        # Posterior phase variance ~ 1/kappa, capped below q_p so that q_s
-        # stays positive (the cap is a device tensor: no host sync).
-        q_z = torch.minimum(torch.clamp(torch.mean(1.0 / kappa), min=1e-12), 0.999 * q_p)
-
-        s_new = (z_hat - p_mat) / q_p
-        s_mat = cfg.damp * s_new + (1.0 - cfg.damp) * s_mat
-        q_s = torch.clamp((1.0 - q_z / q_p) / q_p, min=1e-12)
-
-        # Linear stage in + input channel: the truncated-normal denoiser.
-        q_r = n / (anorm2 * q_s)
-        r_mat = cents + q_r * w.adjoint(s_mat).to(torch.float32)
-        c_new, v_new = ops.amp_denoise(r_mat, q_r, lo, hi)
-        cents = cfg.damp * c_new + (1.0 - cfg.damp) * cents
-        q_x = torch.clamp(torch.mean(v_new), min=1e-12)
-
-        alpha = refresh_alpha(cents, cfg.inner_nnls_iters)
+    cents, s_mat, q_x, alpha = graphs.loop(
+        _gamp_step, (cents, s_mat, q_x, alpha), (z, anorm2, lo, hi, all_k), cfg.iters,
+        op=w, unroll=_GAMP_UNROLL, eager=eager,
+        const=(k, cfg.damp, cfg.alpha_floor, cfg.noise_floor, cfg.inner_nnls_iters, eager),
+    )
 
     # Final weights, then the joint polish in unit-box coordinates.
-    alpha = nnls_mod.nnls(sk.atoms(cents, w).T, z, all_k, iters=cfg.nnls_iters)
+    alpha = nnls_mod.nnls(sk.atoms(cents, w).T, z, all_k, iters=cfg.nnls_iters, eager=eager)
     if cfg.polish_steps > 0:
-        def joint_loss(params):
-            res = z - params[1] @ sk.atoms(lo + params[0] * span, w)
-            return torch.sum(res * res)
-
         s, alpha = common.adam(
-            joint_loss, ((cents - lo) / span, alpha), cfg.polish_steps, cfg.polish_lr,
-            lambda p: (torch.clamp(p[0], 0.0, 1.0), torch.clamp(p[1], min=0.0)),
+            common.polish_loss, ((cents - lo) / span, alpha), cfg.polish_steps,
+            cfg.polish_lr, common.clip_joint, (z, lo, span), w, eager=eager,
         )
         cents = lo + s * span
 
@@ -199,7 +215,7 @@ def cl_amp(
 
 
 @register_decoder("amp")
-def decode_amp(gen, z, w, lower, upper, cfg, x_init=None):
+def decode_amp(gen, z, w, lower, upper, cfg, x_init=None, *, eager=False):
     """Registry entry: the ``AMPConfig`` of the pipeline config, then
     :func:`cl_amp`."""
-    return cl_amp(gen, z, w, lower, upper, cfg.amp_config(), x_init)
+    return cl_amp(gen, z, w, lower, upper, cfg.amp_config(), x_init, eager=eager)

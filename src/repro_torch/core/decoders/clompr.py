@@ -2,7 +2,8 @@
 ``repro.core.decoders.clompr``.
 
 The reference restructures the decoder into fixed shapes inside one ``jit``;
-the port keeps that structure and runs it eagerly:
+the port keeps that structure, runs the outer loop in Python and its inner
+fixed-length loops as CUDA graphs on the card (``core.graphs``):
 
 - the support lives in a padded ``(K+1, n)`` buffer whose first ``active``
   slots are in use (the support grows by one per iteration and is
@@ -11,7 +12,8 @@ the port keeps that structure and runs it eagerly:
   so the loop never waits on the device to learn it;
 - steps 1 and 5 are projected Adam with a fixed step count, in unit-box
   coordinates ``c = l + s (u - l)``, with gradients from
-  ``torch.autograd.grad``;
+  ``torch.autograd.grad``; their losses are module-level functions that read
+  every tensor through their arguments, so a graph can replay them;
 - NNLS (steps 3/4) is FISTA with a fixed iteration budget (``core.nnls``);
 - hard thresholding is a stable descending sort + a compacting gather.
 """
@@ -28,7 +30,7 @@ from repro_torch.core import freq_ops as fo
 from repro_torch.core import nnls as nnls_mod
 from repro_torch.core import sketch as sk
 from repro_torch.core.decoders.common import adam as _adam
-from repro_torch.core.decoders.common import median
+from repro_torch.core.decoders.common import clip_joint, median
 from repro_torch.core.decoders.registry import register_decoder
 
 InitStrategy = Literal["range", "sample", "kpp"]
@@ -60,10 +62,6 @@ def _clip_unit(p):
     return (torch.clamp(p[0], 0.0, 1.0),)
 
 
-def _clip_joint(p):
-    return torch.clamp(p[0], 0.0, 1.0), torch.clamp(p[1], min=0.0)
-
-
 # ---------------------------------------------------------------------------
 # Step 1 — find a new centroid: maximise Re< A d_c / ||.||, r > over the box
 # ---------------------------------------------------------------------------
@@ -89,16 +87,31 @@ def _init_s0(gen, s_buf, mask, x_unit, cfg: CLOMPRConfig, shape):
     return x_unit[idx]
 
 
-def _find_atom(gen, r, w, lo, span, s_buf, mask, x_unit, cfg: CLOMPRConfig):
-    """Gradient-ascend the normalised correlation; best of ``atom_restarts``."""
+def _neg_corr(p, w, r, lo, span):
+    """Step 1's objective at ``p[0] (R, n)``: minus the summed normalised
+    correlations (the restarts are independent)."""
     inv_norm = float(np.float32(1.0) / np.sqrt(np.float32(w.m)))
+    a = sk.atoms(lo + p[0] * span, w)  # (R, 2m)
+    return -torch.sum((a @ r) * inv_norm)
 
-    def neg_corr(p):  # p[0]: (R, n) -> scalar (summed; restarts are independent)
-        a = sk.atoms(lo + p[0] * span, w)  # (R, 2m)
-        return -torch.sum((a @ r) * inv_norm)
 
+def _residual(w, z, s_buf, alpha, mask, lo, span):
+    """``z`` minus the masked mixture sketch ``sum_k alpha_k A delta_{c_k}``."""
+    a = sk.atoms(lo + s_buf * span, w)  # (K+1, 2m)
+    return z - (alpha * mask.to(torch.float32)) @ a
+
+
+def _joint_loss(p, w, z, mask, lo, span):
+    """Step 5's objective on ``(C, alpha) = p``."""
+    res = _residual(w, z, p[0], p[1], mask, lo, span)
+    return torch.sum(res * res)
+
+
+def _find_atom(gen, r, w, lo, span, s_buf, mask, x_unit, cfg: CLOMPRConfig, eager):
+    """Gradient-ascend the normalised correlation; best of ``atom_restarts``."""
     s0 = _init_s0(gen, s_buf, mask, x_unit, cfg, (cfg.atom_restarts, w.n))
-    (s_opt,) = _adam(neg_corr, (s0,), cfg.atom_steps, cfg.atom_lr, _clip_unit)
+    (s_opt,) = _adam(_neg_corr, (s0,), cfg.atom_steps, cfg.atom_lr, _clip_unit,
+                     (r, lo, span), w, eager=eager)
     corr = sk.atoms(lo + s_opt * span, w) @ r  # (R,)
     return s_opt[torch.argmax(corr)]
 
@@ -116,13 +129,17 @@ def clompr(
     upper: torch.Tensor,
     cfg: CLOMPRConfig,
     x_init: torch.Tensor | None = None,
+    *,
+    eager: bool = False,
 ):
     """Decode K weighted Diracs from the sketch ``z`` (stacked-real, (2m,)).
 
     Returns ``(centroids (K, n), weights (K,), cost)`` where ``cost`` is the
     final value of the paper's objective (4), used to select among
     replicates.  ``x_init`` is only read by the "sample"/"kpp" inits.  All
-    tensors live on ``z``'s device, and ``gen`` must live there too.
+    tensors live on ``z``'s device, and ``gen`` must live there too.  On
+    the card the Adam and NNLS loops run as CUDA graphs; ``eager`` runs them
+    eagerly (for comparisons only).
     """
     w = fo.as_operator(w)
     dev = z.device
@@ -134,21 +151,12 @@ def clompr(
     inv_norm = float(np.float32(1.0) / np.sqrt(np.float32(w.m)))
     slots = torch.arange(kp1, device=dev)
 
-    def residual(s_buf, alpha, mask):
-        """``z`` minus the masked mixture sketch ``sum_k alpha_k A delta_{c_k}``."""
-        a = sk.atoms(lo + s_buf * span, w)  # (K+1, 2m)
-        return z - (alpha * mask.to(torch.float32)) @ a
-
     def joint_descent(s_buf, alpha, mask, steps):
         """Step 5: projected Adam on (C, alpha) jointly, then the residual."""
-
-        def loss(p):
-            res = residual(p[0], p[1], mask)
-            return torch.sum(res * res)
-
-        s_buf, alpha = _adam(loss, (s_buf, alpha), steps, cfg.joint_lr, _clip_joint)
+        s_buf, alpha = _adam(_joint_loss, (s_buf, alpha), steps, cfg.joint_lr, clip_joint,
+                             (z, mask, lo, span), w, eager=eager)
         with torch.no_grad():
-            return s_buf, alpha, residual(s_buf, alpha, mask)
+            return s_buf, alpha, _residual(w, z, s_buf, alpha, mask, lo, span)
 
     s_buf = torch.zeros((kp1, w.n), dtype=torch.float32, device=dev)
     alpha = torch.zeros((kp1,), dtype=torch.float32, device=dev)
@@ -157,7 +165,7 @@ def clompr(
     for t in range(2 * cfg.k):
         # -- Step 1+2: find a new centroid, expand support into the free slot.
         mask = slots < active
-        s_new = _find_atom(gen, r, w, lo, span, s_buf, mask, x_unit, cfg)
+        s_new = _find_atom(gen, r, w, lo, span, s_buf, mask, x_unit, cfg, eager)
         s_buf = s_buf.clone()
         s_buf[active] = s_new  # active <= K: one slot always free
         active += 1
@@ -166,7 +174,7 @@ def clompr(
         # -- Step 3: hard thresholding once t >= K (support is then K+1).
         if t >= cfg.k:
             a_n = sk.atoms(lo + s_buf * span, w) * inv_norm  # normalised atoms
-            beta = nnls_mod.nnls(a_n.T, z, mask, iters=cfg.nnls_iters)
+            beta = nnls_mod.nnls(a_n.T, z, mask, iters=cfg.nnls_iters, eager=eager)
             score = torch.where(mask, beta, float("-inf"))
             if cfg.merge_radius_scale > 0:
                 # Suppress within-resolution duplicates of higher-beta atoms.
@@ -186,7 +194,7 @@ def clompr(
 
         # -- Step 4: NNLS projection for alpha on the (unnormalised) atoms.
         a = sk.atoms(lo + s_buf * span, w)
-        alpha = nnls_mod.nnls(a.T, z, mask, iters=cfg.nnls_iters)
+        alpha = nnls_mod.nnls(a.T, z, mask, iters=cfg.nnls_iters, eager=eager)
 
         # -- Step 5: joint gradient descent on (C, alpha), box + nonneg proj.
         s_buf, alpha, r = joint_descent(s_buf, alpha, mask, cfg.joint_steps)
@@ -210,7 +218,7 @@ def clompr(
 
 
 @register_decoder("clompr")
-def decode_clompr(gen, z, w, lower, upper, cfg, x_init=None):
+def decode_clompr(gen, z, w, lower, upper, cfg, x_init=None, *, eager=False):
     """Registry entry: the ``CLOMPRConfig`` of the pipeline config, then
     :func:`clompr`."""
-    return clompr(gen, z, w, lower, upper, cfg.clompr_config(), x_init)
+    return clompr(gen, z, w, lower, upper, cfg.clompr_config(), x_init, eager=eager)

@@ -22,8 +22,9 @@ import torch
 
 
 class Decoder(Protocol):
-    """A sketch decoder: ``(gen, z, w, lower, upper, cfg[, x_init])`` ->
-    ``(centroids, alphas, cost)``."""
+    """A sketch decoder: ``(gen, z, w, lower, upper, cfg[, x_init], *,
+    eager=False)`` -> ``(centroids, alphas, cost)``; ``eager`` runs its loops
+    eagerly on the card (for comparisons only)."""
 
     def __call__(
         self,
@@ -34,6 +35,8 @@ class Decoder(Protocol):
         upper: torch.Tensor,
         cfg,
         x_init: torch.Tensor | None = None,
+        *,
+        eager: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]: ...
 
 

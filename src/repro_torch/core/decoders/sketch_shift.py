@@ -24,6 +24,8 @@ operator itself, as the reference's do.
 The port runs the reference's ``lax.scan``/``fori_loop`` as Python loops
 with no host sync inside: the step size, the density floor, the harvest's
 ``argmax`` and the gather of the winning candidate all stay on the device.
+On the card each round's mean-shift steps, the NNLS loops and the polish
+run as CUDA graphs (``core.graphs``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import freq_ops as fo
+from repro_torch.core import graphs
 from repro_torch.core import nnls as nnls_mod
 from repro_torch.core import sketch as sk
 from repro_torch.core.decoders import common
@@ -63,6 +66,11 @@ class SketchShiftConfig:
     density_floor: float = 1e-3
 
 
+# Mean-shift steps per captured graph (a divisor of the step count, at most
+# this).
+_SHIFT_UNROLL = 10
+
+
 def _swarm_init(gen, cfg: SketchShiftConfig, lo, span, x_data, s_buf, t: int):
     """The round-``t`` swarm ``(P, n)``: uniform in the box ("range"), data
     rows ("sample"), or D^2 sampling against the ``t`` kept modes ("kpp").
@@ -84,6 +92,17 @@ def _swarm_init(gen, cfg: SketchShiftConfig, lo, span, x_data, s_buf, t: int):
     return x_data[idx]
 
 
+def _shift_step(state, inputs, row, op, density_floor):
+    """One mean-shift fixed-point step of the whole swarm on residual r."""
+    (c,) = state
+    w_dense, r, h2, h, lo, hi = inputs
+    f, g = ops.sketch_shift_scores(c, w_dense, r)
+    delta = h2 * g / torch.clamp(f, min=density_floor)[:, None]
+    norm = torch.linalg.vector_norm(delta, dim=1, keepdim=True)
+    delta = delta * torch.clamp(h / torch.clamp(norm, min=1e-20), max=1.0)
+    return (torch.clamp(c + delta, min=lo, max=hi),)
+
+
 def sketch_shift(
     gen: torch.Generator,
     z: torch.Tensor,
@@ -92,6 +111,8 @@ def sketch_shift(
     upper: torch.Tensor,
     cfg: SketchShiftConfig,
     x_init: torch.Tensor | None = None,
+    *,
+    eager: bool = False,
 ):
     """Decode K centroids from the sketch ``z`` by K rounds of mean shift on
     the residual sketched density.
@@ -99,7 +120,8 @@ def sketch_shift(
     Returns ``(centroids (K, n), weights (K,), cost)`` with ``cost`` the
     shared objective ``||z - A(C) alpha||^2``.  ``x_init`` seeds the swarm
     with data rows when ``cfg.init != "range"``.  All tensors live on
-    ``z``'s device, and ``gen`` must live there too.
+    ``z``'s device, and ``gen`` must live there too.  ``eager`` runs the
+    loops eagerly on the card too (for comparisons only).
     """
     w = fo.as_operator(w)
     dev = z.device
@@ -120,22 +142,16 @@ def sketch_shift(
     )
     slots = torch.arange(k, device=dev)
 
-    def shift(c, r):
-        """One mean-shift fixed-point step of the whole swarm on residual r."""
-        f, g = ops.sketch_shift_scores(c, w_dense, r)
-        delta = h2 * g / torch.clamp(f, min=cfg.density_floor)[:, None]
-        norm = torch.linalg.vector_norm(delta, dim=1, keepdim=True)
-        delta = delta * torch.clamp(h / torch.clamp(norm, min=1e-20), max=1.0)
-        return torch.clamp(c + delta, min=lo, max=hi)
-
     s_buf = torch.zeros((k, n), dtype=torch.float32, device=dev)
     alpha = torch.zeros((k,), dtype=torch.float32, device=dev)
     r = z
     for t in range(k):
         # Mean-shift swarm on the residual density.
         cands = _swarm_init(gen, cfg, lo, span, x_data, s_buf, t).contiguous()
-        for _ in range(cfg.shift_steps):
-            cands = shift(cands, r)
+        (cands,) = graphs.loop(
+            _shift_step, (cands,), (w_dense, r, h2, h, lo, hi), cfg.shift_steps,
+            const=cfg.density_floor, unroll=_SHIFT_UNROLL, eager=eager,
+        )
 
         # Harvest: the densest candidate not within resolution of a kept mode.
         f, _ = ops.sketch_shift_scores(cands, w_dense, r)
@@ -147,19 +163,15 @@ def sketch_shift(
         # Reweight the support and deflate the residual.
         mask = slots <= t
         a = sk.atoms(s_buf, w)  # (K, 2m)
-        alpha = nnls_mod.nnls(a.T, z, mask, iters=cfg.nnls_iters)
+        alpha = nnls_mod.nnls(a.T, z, mask, iters=cfg.nnls_iters, eager=eager)
         r = z - (alpha * mask.to(torch.float32)) @ a
     cents = s_buf
 
     # Polish: joint descent on the shared objective in unit-box coordinates.
     if cfg.polish_steps > 0:
-        def joint_loss(params):
-            res = z - params[1] @ sk.atoms(lo + params[0] * span, w)
-            return torch.sum(res * res)
-
         s, alpha = common.adam(
-            joint_loss, ((cents - lo) / span, alpha), cfg.polish_steps, cfg.polish_lr,
-            lambda p: (torch.clamp(p[0], 0.0, 1.0), torch.clamp(p[1], min=0.0)),
+            common.polish_loss, ((cents - lo) / span, alpha), cfg.polish_steps,
+            cfg.polish_lr, common.clip_joint, (z, lo, span), w, eager=eager,
         )
         cents = lo + s * span
 
@@ -174,7 +186,8 @@ def sketch_shift(
 
 
 @register_decoder("sketch_shift")
-def decode_sketch_shift(gen, z, w, lower, upper, cfg, x_init=None):
+def decode_sketch_shift(gen, z, w, lower, upper, cfg, x_init=None, *, eager=False):
     """Registry entry: the ``SketchShiftConfig`` of the pipeline config, then
     :func:`sketch_shift`."""
-    return sketch_shift(gen, z, w, lower, upper, cfg.sketch_shift_config(), x_init)
+    return sketch_shift(gen, z, w, lower, upper, cfg.sketch_shift_config(), x_init,
+                        eager=eager)

@@ -13,10 +13,17 @@ structured_sketch            ``csrc/structured_sketch.cu``          ``repro/kern
                                                                     ``structured_sketch_kernel``
 quantized_structured_sketch  ``csrc/structured_sketch.cu``          ``repro/kernels/freq_transform.py``
                                                                     ``quantized_structured_sketch_kernel``
+sketch_shift                 ``csrc/sketch_shift.cu``               ``repro/kernels/sketch_shift.py``
+                                                                    ``sketch_shift_kernel``
+amp_denoise                  ``csrc/amp_denoise.cu``                ``repro/kernels/amp_denoise.py``
+                                                                    ``amp_denoise_kernel``
+flash_attention              ``csrc/flash_attention.cu``            ``repro/kernels/flash_attention.py``
+                                                                    ``flash_attention_kernel``
 ===========================  =====================================  ==============================================
 
 The Python wrappers live in ``fourier_sketch.py`` (the first and third),
-``assign_argmin.py`` and ``freq_transform.py`` (the last two).
+``assign_argmin.py``, ``freq_transform.py`` (the fourth and fifth),
+``sketch_shift.py``, ``amp_denoise.py`` and ``flash_attention.py``.
 ``kernels.ops`` dispatches on the tensor's device and the operator's family;
 ``kernels._build`` compiles the sources with nvcc on first use and loads them
 with ctypes; ``kernels._launch`` holds the wrappers' device checks and grid

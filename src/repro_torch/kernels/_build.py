@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = (
     "fourier_sketch", "assign_argmin", "quantized_fourier_sketch", "structured_sketch",
-    "sketch_shift", "amp_denoise",
+    "sketch_shift", "amp_denoise", "flash_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

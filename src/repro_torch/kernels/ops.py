@@ -15,6 +15,8 @@ operator family with no kernel raises ``TypeError``: there is no unfused
 fallback.  The decoders' entry points (``sketch_shift_scores``,
 ``amp_denoise``) take plain tensors: a dense ``(n, m)`` frequency matrix and
 the sketch, or the pseudo-data, its variance and the box.
+``flash_attention`` takes ``(B, S, H, hd)`` q, k and v, as the reference's
+entry point does.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core import freq_ops as fo
 from repro_torch.kernels import amp_denoise as _amp
 from repro_torch.kernels import assign_argmin as _assign
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fourier_sketch as _sketch
 from repro_torch.kernels import freq_transform as _ft
 from repro_torch.kernels import sketch_shift as _shift
@@ -132,3 +135,46 @@ def amp_denoise(
     hi = torch.broadcast_to(upper.to(torch.float32), (n,)).contiguous()
     fn = _amp.amp_denoise if _on_cuda(r) else _amp.amp_denoise_plain
     return fn(r, q, lo, hi)
+
+
+# The reference's default kv block (``repro.kernels.ops.flash_attention``):
+# its wrapper pads S_kv to whole blocks, which only the causal mask hides.
+_REF_BLOCK_K = 256
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Flash attention (forward) on ``q (B, S_q, H, hd)`` and ``k, v (B,
+    S_kv, KV, hd)`` with ``H`` a multiple of ``KV`` (GQA): returns
+    ``(B, S_q, H * hd)`` in q's dtype, without the LSE.
+
+    The reference's contract: heads are flattened, q head ``h`` reads kv
+    head ``h // (H / KV)``, and a non-causal call whose S_kv is not a whole
+    number of the reference's kv blocks is refused, as the reference's pad
+    assert refuses it.  The kernel masks the ragged edge itself: no padding
+    copy is made.
+    """
+    b, s_q, h, hd = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or v.shape != k.shape or k.shape[3] != hd or h % kvh:
+        raise ValueError(
+            f"expected q (B, S_q, H, hd), k and v (B, S_kv, KV, hd) with KV dividing H; "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    block_k = min(_REF_BLOCK_K, max(8, 1 << (s_kv - 1).bit_length()))
+    if s_kv % block_k and not causal:
+        raise ValueError(
+            f"S_kv = {s_kv} is not a whole number of {block_k}-row kv blocks: the "
+            "reference pads it, which requires the causal mask"
+        )
+    qf = q.transpose(1, 2).reshape(b * h, s_q, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * kvh, s_kv, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * kvh, s_kv, hd).contiguous()
+    fn = _flash.flash_attention_kernel if _on_cuda(q) else _flash.flash_attention_plain
+    o, _lse = fn(qf, kf, vf, h // kvh, causal, window)
+    return o.reshape(b, h, s_q, hd).transpose(1, 2).reshape(b, s_q, h * hd)

@@ -10,9 +10,10 @@ The options pick the sketch path (``CKMConfig.freq_op`` and
 decoder (``CKMConfig.decoder``; default CLOMPR).  Prints
 the k-means x5 SSE/N; whether two sketches of the same data, and two
 decodes of the same sketch, are bitwise equal (also under
-``torch.use_deterministic_algorithms``); then the relative SSE (CKM over
-k-means x5) of ``ckm.fit`` for seeds 1-8, and of ``ckm.fit`` with 3
-replicates for seeds 1-3.
+``torch.use_deterministic_algorithms``), and whether the decode with its
+loops eager (``eager=True``) gives the graphed decode's bits; then the
+relative SSE (CKM over k-means x5) of ``ckm.fit`` for seeds 1-8, and of
+``ckm.fit`` with 3 replicates for seeds 1-3.
 """
 
 import argparse
@@ -65,6 +66,14 @@ def main() -> None:
     print(
         "decode bitwise repeat", torch.equal(outs[0], outs[1]),
         "max diff", float((outs[0] - outs[1]).abs().max()), flush=True,
+    )
+    t = time.perf_counter()
+    c, _, _ = ckm.decode_sketch(dm.derive_seed(1, 1), z, op, lo, hi, cfg, device=dev, eager=True)
+    torch.cuda.synchronize()
+    print(
+        f"eager decode: {time.perf_counter() - t:.2f}s bitwise equal to the graphed "
+        f"{torch.equal(c, outs[0])} max diff {float((c - outs[0]).abs().max())}",
+        flush=True,
     )
     torch.use_deterministic_algorithms(True)
     outs = []

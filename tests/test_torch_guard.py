@@ -120,3 +120,52 @@ def test_new_entry_points_default_to_the_card():
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
+
+
+def test_flash_attention_source_keeps_the_accurate_math_and_no_atomics():
+    """Kernel 8 rounds as the plain version's float32 softmax: expf and
+    logf, none of the fast __ intrinsics; each output is written by one
+    thread (no atomics), so it repeats bitwise."""
+    code = re.sub(r"//.*", "", (PORT / "kernels" / "csrc" / "flash_attention.cu").read_text())
+    assert "expf(" in code and "logf(" in code
+    assert not re.search(r"__(expf|exp10f|logf|powf|fdividef)\b", code)
+    assert "atomic" not in code
+
+
+def test_graphs_have_no_fallback_and_decoders_default_to_them():
+    """A failed capture raises (no ``except`` in ``core.graphs``), and every
+    decoder entry takes the graphed loops unless asked for ``eager``."""
+    import inspect
+
+    from repro_torch.core import ckm
+    from repro_torch.core import decoders as tdec
+    from repro_torch.core import nnls
+    from repro_torch.core.decoders import common
+
+    assert "except" not in (PORT / "core" / "graphs.py").read_text()
+    fns = [ckm.decode_sketch, nnls.nnls, common.adam, tdec.clompr, tdec.sketch_shift,
+           tdec.cl_amp, *(tdec.get_decoder(n) for n in tdec.available_decoders())]
+    for fn in fns:
+        param = inspect.signature(fn).parameters["eager"]
+        assert param.default is False and param.kind is param.KEYWORD_ONLY, fn.__name__
+
+
+def test_flash_attention_takes_the_card_for_cuda_tensors(monkeypatch):
+    """``ops.flash_attention`` sends a CUDA tensor to the kernel wrapper, and
+    the wrapper runs the plain version only when every tensor is on the CPU."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    called = []
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(fa, "flash_attention_kernel",
+                        lambda *a: called.append(a) or fa.flash_attention_plain(*a))
+    q = torch.zeros((1, 8, 2, 16))
+    ops.flash_attention(q, q, q)
+    assert len(called) == 1
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_kernel(torch.zeros((2, 8, 16), device="meta"),
+                                  torch.zeros((2, 8, 16)), torch.zeros((2, 8, 16)), 1, True, 0)
