@@ -13,7 +13,8 @@ kernels again at the wide shape n = d = 2048, m = 20,000; the decoder
 kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
 wide shape; amp_denoise at the decoder's shape, a wide one, the deep tail
 and open boxes); the sweep of the sketch kernels' widths at N = 20,001
-(kernels 1-3 at n = 3 to 100, kernels 4-5 at d = 64 to 1024); flash
+(kernels 1-3 at n = 3 to 100, kernel 1 also at phases of 10^3-10^4
+radians, kernels 4-5 at d = 64 to 1024); flash
 attention (kernel 8) at its edge cases and at the llama3.2-1B, gemma3-1B
 local-layer and 32k-prefill shapes, beside SDPA's time; ckm.fit,
 ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
@@ -67,6 +68,9 @@ RAGGED_P, RAGGED_M = 83, 1003
 # not reached by the main path's d = 32 and the wide d = 2048).
 SWEEP_N, SWEEP_M = 20_001, 300
 SWEEP_DENSE_NS = (3, 6, 16, 24, 48, 100)
+# Kernel 1 at large phases: x (n = 10) scaled so |x w| reaches 10^3-10^4,
+# where its reduction to [-pi, pi] before the SFU's __sincosf is exercised.
+LARGE_PHASE_N, LARGE_PHASE_SCALE = 10, 300.0
 SWEEP_STRUCTURED_NS = (40, 100, 200, 500, 1000)
 # Flash attention at the reference's model widths (src/repro/configs/):
 # llama3.2-1B (H = 32, KV = 8, hd = 64) at S = 4096 and at the 32k-token
@@ -292,6 +296,12 @@ def check_sketch(fs, x, w, beta, label):
         lambda: sketch_bound(n_pts, x.shape[1], w.shape[1]),
         line,
     )
+
+
+def max_phase(x, w, chunk: int = 1 << 18) -> float:
+    """max |x w| over all rows, ``chunk`` rows at a time."""
+    return max(float(torch.amax(torch.abs(x[i:i + chunk] @ w)))
+               for i in range(0, x.shape[0], chunk))
 
 
 def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn):
@@ -606,6 +616,7 @@ def main() -> None:
     w = frequencies.draw_frequencies(g_freq, M, DIM, sigma2, device=dev)
     ones = torch.ones((N,), dtype=torch.float32, device=dev)
     results = {"fourier_sketch": check_sketch(fs, x, w, ones, "fit shape")}
+    print(f"[fourier_sketch phases] fit shape: max|x w| = {max_phase(x, w):.3f} rad", flush=True)
     chunk = N // STREAM_CHUNKS
     check_sketch(fs, x[:chunk], w, ones[:chunk], "stream-batch shape")
     check_sketch(fs, x[:RAGGED_N], w, ones[:RAGGED_N], "ragged")
@@ -706,6 +717,11 @@ def main() -> None:
                     xs[lo:hi], ws, sweep_dither, b),
                 SWEEP_N, SWEEP_N // 3, lambda: qsketch_bound(SWEEP_N, n_s, SWEEP_M),
             )
+    xs = torch.randn((SWEEP_N, LARGE_PHASE_N), generator=gen, device=dev) * LARGE_PHASE_SCALE
+    ws = torch.randn((LARGE_PHASE_N, SWEEP_M), generator=gen, device=dev)
+    big = max_phase(xs, ws)
+    check(1e3 <= big <= 1e5, f"large-phase case: max|x w| {big:.1f} outside [1e3, 1e5]")
+    check_sketch(fs, xs, ws, sweep_beta, f"sweep large phases max|x w|={big:.1f}")
     for n_s in SWEEP_STRUCTURED_NS:
         xs = torch.randn((SWEEP_N, n_s), generator=gen, device=dev)
         d_s = 1 << (n_s - 1).bit_length()

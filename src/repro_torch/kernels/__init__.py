@@ -26,6 +26,6 @@ The Python wrappers live in ``fourier_sketch.py`` (the first and third),
 ``sketch_shift.py``, ``amp_denoise.py`` and ``flash_attention.py``.
 ``kernels.ops`` dispatches on the tensor's device and the operator's family;
 ``kernels._build`` compiles the sources with nvcc on first use and loads them
-with ctypes; ``kernels._launch`` holds the wrappers' device checks and grid
-sizing.
+with ctypes; ``kernels._launch`` holds the wrappers' device checks, the card's SM count
+and current stream, and the grid sizing.
 """

@@ -11,7 +11,9 @@ module, and the CPU has no nvcc.
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 No ``--use_fast_math``: the sketch phases reach tens of radians, where the
-fast ``__sinf``/``__cosf`` intrinsics lose accuracy.
+fast ``__sinf``/``__cosf`` intrinsics lose accuracy.  Kernel 1
+(``fourier_sketch.cu``) calls ``__sincosf`` on purpose, in one helper that
+first reduces the phase to [-pi, pi]; no other source calls the fast trig.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""What the kernel wrappers share at launch: the device checks and the grid
-sizing of the row-range kernels."""
+"""What the kernel wrappers share at launch: the device checks, the card's
+SM count and current stream, and the grid sizing of the row-range kernels."""
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -27,18 +30,48 @@ def check_cuda(named) -> torch.device:
     return dev
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count(dev.index)
 
 
-def grid_rows(n_pts: int, col_blocks: int, sms: int) -> tuple[int, int]:
+def on_device(dev: torch.device):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is current
+    already: the switch and back cost about as much as a small launch."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_ptr(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current CUDA stream (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building
+    a ``Stream``: a small launch's host time matters)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def grid_rows(
+    n_pts: int, col_blocks: int, sms: int, *, resident: int | None = None,
+    min_rows: int = _MIN_ROWS_PER_GROUP, max_rows: int | None = _MAX_ROWS_PER_GROUP,
+) -> tuple[int, int]:
     """``(rows_per_group, groups)`` for a grid of ``groups`` row ranges by
-    ``col_blocks`` column blocks: about ``_BLOCKS_PER_SM`` blocks per SM, at
-    least ``_MIN_ROWS_PER_GROUP`` rows a block where N allows, at most
-    ``_MAX_ROWS_PER_GROUP``.  A fixed function of the shape on one card, so a
+    ``col_blocks`` column blocks: about ``_BLOCKS_PER_SM`` blocks per SM or,
+    given the kernel's ``resident`` blocks per SM (its occupancy), at most
+    one wave of them, so no SM gets a second, ragged round; at least
+    ``min_rows`` rows a block where N allows, and at most
+    ``max_rows`` (``None``: no cap, for a kernel that keeps long sums
+    accurate itself).  A fixed function of the shape on one card, so a
     fixed-order reduction over the groups repeats its bits."""
-    groups = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
-    groups = min(groups, max(1, -(-n_pts // _MIN_ROWS_PER_GROUP)))
-    groups = max(groups, -(-n_pts // _MAX_ROWS_PER_GROUP))
+    if resident is None:
+        groups = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
+    else:
+        groups = max(1, resident * sms // col_blocks)
+    groups = min(groups, max(1, -(-n_pts // min_rows)))
+    if max_rows is not None:
+        groups = max(groups, -(-n_pts // max_rows))
     rows = max(1, -(-n_pts // groups))
     return rows, max(1, -(-n_pts // rows))

@@ -30,7 +30,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_cuda
+from repro_torch.kernels._launch import check_cuda, on_device, stream_ptr
 
 # Kernel launches since the count was last reset (plain calls do not count).
 LAUNCHES = 0
@@ -88,7 +88,8 @@ def flash_attention_kernel(
 
     Raises for anything the kernel does not take (mixed devices, another
     dtype, a non-contiguous tensor, a head width that is not a multiple of 8
-    up to 256, more than 65,535 q rows of heads).
+    up to 256, more than 65,535 q rows of heads, a bf16 tensor whose data
+    is not 16-byte aligned for the kernel's copies).
     """
     global LAUNCHES
     _check_inputs(q, k, v, rep, window)
@@ -98,14 +99,16 @@ def flash_attention_kernel(
     bh, s_q, hd = q.shape
     if bh > 65535:
         raise ValueError(f"{bh} flattened heads exceed the kernel's grid (65,535)")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16-byte boundaries")
     lib = _lib()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         o = torch.empty_like(q)
         lse = torch.empty((bh, s_q), dtype=torch.float32, device=dev)
         status = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             bh, s_q, k.shape[1], hd, rep, int(bool(causal)), int(window), 1.0 / hd**0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+            int(q.dtype == torch.bfloat16), stream_ptr(dev),
         )
     if status != 0:
         msg = lib.flash_attention_error_string(status).decode()

@@ -30,18 +30,20 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_cuda, grid_rows, sm_count
+from repro_torch.kernels._launch import check_cuda, grid_rows, on_device, sm_count, stream_ptr
 
 # Kernel launches since the counts were last reset (plain calls do not count).
 LAUNCHES = 0
 QUANTIZED_LAUNCHES = 0
 _THREADS = 256  # frequencies per block of the quantized kernel
 
-# Rows each block sums before its partial goes to the second pass: short
-# enough that the float32 register accumulators stay accurate, long enough
-# that the (row_blocks, m) partials stay small.
-ROWS_PER_BLOCK = 4096
+# Frequencies per block of the float kernel, and the rows it stages at a
+# time (the least a block is given where N allows).
+FREQS_PER_BLOCK = 256
+TILE_ROWS = 128
 _PLAIN_CHUNK = 1 << 16
+# Blocks per SM of each width's float kernel, by (device index, n).
+_RESIDENT: dict[tuple[int, int], int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,6 +53,8 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i64, i32, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
+        lib.fourier_sketch_resident.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.fourier_sketch_resident.restype = i32
         lib.fourier_sketch_error_string.argtypes = [ctypes.c_int]
         lib.fourier_sketch_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,6 +76,33 @@ def _check_inputs(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
+def sketch_grid(n_pts: int, m: int, sms: int, resident: int) -> tuple[int, int, int]:
+    """``(rows_per_group, groups, col_blocks)`` of the float kernel's grid:
+    ``col_blocks`` blocks of ``FREQS_PER_BLOCK`` frequencies by ``groups``
+    contiguous row ranges of ``rows_per_group`` rows (the last one ragged).
+    One wave of ``resident`` blocks per SM on ``sms`` SMs, where N is large
+    enough for a tile of ``TILE_ROWS`` rows a block (``_launch.grid_rows``);
+    no cap on the rows of a group, since the kernel adds each tile's float
+    sums into double registers.  So the ``(groups, m)`` partials do not grow
+    with N."""
+    col_blocks = -(-m // FREQS_PER_BLOCK)
+    rows, groups = grid_rows(n_pts, col_blocks, sms, resident=resident, min_rows=TILE_ROWS,
+                             max_rows=None)
+    return rows, groups, col_blocks
+
+
+def _resident(lib: ctypes.CDLL, dev: torch.device, n: int) -> int:
+    key = (dev.index, n)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        status = lib.fourier_sketch_resident(n, ctypes.byref(out))
+        if status != 0 or out.value < 1:
+            msg = lib.fourier_sketch_error_string(status).decode()
+            raise RuntimeError(f"fourier_sketch occupancy query failed: {msg} ({status})")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
 def fourier_sketch_sums(
     x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -79,37 +110,30 @@ def fourier_sketch_sums(
 
     Raises for anything the kernel does not take (a CPU tensor, another
     dtype, a non-contiguous tensor, mismatched devices).  The sums are
-    bitwise repeatable: no float atomics, a fixed reduction order.
+    bitwise repeatable on one card: no atomics, a fixed reduction order.
     """
     global LAUNCHES
     _check_inputs(x, w, beta)
-    for name, t in (("x", x), ("w", w), ("beta", beta)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = check_cuda((("x", x), ("w", w), ("beta", beta)))
     n_pts, n = x.shape
     m = w.shape[1]
-    if m > 65535 * 256:
+    if m > 65535 * FREQS_PER_BLOCK:
         raise ValueError(f"m = {m} exceeds the kernel's grid limit")
-    row_blocks = max(1, -(-n_pts // ROWS_PER_BLOCK))
     lib = _lib()
-    with torch.cuda.device(x.device):
-        cos_part = torch.empty((row_blocks, m), dtype=torch.float32, device=x.device)
-        sin_part = torch.empty_like(cos_part)
-        cos_out = torch.empty((m,), dtype=torch.float32, device=x.device)
-        sin_out = torch.empty_like(cos_out)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with on_device(dev):
+        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), _resident(lib, dev, n))
+        part = torch.empty((2, groups, m), dtype=torch.float64, device=dev)
+        out = torch.empty((2, m), dtype=torch.float32, device=dev)
         status = lib.fourier_sketch_sums(
-            x.data_ptr(), w.data_ptr(), beta.data_ptr(), n_pts, n, m,
-            ROWS_PER_BLOCK, row_blocks, cos_part.data_ptr(), sin_part.data_ptr(),
-            cos_out.data_ptr(), sin_out.data_ptr(), stream,
+            x.data_ptr(), w.data_ptr(), beta.data_ptr(), n_pts, n, m, rows, groups,
+            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            stream_ptr(dev),
         )
     if status != 0:
         msg = lib.fourier_sketch_error_string(status).decode()
         raise RuntimeError(f"fourier_sketch kernel launch failed: {msg} ({status})")
     LAUNCHES += 1
-    return cos_out, sin_out
+    return out[0], out[1]
 
 
 def fourier_sketch_sums_plain(

@@ -183,3 +183,76 @@ def test_kernel_wrapper_takes_a_non_cpu_tensor_to_the_kernel_or_raises():
     with pytest.raises(ValueError, match="device meta"):
         tops.flash_attention(q[None].transpose(1, 2), q[None].transpose(1, 2),
                              q[None].transpose(1, 2))
+
+
+# The chip bar for bf16 outputs (chip_smoke.py's FLASH_BF16_*) and the LSE.
+BF16_RTOL, BF16_ATOL, LSE_TOL = 2.0**-7, 1e-4, 1e-5
+
+
+def _tensor_core_model(q, k, v, rep, causal, window, block_k=64):
+    """The bf16 kernel's arithmetic (``csrc/flash_attention.cu``,
+    ``flash_fwd_tc``) in torch, on flattened bf16 ``q (BH, S_q, hd)`` and
+    ``k, v (BKV, S_kv, hd)``: S from the raw bf16 q and k accumulated in f32,
+    then scaled; the online softmax over tiles of ``block_k`` keys in f32;
+    P split into hi = bf16(P) and lo = bf16(P - hi), both multiplied by the
+    bf16 V into one f32 O; l summed from the f32 P.  Returns (o bf16, lse)."""
+    bh, s_q, hd = q.shape
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(rep, dim=0) for t in (k, v))
+    scale = torch.tensor(1.0 / hd**0.5, dtype=torch.float32)
+    m = torch.full((bh, s_q), -1e30)
+    l = torch.zeros((bh, s_q))
+    o = torch.zeros((bh, s_q, hd))
+    qpos = torch.arange(s_q)[:, None]
+    for k0 in range(0, kf.shape[1], block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = (qf @ kt.transpose(1, 2)) * scale
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = torch.ones((s_q, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= qpos >= kpos
+        if window > 0:
+            mask &= (qpos - kpos) < window
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + hi @ vt + lo @ vt
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    return (o / l_safe[..., None]).to(torch.bfloat16), m + torch.log(l_safe)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
+    (1, 128, 4, 4, 64, True, 0),     # MHA causal: rows 0.. see 1.. keys
+    (1, 128, 4, 1, 72, True, 0),     # GQA rep=4, hd not a multiple of 16
+    (2, 192, 4, 2, 64, True, 0),     # GQA rep=2, three kv tiles
+    (1, 256, 2, 1, 64, True, 48),    # MQA + sliding window
+    (1, 128, 2, 2, 72, True, 40),    # window, hd 72
+    (1, 128, 4, 2, 64, False, 0),    # non-causal
+    (1, 128, 2, 1, 72, False, 0),    # non-causal, hd 72
+])
+def test_tensor_core_rounding_model_meets_the_chip_bar(b, s, h, kv, hd, causal, window):
+    """The bf16 kernel's rounding (P split into bf16 hi and lo, f32 sums)
+    against the reference's entry point and kernel in interpret mode on the
+    same bf16 inputs: o within the chip's bar 2^-7 |o| + 1e-4, the LSE within
+    1e-5.  The kernel itself is held to its plain version on the card."""
+    q, k, v = (t.astype(jnp.bfloat16) for t in _qkv(6, b, s, s, h, kv, hd))
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+        block_q=64, block_k=64, interpret=True,
+    ).astype(jnp.float32))
+    qf, kf, vf = (torch.from_numpy(_flat(np.asarray(t, np.float32))).to(torch.bfloat16)
+                  for t in (q, k, v))
+    o, lse = _tensor_core_model(qf, kf, vf, h // kv, causal, window)
+    got = o.float().reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd).numpy()
+    used = np.abs(got - want) / (BF16_RTOL * np.abs(want) + BF16_ATOL)
+    assert used.max() <= 1.0, used.max()
+    _, lse_ref = jfa.flash_attention_kernel(
+        *(jnp.asarray(_flat(np.asarray(t, np.float32)), jnp.bfloat16) for t in (q, k, v)),
+        rep=h // kv, causal=causal, window=window, block_q=32, block_k=32, interpret=True,
+    )
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=0, atol=LSE_TOL)

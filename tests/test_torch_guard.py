@@ -59,11 +59,47 @@ def test_no_source_line_imports_jax_or_the_reference():
     assert not offenders, offenders
 
 
+def _strip_comments(code: str) -> str:
+    return re.sub(r"//.*", "", re.sub(r"/\*.*?\*/", "", code, flags=re.DOTALL))
+
+
+def _definition(code: str, name: str) -> str:
+    """The text of the ``__device__`` function ``name``, header to closing
+    brace."""
+    head = re.search(r"__device__[^;{]*\b" + name + r"\s*\([^)]*\)\s*\{", code)
+    assert head, f"no definition of {name}"
+    depth, i = 1, head.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(code[i], 0)
+        i += 1
+    return code[head.start():i]
+
+
+_FAST_TRIG = re.compile(r"\b__(?:sin|cos|sincos)f\b|\b(?:sin|cos)\.approx")
+
+
 def test_kernel_sources_avoid_fast_math_trig():
-    """Phases reach tens of radians: the fast intrinsics lose accuracy there."""
-    for src in (PORT / "kernels" / "csrc").glob("*.cu"):
-        code = re.sub(r"//.*", "", src.read_text())
-        assert "__sinf" not in code and "__cosf" not in code, src.name
+    """The SFU's trig (``__sinf``, ``__cosf``, ``__sincosf``, PTX
+    ``sin.approx``/``cos.approx``) is accurate only on [-pi, pi], and sketch
+    phases reach tens of radians.  No kernel source calls it except kernel 1's,
+    and there only ``__sincosf``, once, inside the helper that first reduces
+    the phase to [-pi, pi]; its kernels reach the SFU through that helper
+    alone.  No ``--use_fast_math``, which would turn every ``sincosf`` into
+    the unreduced intrinsics."""
+    csrc = PORT / "kernels" / "csrc"
+    for src in csrc.glob("*.cu"):
+        if src.stem != "fourier_sketch":
+            assert not _FAST_TRIG.search(_strip_comments(src.read_text())), src.name
+    code = _strip_comments((csrc / "fourier_sketch.cu").read_text())
+    helper = _definition(code, "sincos_reduced")
+    assert [m.group(0) for m in _FAST_TRIG.finditer(code)] == ["__sincosf"]
+    assert "__sincosf" in helper
+    for constant in ("kInv2Pi", "kRoundMagic", "kTwoPiHi", "kTwoPiLo"):
+        assert constant in helper, constant
+    rest = code.replace(helper, "")
+    assert not re.search(r"\b(?:sincosf|sinf|cosf|sincospif)\s*\(", rest)
+    # Both partial-sum kernels (per width and chunked) call the helper.
+    assert len(re.findall(r"\bsincos_reduced\s*\(", rest)) == 2
     from repro_torch.kernels import _build
 
     assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -6,6 +6,9 @@ The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds each
 of them against its plain version there.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +63,57 @@ def test_fourier_sketch_plain_chunking_is_invisible(monkeypatch):
     parts = fs.fourier_sketch_sums_plain(x, w, beta)
     for a, b in zip(whole, parts):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n_pts,m,resident", [
+    (20_001, 300, 12), (20_001, 100, 16), (1, 7, 16), (1000, 300, 3),
+    (10**7, 1000, 12), (10**8, 10**4, 4), (10**8, 10**4, 16), (10**10, 10**4, 16),
+])
+def test_fourier_sketch_grid_covers_each_row_once_and_fills_the_card(n_pts, m, resident):
+    """Kernel 1's launch geometry: the groups' row ranges
+    ``[g * rows, min(N, (g + 1) * rows))`` tile [0, N) with none empty, the
+    column blocks cover m, the grid is at most one wave of the resident
+    blocks, a small N still gets a block on every SM, and the double
+    partials do not grow with N (under 16 MB at m = 10^4)."""
+    rows, groups, col_blocks = fs.sketch_grid(n_pts, m, H100_SMS, resident)
+    assert (groups - 1) * rows < n_pts <= groups * rows
+    assert (col_blocks - 1) * fs.FREQS_PER_BLOCK < m <= col_blocks * fs.FREQS_PER_BLOCK
+    assert groups * col_blocks <= max(resident * H100_SMS, col_blocks)
+    if n_pts >= H100_SMS * fs.TILE_ROWS:
+        assert groups * col_blocks >= H100_SMS
+    # Two double partials per (group, frequency): bounded by the wave, not N.
+    partial_bytes = 2 * 8 * groups * m
+    assert partial_bytes <= 16 * max(resident * H100_SMS, col_blocks) * fs.FREQS_PER_BLOCK
+    assert partial_bytes < 16 * 2**20
+
+
+def _fma32(a, b, c):
+    """float32 fma, emulated: the product of two floats is exact in float64."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def test_fourier_sketch_phase_reduction_keeps_the_sfu_in_range():
+    """Kernel 1's ``sincos_reduced`` (its constants read from the source),
+    emulated in float32: for |p| <= 1e5 the reduced argument stays within
+    pi + 0.004 of 0 (where ``__sincosf`` is within 2^-21.41) and its sine and
+    cosine are within 1.2e-7 of those of p itself; up to 1e6, pi + 0.04."""
+    src = (Path(fs.__file__).parent / "csrc" / "fourier_sketch.cu").read_text()
+    const = {name: np.float32(float(val)) for name, val in re.findall(
+        r"constexpr float (k\w+) = ([-+0-9.e]+)f;", src)}
+    inv, magic = const["kInv2Pi"], const["kRoundMagic"]
+    hi, lo = const["kTwoPiHi"], const["kTwoPiLo"]
+    rng = np.random.default_rng(0)
+    for lim, r_max in ((10.0, np.pi), (1e5, np.pi + 0.004), (1e6, np.pi + 0.04)):
+        p = rng.uniform(-lim, lim, 200_000).astype(np.float32)
+        k = _fma32(p, inv, magic) - magic
+        r = _fma32(-k, lo, _fma32(-k, hi, p))
+        assert np.abs(r).max() <= r_max * (1 + 1e-6), lim
+        p64, r64 = p.astype(np.float64), r.astype(np.float64)
+        assert np.abs(np.sin(r64) - np.sin(p64)).max() <= 1.2e-7, lim
+        assert np.abs(np.cos(r64) - np.cos(p64)).max() <= 1.2e-7, lim
 
 
 def _assign_inputs(seed, n_pts, feat, k):
