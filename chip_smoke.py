@@ -14,7 +14,8 @@ kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
 wide shape; amp_denoise at the decoder's shape, a wide one, the deep tail
 and open boxes); the sweep of the sketch kernels' widths at N = 20,001
 (kernels 1-3 at n = 3 to 100, kernel 1 also at phases of 10^3-10^4
-radians, kernels 4-5 at d = 64 to 1024); flash
+radians, kernels 4-5 at d = 64 to 1024, and at phases of 10^3-10^5 radians
+on the fit's operator); flash
 attention (kernel 8) at its edge cases and at the llama3.2-1B, gemma3-1B
 local-layer and 32k-prefill shapes, beside SDPA's time; ckm.fit,
 ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
@@ -25,7 +26,8 @@ replicates; each decoder's full decode again with its loops eager, against
 the fits' graphed decodes (bits, launch counts, seconds); where fit's time
 goes (the sketch pass alone, and short decodes, eager then graphed, each
 timed alone and under torch.profiler: CLOMPR dense and structured,
-sketch_shift, amp); the attention
+sketch_shift, amp, with kernels 6 and 7's device time per launch inside the
+graphs); the attention
 entry point (ops.flash_attention) at the three model shapes, with its launch
 counts; one JSON line of per-kernel numbers, the total wall time and, last,
 the device line.  Any failed check raises and the script exits non-zero
@@ -64,14 +66,24 @@ RAGGED_P, RAGGED_M = 83, 1003
 
 # The sweep of the sketch kernels' template instances and generic paths, at
 # small N: kernels 1-3 at every NP (4 to 64) and beyond (generic), kernels
-# 4-5 at d = 64, 128, 256, 512, 1024 (every case of the structured switch
-# not reached by the main path's d = 32 and the wide d = 2048).
+# 4-5 at d = 32 with n = 5 and 20 (the first stage's instances NX = 16 and
+# 32) and at d = 64, 128, 256, 512, 1024 (every case of the structured
+# switch; the main path reaches d = 32 with NX = 16, the wide shape 2048).
 SWEEP_N, SWEEP_M = 20_001, 300
 SWEEP_DENSE_NS = (3, 6, 16, 24, 48, 100)
 # Kernel 1 at large phases: x (n = 10) scaled so |x w| reaches 10^3-10^4,
 # where its reduction to [-pi, pi] before the SFU's __sincosf is exercised.
 LARGE_PHASE_N, LARGE_PHASE_SCALE = 10, 300.0
-SWEEP_STRUCTURED_NS = (40, 100, 200, 500, 1000)
+SWEEP_STRUCTURED_NS = (5, 20, 40, 100, 200, 500, 1000)
+# Kernels 4-5 at large phases: the ragged rows of the data scaled so that the
+# fit's structured phases reach 10^3-10^5, where their reduction to
+# [-pi, pi] (and the 1-bit codes read off the reduced phase) is exercised.
+# At such phases the kernel's and the plain version's float32 phases round
+# apart by about an ulp of the phase (1.2e-4 rad at 2,000), so codes flip at
+# about that rate a (row, frequency): at N = 20,001 a single flip is already
+# 1e-4 of N, so the case runs at the ragged N of 1,000,003, where CODE_TOL
+# reads as a flip rate.
+LARGE_PHASE_STRUCTURED_SCALE = 100.0
 # Flash attention at the reference's model widths (src/repro/configs/):
 # llama3.2-1B (H = 32, KV = 8, hd = 64) at S = 4096 and at the 32k-token
 # prefill that models/layers.py names, and a gemma3-1B local layer (H = 4,
@@ -259,6 +271,24 @@ def ptxas_summary(log: str) -> str:
             + (f"{spilled} bytes in {len(spilled)} of {len(spills)} kernels" if spilled else "none"))
 
 
+_MODES = {"0": "float", "1": "codes", "2": "1bit"}
+
+
+def ptxas_instances(log: str) -> list[str]:
+    """``d/mode/NX: registers, spill stores`` of each instance of the
+    structured kernel in a ptxas report."""
+    out = []
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = chunk.split("'")[1]
+        if "structuredILi" not in name:
+            continue
+        d, mode, nx = name.split("structuredILi")[1].split("EE")[0].split("ELi")
+        regs = chunk.split("Used ")[1].split(" registers")[0]
+        spill = chunk.split(" bytes spill stores")[0].split(",")[-1].strip()
+        out.append(f"d={d}/{_MODES[mode]}/NX={nx}: {regs} registers, {spill} B spilled")
+    return out
+
+
 def _timed(out, kernel, plain, bound_fn, line):
     """Add kernel, plain and bound ms to ``out`` and print ``line`` with them."""
     out["ms"] = median_ms(kernel)
@@ -301,6 +331,13 @@ def check_sketch(fs, x, w, beta, label):
 def max_phase(x, w, chunk: int = 1 << 18) -> float:
     """max |x w| over all rows, ``chunk`` rows at a time."""
     return max(float(torch.amax(torch.abs(x[i:i + chunk] @ w)))
+               for i in range(0, x.shape[0], chunk))
+
+
+def max_structured_phase(x, op, chunk: int = 1 << 18) -> float:
+    """max |phase| of the structured operator's (N, m) phases, ``chunk`` rows
+    at a time."""
+    return max(float(torch.amax(torch.abs(op.apply(x[i:i + chunk]))))
                for i in range(0, x.shape[0], chunk))
 
 
@@ -602,6 +639,9 @@ def main() -> None:
     )
     for name, log in sorted(_build.PTXAS.items()):
         print(f"[ptxas {name}] {ptxas_summary(log)}", flush=True)
+    instances = ptxas_instances(_build.PTXAS.get("structured_sketch", ""))
+    check(len(instances) == 24, f"ptxas reported {len(instances)} structured instances, not 24")
+    print("[ptxas structured_sketch] " + "; ".join(instances), flush=True)
 
     # 3. The data.
     t0 = time.perf_counter()
@@ -645,6 +685,14 @@ def main() -> None:
     check_slice2_kernels(fs, ft, x, w, op, dither, "fit shape", N // 3, results)
     check_slice2_kernels(fs, ft, x[:chunk], w, op, dither, "stream-batch shape", chunk // 3)
     check_slice2_kernels(fs, ft, x[:RAGGED_N], w, op, dither, "ragged", 333_333)
+    x_big = x[:RAGGED_N] * LARGE_PHASE_STRUCTURED_SCALE
+    big = max_structured_phase(x_big, op)
+    check(1e3 <= big <= 1e5, f"structured large-phase case: max|phase| {big:.1f} outside [1e3, 1e5]")
+    check_slice2_kernels(fs, ft, x_big, None, op, dither, f"large phases max|phase|={big:.1f}",
+                         333_333)
+    print(f"[structured phases] fit shape: max|phase| = {max_structured_phase(x, op):.3f} rad; "
+          f"large-phase case {big:.1f} rad", flush=True)
+    del x_big
 
     # 4c. The structured kernels' generic path (d > 32) at the wide shape.
     xw = synthetic.gaussian_mixture(DATA_SEED, WIDE_N, K, WIDE_DIM, device=dev)
@@ -724,7 +772,7 @@ def main() -> None:
     check_sketch(fs, xs, ws, sweep_beta, f"sweep large phases max|x w|={big:.1f}")
     for n_s in SWEEP_STRUCTURED_NS:
         xs = torch.randn((SWEEP_N, n_s), generator=gen, device=dev)
-        d_s = 1 << (n_s - 1).bit_length()
+        d_s = max(32, 1 << (n_s - 1).bit_length())
         m_s = 3 * d_s - 5  # three blocks, the last one ragged
         op_s = freq_ops.make_operator("structured", g_freq, m_s, n_s, 1.0, device=dev)
         check(op_s.d == d_s, f"sweep n={n_s}: block width {op_s.d}, expected {d_s}")
@@ -806,16 +854,20 @@ def main() -> None:
     )
 
     # 8. Quality.
-    sse_ckm = float(ckm.sse(x, res.centroids, device=dev)) / N
+    # The float32 SSEs themselves (9 significant digits name each exactly),
+    # so that two runs show which side of a ratio moved.
+    sse_ckm_raw, sse_km_raw = float(ckm.sse(x, res.centroids, device=dev)), float(km.sse)
+    sse_ckm = sse_ckm_raw / N
     sse_stream = float(ckm.sse(x, res_s.centroids, device=dev)) / N
-    sse_km = float(km.sse) / N
+    sse_km = sse_km_raw / N
     rel = sse_ckm / sse_km
     print(
         f"[quality] SSE/N ckm {sse_ckm:.4f}  ckm-stream {sse_stream:.4f}  "
         f"kmeans x{KMEANS_REPLICATES} {sse_km:.4f} (iters {km.iters})  "
         f"relative SSE {rel:.4f} (stream {sse_stream / sse_km:.4f}, limit "
         f"{MAX_RELATIVE_SSE})  |z_stream - z|={dz:.2e} (tol {STREAM_TOL})  "
-        f"sigma2={float(res.sigma2):.4f}",
+        f"sigma2={float(res.sigma2):.4f}  SSE ckm {sse_ckm_raw:.9g} kmeans "
+        f"{sse_km_raw:.9g} ratio {rel:.9g}",
         flush=True,
     )
     check(rel <= MAX_RELATIVE_SSE, f"relative SSE {rel:.4f} > {MAX_RELATIVE_SSE}")
@@ -851,11 +903,13 @@ def main() -> None:
         check(bool(torch.isfinite(r2.centroids).all()), f"{label} centroids finite")
         check(abs(float(r2.weights.sum()) - 1.0) < 1e-4, f"{label} weights sum to 1")
         slice2_res[label], path_cfg[label], pass_of[label] = r2, cfg2, pass_s
-        rel2 = rel_of[label] = float(ckm.sse(x, r2.centroids, device=dev)) / N / sse_km
+        sse2_raw = float(ckm.sse(x, r2.centroids, device=dev))
+        rel2 = rel_of[label] = sse2_raw / N / sse_km
         print(
             f"[{label} quality] sketch pass {pass_s:.3f}s, decode "
             f"{phase_s[label] - pass_s:.2f}s; SSE/N {rel2 * sse_km:.4f}, relative SSE "
-            f"{rel2:.4f} (limit {MAX_RELATIVE_SSE})",
+            f"{rel2:.4f} (limit {MAX_RELATIVE_SSE}); SSE ckm {sse2_raw:.9g} kmeans "
+            f"{sse_km_raw:.9g} ratio {rel2:.9g}",
             flush=True,
         )
         check(rel2 <= MAX_RELATIVE_SSE, f"{label}: relative SSE {rel2:.4f} > {MAX_RELATIVE_SSE}")
@@ -925,7 +979,8 @@ def main() -> None:
         """A short decode of ``r``'s sketch, eager then graphed: wall
         seconds, device-busy seconds and device operations per ``unit``
         (``n_units`` of them in the decode); the two must give the same
-        bits (or the same relative SSE to 4 digits)."""
+        bits (or the same relative SSE to 4 digits).  Returns the graphed
+        run's device operations by name: (launches, device microseconds)."""
         runs, parts = {}, []
         for eager in (True, False):
             out, wall, (caps, reps) = decode_once(r, short_cfg, eager)
@@ -937,6 +992,7 @@ def main() -> None:
             busy = sum(e.self_device_time_total for e in device_ops) / 1e6
             n_ops = sum(e.count for e in device_ops)
             runs[eager] = (out, wall, busy)
+            by_name = {e.key: (e.count, e.self_device_time_total) for e in device_ops}
             parts.append(
                 f"{'eager' if eager else 'graphed'} wall {wall:.3f}s (profiled {wall_p:.3f}s), "
                 f"device busy {busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device "
@@ -960,6 +1016,22 @@ def main() -> None:
               f"eager {wall_e:.3f}s")
         check(busy_g >= GRAPHED_MIN_BUSY * wall_g,
               f"{label}: device busy {busy_g:.3f}s of a graphed {wall_g:.3f}s")
+        return by_name
+
+    def in_graph(name, by_name, symbols):
+        """Kernel ``name``'s device time per launch inside the graphed short
+        decode, its kernels matched by symbol (the first one counts the
+        launches and must be there; a second pass kernel may not run),
+        beside its wrapper-timed ms from step 4."""
+        found = [[(c, us) for key, (c, us) in by_name.items() if sym in key] for sym in symbols]
+        check(bool(found[0]), f"{name}: the profiler saw no {symbols[0]} in the graphs")
+        launches_g = sum(c for c, _ in found[0])
+        total_us = sum(us for hits in found for _, us in hits)
+        parts = ", ".join(f"{sym} {sum(us for _, us in hits) / launches_g:.2f}" if hits
+                          else f"{sym} not launched" for sym, hits in zip(symbols, found))
+        print(f"[{name} in graph] {launches_g} launches, {total_us / launches_g:.2f} us of device "
+              f"time per launch ({parts}); wrapper-timed {results[name]['ms'] * 1e3:.2f} us "
+              "(step 4, host included)", flush=True)
 
     short_decode("fit", res, short, adam_steps, "Adam step")
     short_decode("fit-structured", slice2_res["fit-structured"], short, adam_steps, "Adam step")
@@ -968,10 +1040,12 @@ def main() -> None:
     # iterations (each with its inner NNLS weight refresh).
     short_ss = dataclasses.replace(cfg, decoder="sketch_shift", shift_steps=30,
                                    shift_polish_steps=0)
-    short_decode("fit-sketch_shift", slice2_res["fit-sketch_shift"], short_ss, K * 30,
-                 "mean-shift step")
+    by_name = short_decode("fit-sketch_shift", slice2_res["fit-sketch_shift"], short_ss, K * 30,
+                           "mean-shift step")
+    in_graph("sketch_shift", by_name, ("sketch_shift_kernel", "sum_splits"))
     short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
-    short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
+    by_name = short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
+    in_graph("amp_denoise", by_name, ("amp_denoise_kernel",))
 
     # 9b. The attention entry point (ops.flash_attention, the reference's
     # (B, S, H, hd) layout) at the model shapes: the same bits as the kernel

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/kernels/<name>-<hash>.so`` at the root of the checkout
-(``.gitignore`` lists ``build/``), where the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as is.
+(``.gitignore`` lists ``build/``), where the hash covers the source, the
+``csrc/*.cuh`` headers it includes (``#include "<header>.cuh"``, followed
+through the headers' own includes) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as is.
 Nothing is compiled when this module is imported: the CPU tests import every
 module, and the CPU has no nvcc.
 
@@ -11,9 +13,10 @@ module, and the CPU has no nvcc.
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 No ``--use_fast_math``: the sketch phases reach tens of radians, where the
-fast ``__sinf``/``__cosf`` intrinsics lose accuracy.  Kernel 1
-(``fourier_sketch.cu``) calls ``__sincosf`` on purpose, in one helper that
-first reduces the phase to [-pi, pi]; no other source calls the fast trig.
+fast ``__sinf``/``__cosf`` intrinsics lose accuracy.  ``__sincosf`` is called
+on purpose in one helper, ``sincos_reduced`` (``sincos_reduced.cuh``), which
+first reduces the phase to [-pi, pi]; kernels 1, 4 and 5 reach the fast
+trig only through it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,10 +61,29 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([\w.]+\.cuh)"', re.MULTILINE)
+
+
+def _headers(src: bytes) -> list[str]:
+    """The ``csrc`` headers ``src`` includes, directly or through other
+    headers, in the order first met."""
+    seen: list[str] = []
+    todo = _INCLUDE.findall(src)
+    while todo:
+        name = todo.pop(0).decode()
+        if name not in seen:
+            seen.append(name)
+            todo.extend(_INCLUDE.findall((CSRC / name).read_bytes()))
+    return seen
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src)
+    for header in _headers(src):
+        h.update(header.encode() + b"\0" + (CSRC / header).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:

@@ -12,24 +12,13 @@
 // tensor cores, and TF32 would break the 1e-4 bar anyway: every product is a
 // full-precision FP32 FMA.  A full-precision sincosf is tens of FP32-pipe
 // instructions while the special-function unit (SFU) idles, so the trig
-// goes to the SFU after an exact phase reduction:
-//
-//  * sincos_reduced() is the one place where a fast trig intrinsic appears.
-//    k = rint(p / 2pi) comes from one FMA against 1.5 * 2^23 (round to
-//    nearest on the FP32 pipe, no conversion instruction); r = p - 2pi k is
-//    a two-constant Cody-Waite step in fmaf, with 2pi = kTwoPiHi + kTwoPiLo
-//    (the rest, 6.9e-15, is dropped).  The first fmaf is exact: kTwoPiHi k
-//    and p both lie on the 2^-21 grid and |r| < 4.  The second rounds once.
-//    For |p| <= 1e5 (|k| <= 15,916) r lies within [-pi - 0.004, pi + 0.004]
-//    and within 1.2e-7 of the exact p mod 2pi (tests/test_torch_kernels.py
-//    emulates the reduction in float32 up to |p| = 1e6); __sincosf then adds
-//    at most 2^-21.41 = 3.6e-7 on [-pi, pi] (CUDA Programming Guide), some
-//    300x under the 1e-4 bar on sums / N.  Past |p| = 1e5 the bound still
-//    holds up to about 2.6e7, where the rounding of p / 2pi starts to
-//    misplace k; phases of a sketch are tens of radians.
-//  * Per pair the FP32 pipe then does n FMAs, four for the reduction, one
-//    scaling the argument into the SFU's units and two accumulates; the SFU
-//    does two (sin, cos) at 16 per clock per SM.
+// goes to the SFU after an exact phase reduction: sincos_reduced()
+// (sincos_reduced.cuh, shared with the structured kernels) reduces the
+// phase to [-pi, pi] in four FP32 instructions and calls __sincosf there,
+// within 1.2e-7 + 3.6e-7 of sin and cos for |p| <= 1e5, some 300x under
+// the 1e-4 bar on sums / N.  Per pair the FP32 pipe then does n FMAs, four
+// for the reduction, one scaling the argument into the SFU's units and two
+// accumulates; the SFU does two (sin, cos) at 16 per clock per SM.
 //
 // Design:
 //  * The TPU kernel carries the sum over N in its resident output block
@@ -63,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sincos_reduced.cuh"
+
 namespace {
 
 constexpr int kFreqs = 256;       // frequencies per block
@@ -70,19 +61,6 @@ constexpr int kRowsTile = 128;    // rows staged in shared memory per step
 constexpr int kChunkRows = 16;    // the chunked kernel's rows per step,
 constexpr int kStage = 128;       // features staged per step
 constexpr int kChunk = 16;        // and features of w in registers per step
-constexpr float kInv2Pi = 0.15915493667125702f;       // float(1 / 2pi)
-constexpr float kTwoPiHi = 6.2831854820251465f;       // float(2pi)
-constexpr float kTwoPiLo = -1.7484555314695172e-07f;  // float(2pi - kTwoPiHi)
-constexpr float kRoundMagic = 12582912.0f;            // 1.5 * 2^23
-
-// sin(p) and cos(p) on the SFU after the exact reduction described above.
-__device__ __forceinline__ void sincos_reduced(float p, float* s, float* c) {
-  const float k = fmaf(p, kInv2Pi, kRoundMagic) - kRoundMagic;
-  float r = fmaf(-k, kTwoPiHi, p);
-  r = fmaf(-k, kTwoPiLo, r);
-  __sincosf(r, s, c);
-}
-
 // Rows [blockIdx.x * rows_per_group, ...) of x against frequencies
 // blockIdx.y * 256 + threadIdx.x + f * T.  N is the width or, when the
 // instance is padded, at least the runtime n (w and x read as 0 past n).

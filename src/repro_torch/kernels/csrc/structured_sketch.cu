@@ -15,272 +15,552 @@
 // x_pad is x zero-padded from n to d columns; the padding is done in
 // registers, never in device memory.
 //
-// What bounds it on this card: operations.  Per (row, frequency) pair each of
-// the three stages does one sign multiply, log2(d) butterfly adds and one
-// scale, then one radius multiply, one sincosf and the accumulates, while a
-// row brings only 4(n+1) bytes.
+// What bounds it on this card: instructions.  A row brings 4(n+1) bytes and
+// costs, per (row, frequency) pair, three stages of log2(d) butterfly adds
+// and a scale, the radius multiply, the trig and the accumulates: some 26
+// FP32 instructions and two SFU operations at d = 32.
 //
-// Design:
-//  * The transform is the O(d log d) butterfly, not the reference's
-//    Kronecker matmuls (H_a x H_b): with d = 32 (the main path's n = 10) a
-//    block of 32 frequencies is exactly one warp, one coordinate per lane,
-//    and the five butterfly stages are __shfl_xor_sync exchanges.  The sums
-//    come in another order than the reference's, so results differ in the
-//    last bits; the tests hold them to 1e-4 on sums / N.
-//  * Wider blocks (d = 64 .. 2048): TPF = min(d, 256) threads share one
-//    frequency block, and a thread holds EPT = d / TPF coordinates
-//    e = t + TPF * k.  Stages h < 32 run by shuffles, stages 32 <= h < TPF
-//    through a ping-pong buffer in shared memory (one barrier a stage), and
-//    stages h >= TPF between a thread's own registers.
-//  * A block of 256 threads owns FB = 256 / TPF frequency blocks (their signs,
-//    radii and dither in registers) and a contiguous range of rows, staged a
-//    tile at a time in shared memory so that all FB frequency blocks share one
-//    coalesced read of x.
-//  * Float sums: each block writes a partial per frequency to a
-//    (groups, nblocks * d) scratch and a second kernel sums the partials in
-//    group order in double.  No float atomics, so the sums are bitwise
-//    repeatable.  Integer sums: atomicAdd on the zeroed int32 outputs, exact
-//    in any order.  The wrapper sizes the grid from N, nblocks and the SM
-//    count, a fixed function of the shape on one card.
+// Design (the main path's n = 10 gives d = 32 and 32 frequency blocks):
+//  * A thread holds kEpt = 32 coordinates of one frequency block and walks
+//    its share of the rows, so the butterfly levels h = 1 .. 16 are adds and
+//    subtracts between its own registers.  At d = 32 that is the whole
+//    transform: no shuffle, no shared memory per row.  Wider blocks take
+//    TPF = d / 32 threads a row, coordinates e = 32 t + k in thread t:
+//    levels 32 <= h < 1024 cross lanes by __shfl_xor_sync, and h = 1024
+//    (d = 2048, whose row spans two warps) goes through shared memory.
+//  * The level order and operand order are fixed whatever the thread layout
+//    (h = 1, 2, 4, ...; the lower index gets a + b, the upper a - b), so
+//    every block width rounds its phases alike.  A lane exchange computes
+//    the upper's a - b as fmaf(-1, b, a), which rounds once, as a - b does.
+//    The sign of each stage after the first is folded into the previous
+//    stage's scale: v * (+-c) equals (v * c) * (+-1) bitwise.  At d = 32 the
+//    padding columns 16..31 are known zeros when n <= 16, so an instance with
+//    NX = 16 skips the first stage's level h = 16, which only copies a lower
+//    value up, and the levels' adds on those zeros (tests/test_torch_structured.py
+//    holds both shortcuts to the unshortened arithmetic's bits).
+//  * A CTA of 256 threads owns FB frequency blocks (8 at d <= 128, fewer
+//    above, so their constants stay within 40 KB) and a contiguous range of
+//    rows; each frequency block's threads form RSB row slots (32 lanes of one
+//    warp at d = 32).  The signs (times c), radii and dither of the CTA's
+//    blocks are staged once in shared memory, laid out so that the threads
+//    of a warp that share a block read them as broadcasts and the others
+//    without bank conflicts.
+//  * Rows are staged a tile at a time in shared memory by cp.async, double
+//    buffered (the next tile lands while this one is computed), with a row
+//    stride TPF * odd and one pad word per 32 columns, so that the row slots
+//    of a warp read their values without bank conflicts.
+//  * Float sums: a thread sums beta * cos and beta * sin over its rows of a
+//    tile (some 25 at d = 32) in float registers; after each tile the row
+//    slots of a frequency are added in slot order and into a double
+//    accumulator in shared memory, so the accuracy does not depend on the
+//    range's length.  Each CTA writes double partials per frequency to
+//    (groups, nblocks * d) scratch, which does not grow with N, and a second
+//    kernel sums them over the groups in a fixed order, in double.  No float
+//    atomics: the sums are bitwise repeatable.  Integer sums: each thread
+//    sums its codes in int32 registers; the row slots are added at the end of
+//    the CTA and atomicAdd'ed to the zeroed outputs, exact in any order.  The
+//    wrapper sizes the grid to one wave of resident CTAs
+//    (freq_transform.structured_grid), a fixed function of the shape on one
+//    card.
+//  * Trig: the phase is reduced exactly and sin, cos come from the SFU
+//    (sincos_reduced.cuh).  The 1-bit code skips the trig: on the reduced
+//    r in [-pi - 0.004, pi + 0.004], cos r >= 0 <=> |r| <= pi/2, and
+//    sin r >= 0 <=> (r >= 0) != (|r| > pi); a NaN phase gives -1 for both,
+//    as c >= 0 ? 1 : -1 does (tests/test_torch_structured.py holds the rule
+//    against float64 sin and cos).  The b-bit codes round with
+//    __float2int_rn (half to even), never roundf.
 //  * The radius multiply and the dither add are explicit _rn operations
-//    (the reference rounds each); rounding of codes is __float2int_rn (half
-//    to even), never roundf; the 1-bit code is c >= 0 ? 1 : -1.
-//  * sincosf at full precision: phases reach tens of radians.
+//    (the reference rounds each); the stage scales too, so that no multiply
+//    is fused into the butterfly's adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sincos_reduced.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileFloats = 4096;  // floats of x staged per tile (16 KB)
+constexpr int kEpt = 32;            // coordinates a thread holds
+constexpr int kTileFloats = 8960;   // x staged per tile and buffer (35 KB)
 constexpr int kMaxTileRows = 1024;
+constexpr int kFlushLd = kThreads + 1;  // the flush buffer's row, padded
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kHalfPi = 1.5707963705062866f;  // float(pi / 2)
+constexpr float kPi = 3.1415927410125732f;      // float(pi)
 
-template <int D>
+// float sums (beta weights), b-bit codes, 1-bit codes.
+enum Mode { kFloat = 0, kCodes = 1, kSigns = 2 };
+
+template <int D, int MODE>
 struct Layout {
-  static constexpr int TPF = D < kThreads ? D : kThreads;  // threads per frequency block
-  static constexpr int FB = kThreads / TPF;                // frequency blocks per CUDA block
-  static constexpr int EPT = D / TPF;                      // coordinates per thread
+  static constexpr int TPF = D / kEpt;                       // threads per row
+  static constexpr int UNITS = kThreads / TPF;               // (block, slot) units
+  static constexpr int FB = D <= 128 ? 8 : (D >= 1024 ? 1 : 1024 / D);
+  static constexpr int RSB = UNITS / FB;                     // row slots per block
+  static constexpr int NC = MODE == kFloat ? 4 : 5;          // constants per coordinate
+  // Shared memory, in floats: two x tiles, two weight tiles, the constants,
+  // the double accumulators (float sums) and the exchange buffer (d = 2048).
+  static constexpr int XS = 2 * kTileFloats;
+  static constexpr int WS = 2 * kMaxTileRows;
+  static constexpr int CS = FB * NC * D;
+  static constexpr int DA = MODE == kFloat ? 2 * (FB * 2 * D) : 0;
+  static constexpr int EX = TPF > 32 ? kThreads * (kEpt + 1) : 0;
+  static constexpr size_t BYTES = sizeof(float) * (size_t)(XS + WS + CS + DA + EX);
+  static_assert(TPF >= 1 && TPF * kEpt == D, "block width");
+  static_assert(RSB * FB == UNITS, "slots");
+  static_assert(kEpt * kFlushLd <= kTileFloats, "flush buffer");
+  // The widest row (n = d) takes a stride of at most 33 TPF floats: a tile
+  // holds one row for every slot.
+  static_assert(RSB * (kEpt + 1) * TPF <= kTileFloats, "tile rows");
 };
 
-// In-place unnormalised WHT of one frequency block held across the TPF
-// threads of a group: coordinate e = t + TPF * k lives in v[k] of thread t.
-template <int D>
-__device__ __forceinline__ void wht(float (&v)[Layout<D>::EPT], int t,
-                                    float* buf, int& parity) {
-  using L = Layout<D>;
-  const int lane = threadIdx.x & 31;
-  // Stages within a warp: partner lane ^ h.
-#pragma unroll
-  for (int h = 1; h < 32 && h < D; h <<= 1) {
-#pragma unroll
-    for (int k = 0; k < L::EPT; ++k) {
-      const float o = __shfl_xor_sync(kFull, v[k], h);
-      v[k] = (lane & h) ? o - v[k] : v[k] + o;
-    }
-  }
-  // Stages across the warps of a group: through shared memory.
-  if (L::TPF > 32) {
-    const int g = threadIdx.x / L::TPF;
-#pragma unroll
-    for (int h = 32; h < L::TPF; h <<= 1) {
-      float* b = buf + parity * (kThreads * L::EPT) + g * D;
-#pragma unroll
-      for (int k = 0; k < L::EPT; ++k) b[t + L::TPF * k] = v[k];
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < L::EPT; ++k) {
-        const float o = b[(t ^ h) + L::TPF * k];
-        v[k] = (t & h) ? o - v[k] : v[k] + o;
-      }
-      parity ^= 1;
-    }
-  }
-  // Stages within a thread's own registers: partner k ^ (h / TPF).
-#pragma unroll
-  for (int hk = 1; hk < L::EPT; hk <<= 1) {
-#pragma unroll
-    for (int k = 0; k < L::EPT; ++k) {
-      if ((k & hk) == 0) {
-        const float a = v[k], b2 = v[k | hk];
-        v[k] = a + b2;
-        v[k | hk] = a - b2;
-      }
-    }
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <bool ONE_BIT>
-__device__ __forceinline__ int code(float v, float scale) {
-  if (ONE_BIT) return v >= 0.0f ? 1 : -1;
-  return __float2int_rn(__fmul_rn(v, scale));
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
-// QUANT: false -> float sums (beta weights, partials); true -> int32 codes.
-template <int D, bool QUANT, bool ONE_BIT>
-__global__ void __launch_bounds__(kThreads)
-structured(const float* __restrict__ x, const float* __restrict__ diags,
-           const float* __restrict__ radii, const float* __restrict__ dither,
-           const float* __restrict__ rowv, int64_t n_pts, int n, int nblocks,
-           float cscale, float qscale, int64_t rows_per_group,
-           float* __restrict__ part_c, float* __restrict__ part_s,
-           int* __restrict__ qcos, int* __restrict__ qsin) {
-  using L = Layout<D>;
-  __shared__ __align__(16) float xs[kTileFloats];
-  __shared__ float rs[kMaxTileRows];
-  __shared__ float buf[L::TPF > 32 ? 2 * kThreads * L::EPT : 1];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int g = threadIdx.x / L::TPF;  // frequency block within this CUDA block
-  const int t = threadIdx.x % L::TPF;  // thread within the group
-  const int fb = blockIdx.y * L::FB + g;
-  const bool live = fb < nblocks;
-  const int64_t fbase = (int64_t)(live ? fb : 0) * D;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float sg[3][L::EPT], rad[L::EPT], dth[L::EPT];
+// Butterfly levels h = 1 .. 16 between a thread's own registers.  Values at
+// k >= NX are known zeros: levels h < NX leave them be, and levels h >= NX
+// copy each lower value up (a + 0 and a - 0 are a).
+template <int NX>
+__device__ __forceinline__ void butterfly_regs(float (&v)[kEpt]) {
 #pragma unroll
-  for (int k = 0; k < L::EPT; ++k) {
-    const int e = t + L::TPF * k;
+  for (int h = 1; h < kEpt; h <<= 1) {
 #pragma unroll
-    for (int s = 0; s < 3; ++s) sg[s][k] = live ? diags[fbase * 3 + s * D + e] : 0.0f;
-    rad[k] = live ? radii[fbase + e] : 0.0f;
-    dth[k] = (QUANT && live) ? dither[fbase + e] : 0.0f;
-  }
-  float acc_c[L::EPT], acc_s[L::EPT];
-  int iacc_c[L::EPT], iacc_s[L::EPT];
-#pragma unroll
-  for (int k = 0; k < L::EPT; ++k) {
-    acc_c[k] = acc_s[k] = 0.0f;
-    iacc_c[k] = iacc_s[k] = 0;
-  }
-
-  const int tile_rows = min(kMaxTileRows, kTileFloats / n);
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
-  const int64_t r1 = min(n_pts, r0 + rows_per_group);
-  int parity = 0;
-  for (int64_t t0 = r0; t0 < r1; t0 += tile_rows) {
-    const int rows = (int)min((int64_t)tile_rows, r1 - t0);
-    __syncthreads();  // the previous tile has been read by every thread
-    const float* src = x + t0 * n;
-    for (int e = threadIdx.x; e < rows * n; e += kThreads) xs[e] = src[e];
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      rs[r] = rowv ? rowv[t0 + r] : 1.0f;
-    }
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      float v[L::EPT];
-#pragma unroll
-      for (int k = 0; k < L::EPT; ++k) {
-        const int e = t + L::TPF * k;
-        v[k] = e < n ? xs[r * n + e] : 0.0f;
-      }
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-#pragma unroll
-        for (int k = 0; k < L::EPT; ++k) v[k] *= sg[s][k];
-        wht<D>(v, t, buf, parity);
-#pragma unroll
-        for (int k = 0; k < L::EPT; ++k) v[k] = __fmul_rn(v[k], cscale);
-      }
-      const float rw = rs[r];
-#pragma unroll
-      for (int k = 0; k < L::EPT; ++k) {
-        float theta = __fmul_rn(v[k], rad[k]);
-        if (QUANT) theta = __fadd_rn(theta, dth[k]);
-        float s, c;
-        sincosf(theta, &s, &c);
-        if (QUANT) {
-          const int vr = (int)rw;
-          iacc_c[k] += code<ONE_BIT>(c, qscale) * vr;
-          iacc_s[k] += code<ONE_BIT>(s, qscale) * vr;
-        } else {
-          acc_c[k] = fmaf(rw, c, acc_c[k]);
-          acc_s[k] = fmaf(rw, s, acc_s[k]);
+    for (int k = 0; k < kEpt; ++k) {
+      if ((k & h) == 0) {
+        if (h >= NX) {
+          v[k | h] = v[k];
+        } else if (k < NX) {
+          const float a = v[k], b = v[k | h];
+          v[k] = a + b;
+          v[k | h] = a - b;
         }
       }
     }
   }
-  if (!live) return;
-  const int64_t width = (int64_t)nblocks * D;
+}
+
+// Levels h = 32 .. d / 2 across the TPF threads of a row: by shuffles within
+// a warp, through shared memory (ex) between the two warps of a d = 2048 row.
+template <int TPF>
+__device__ __forceinline__ void butterfly_lanes(float (&v)[kEpt], int t, float* ex) {
 #pragma unroll
-  for (int k = 0; k < L::EPT; ++k) {
-    const int64_t j = fbase + t + L::TPF * k;
-    if (QUANT) {
-      atomicAdd(qcos + j, iacc_c[k]);
-      atomicAdd(qsin + j, iacc_s[k]);
+  for (int g = 1; g < TPF && g < 32; g <<= 1) {
+    const float sgn = (t & g) ? -1.0f : 1.0f;
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) {
+      const float o = __shfl_xor_sync(kFull, v[k], g);
+      v[k] = fmaf(sgn, v[k], o);  // lower: v + o; upper: o - v
+    }
+  }
+  if (TPF > 32) {
+    const float sgn = (t & 32) ? -1.0f : 1.0f;
+    float* mine = ex + threadIdx.x * (kEpt + 1);
+    const float* other = ex + (threadIdx.x ^ 32) * (kEpt + 1);
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) mine[k] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) v[k] = fmaf(sgn, v[k], other[k]);
+    __syncthreads();  // the partner has read this thread's values
+  }
+}
+
+// One stage's unnormalised WHT of the row block held by the TPF threads.
+template <int TPF, int NX>
+__device__ __forceinline__ void stage(float (&v)[kEpt], int t, float* ex) {
+  butterfly_regs<NX>(v);
+  butterfly_lanes<TPF>(v, t, ex);
+}
+
+// Constant s of coordinates 4q .. 4q + 3 of thread t: one 16-byte shared
+// load, made where it is used.  The loads are volatile so that the compiler
+// does not hoist the 128-160 loop-invariant constants of a thread out of the
+// row loop into registers, which cost 255 registers or spills.
+template <int TPF>
+__device__ __forceinline__ float4 konst(const float4* cs, int s, int q, int t) {
+  float4 r;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "r"(smem_addr(cs + (s * (kEpt / 4) + q) * TPF + t)));
+  return r;
+}
+
+// v[k] *= w[k] for the 32 coordinates, w the stage's +-c, rounded (not fused
+// into the butterfly's adds).
+template <int TPF>
+__device__ __forceinline__ void scale(float (&v)[kEpt], const float4* cs, int s, int t) {
+#pragma unroll
+  for (int q = 0; q < kEpt / 4; ++q) {
+    const float4 w = konst<TPF>(cs, s, q, t);
+    v[4 * q] = __fmul_rn(v[4 * q], w.x);
+    v[4 * q + 1] = __fmul_rn(v[4 * q + 1], w.y);
+    v[4 * q + 2] = __fmul_rn(v[4 * q + 2], w.z);
+    v[4 * q + 3] = __fmul_rn(v[4 * q + 3], w.w);
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& a, int j) {
+  return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
+}
+
+// D: block width; MODE: kFloat, kCodes or kSigns; NX: the first stage's
+// nonzero width (d = 32 only; kEpt elsewhere).
+template <int D, int MODE, int NX>
+__global__ void __launch_bounds__(kThreads, 2)
+structured(const float* __restrict__ x, const float* __restrict__ diags,
+           const float* __restrict__ radii, const float* __restrict__ dither,
+           const float* __restrict__ rowv, int64_t n_pts, int n, int nblocks,
+           float cscale, float qscale, int64_t rows_per_group,
+           double* __restrict__ part_c, double* __restrict__ part_s,
+           int* __restrict__ qcos, int* __restrict__ qsin) {
+  using L = Layout<D, MODE>;
+  constexpr int TPF = L::TPF, FB = L::FB, RSB = L::RSB, NC = L::NC;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                                  // 2 x tiles
+  float* ws = xs + L::XS;                            // 2 weight tiles
+  float4* cs = reinterpret_cast<float4*>(ws + L::WS);  // constants
+  double* dacc = reinterpret_cast<double*>(ws + L::WS + L::CS);
+  float* ex = ws + L::WS + L::CS + L::DA;
+
+  const int tid = threadIdx.x;
+  const int unit = tid / TPF, t = tid % TPF;
+  const int fbl = unit / RSB, slot = unit % RSB;
+  const int fb0 = blockIdx.y * FB;
+
+  // The constants of the CTA's blocks: element (fbl, s, e = 32 t + 4 q + j)
+  // at float index ((((fbl * NC + s) * 8 + q) * TPF + t) * 4 + j); s = 0 the
+  // first stage's signs, 1-2 the later stages' signs times c, 3 the radii,
+  // 4 the dither.  Blocks past nblocks read zeros.
+  for (int i = tid; i < FB * NC * D; i += kThreads) {
+    const int j = i & 3, tt = (i >> 2) % TPF, q = (i >> 2) / TPF % 8;
+    const int s = (i >> 2) / TPF / 8 % NC, f = (i >> 2) / TPF / 8 / NC;
+    const int e = kEpt * tt + 4 * q + j, fb = fb0 + f;
+    float val = 0.0f;
+    if (fb < nblocks) {
+      const int64_t base = (int64_t)fb * D;
+      if (s < 3) val = diags[base * 3 + (int64_t)s * D + e] * (s == 0 ? 1.0f : cscale);
+      else if (s == 3) val = radii[base + e];
+      else val = dither[base + e];
+    }
+    reinterpret_cast<float*>(cs)[i] = val;
+  }
+  if (MODE == kFloat) {
+    for (int i = tid; i < FB * 2 * D; i += kThreads) dacc[i] = 0.0;
+  }
+  const float4* mine = cs + fbl * NC * (kEpt / 4) * TPF;
+
+  // Row stride: TPF times an odd number, at least the row's length with one
+  // pad word per 32 columns.
+  const int row_len = n + (n - 1) / 32;
+  const int stride = ((row_len + TPF - 1) / TPF | 1) * TPF;
+  const int tile_rows = min(kMaxTileRows, kTileFloats / stride);
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r1 = min(n_pts, r0 + rows_per_group);
+
+  // Stage rows [a, a + rows) into buffer b, one float per thread and step
+  // (coalesced); element i of the tile is row i / n (by the multiply-high
+  // with ceil(2^32 / n), exact for i * n < 2^32), column i % n.
+  const uint64_t div_n = ((1ull << 32) + n - 1) / n;
+  auto stage_tile = [&](int64_t a, int rows, int b) {
+    float* xb = xs + b * kTileFloats;
+    float* wb = ws + b * kMaxTileRows;
+    const float* src = x + a * n;
+    for (int i = tid; i < rows * n; i += kThreads) {
+      const int r = (int)(((uint64_t)i * div_n) >> 32), c = i - r * n;
+      cp_async4(smem_addr(xb + r * stride + c + (c >> 5)), src + i);
+    }
+    for (int r = tid; r < rows; r += kThreads) {
+      if (rowv) cp_async4(smem_addr(wb + r), rowv + a + r);
+      else wb[r] = 1.0f;
+    }
+    cp_async_commit();
+  };
+
+  float acc_c[kEpt], acc_s[kEpt];  // float sums (kFloat)
+  int iacc_c[kEpt], iacc_s[kEpt];  // code sums, or counts of +1 (kSigns)
+  int nvalid = 0;                  // kSigns: sum of the row weights
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k) {
+    acc_c[k] = acc_s[k] = 0.0f;
+    iacc_c[k] = iacc_s[k] = 0;
+  }
+
+  if (r0 < r1) stage_tile(r0, (int)min((int64_t)tile_rows, r1 - r0), 0);
+  int buf = 0;
+  for (int64_t t0 = r0; t0 < r1; t0 += tile_rows, buf ^= 1) {
+    const int rows = (int)min((int64_t)tile_rows, r1 - t0);
+    __syncthreads();  // the other buffer is free: its tile and flush are done
+    const int64_t t1 = t0 + tile_rows;
+    if (t1 < r1) {
+      stage_tile(t1, (int)min((int64_t)tile_rows, r1 - t1), buf ^ 1);
+      cp_async_wait<1>();
     } else {
-      part_c[(int64_t)blockIdx.x * width + j] = acc_c[k];
-      part_s[(int64_t)blockIdx.x * width + j] = acc_s[k];
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile has landed, from every thread's copies
+    const float* xb = xs + buf * kTileFloats;
+    const float* wb = ws + buf * kMaxTileRows;
+
+    const int iters = (rows + RSB - 1) / RSB;
+    for (int it = 0; it < iters; ++it) {
+      const int r = it * RSB + slot;
+      const bool active = r < rows;
+      const float* xr = xb + (active ? r : 0) * stride + (kEpt + 1) * t;
+      const int c0 = kEpt * t;  // this thread's first column
+      float v[kEpt];
+#pragma unroll
+      for (int q = 0; q < kEpt / 4; ++q) {
+        const float4 sg = 4 * q < NX ? konst<TPF>(mine, 0, q, t) : float4{};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j;
+          v[k] = (k < NX && active && c0 + k < n) ? xr[k] * comp(sg, j) : 0.0f;
+        }
+      }
+      stage<TPF, NX>(v, t, ex);
+      scale<TPF>(v, mine, 1, t);
+      stage<TPF, kEpt>(v, t, ex);
+      scale<TPF>(v, mine, 2, t);
+      stage<TPF, kEpt>(v, t, ex);
+
+      const float rw = active ? wb[r] : 0.0f;
+      const int vr = (int)rw;
+      if (MODE == kSigns) nvalid += vr;
+#pragma unroll
+      for (int q = 0; q < kEpt / 4; ++q) {
+        const float4 rad = konst<TPF>(mine, 3, q, t);
+        const float4 dth = MODE != kFloat ? konst<TPF>(mine, 4, q, t) : float4{};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j;
+          float theta = __fmul_rn(__fmul_rn(v[k], cscale), comp(rad, j));
+          if (MODE != kFloat) theta = __fadd_rn(theta, comp(dth, j));
+          if (MODE == kSigns) {
+            const float rr = reduce_2pi(theta);
+            if (fabsf(rr) <= kHalfPi) iacc_c[k] += vr;
+            if ((rr >= 0.0f) != (fabsf(rr) > kPi)) iacc_s[k] += vr;
+          } else {
+            float s, c;
+            sincos_reduced(theta, &s, &c);
+            if (MODE == kCodes) {
+              iacc_c[k] += __float2int_rn(__fmul_rn(c, qscale)) * vr;
+              iacc_s[k] += __float2int_rn(__fmul_rn(s, qscale)) * vr;
+            } else {
+              acc_c[k] = fmaf(rw, c, acc_c[k]);
+              acc_s[k] = fmaf(rw, s, acc_s[k]);
+            }
+          }
+        }
+      }
+    }
+
+    if (MODE == kFloat) {
+      // Flush: the tile's float sums of each frequency, added over its row
+      // slots in slot order, into the double accumulators; through this
+      // tile's x buffer, half the coordinates at a time.
+      float* fl = xs + buf * kTileFloats;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        __syncthreads();  // the buffer's rows (or the previous half) are read
+#pragma unroll
+        for (int kk = 0; kk < kEpt / 2; ++kk) {
+          fl[kk * kFlushLd + tid] = acc_c[half * (kEpt / 2) + kk];
+          fl[(kEpt / 2 + kk) * kFlushLd + tid] = acc_s[half * (kEpt / 2) + kk];
+        }
+        __syncthreads();
+        for (int i = tid; i < FB * D; i += kThreads) {
+          const int j = i % kEpt, tt = i / kEpt % TPF, f = i / kEpt / TPF;
+          float sum = 0.0f;
+          for (int sl = 0; sl < RSB; ++sl) sum += fl[j * kFlushLd + (f * RSB + sl) * TPF + tt];
+          const int cs_ = j / (kEpt / 2), e = kEpt * tt + half * (kEpt / 2) + j % (kEpt / 2);
+          dacc[(f * 2 + cs_) * D + e] += (double)sum;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kEpt; ++k) acc_c[k] = acc_s[k] = 0.0f;
+    }
+  }
+
+  const int64_t width = (int64_t)nblocks * D;
+  if (MODE == kFloat) {
+    __syncthreads();
+    for (int i = tid; i < FB * 2 * D; i += kThreads) {
+      const int e = i % D, cs_ = i / D % 2, fb = fb0 + i / D / 2;
+      if (fb < nblocks) {
+        double* part = cs_ ? part_s : part_c;
+        part[(int64_t)blockIdx.x * width + (int64_t)fb * D + e] = dacc[i];
+      }
+    }
+    return;
+  }
+  // Integer sums: the row slots of each frequency added, then one atomicAdd
+  // per frequency and CTA.
+  int* fl = reinterpret_cast<int*>(xs);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kEpt / 2; ++kk) {
+      int qc = iacc_c[half * (kEpt / 2) + kk], qs = iacc_s[half * (kEpt / 2) + kk];
+      if (MODE == kSigns) {  // sum of +-1 codes = 2 (count of +1) - weight
+        qc = 2 * qc - nvalid;
+        qs = 2 * qs - nvalid;
+      }
+      fl[kk * kFlushLd + tid] = qc;
+      fl[(kEpt / 2 + kk) * kFlushLd + tid] = qs;
+    }
+    __syncthreads();
+    for (int i = tid; i < FB * D; i += kThreads) {
+      const int j = i % kEpt, tt = i / kEpt % TPF, f = i / kEpt / TPF;
+      int sum = 0;
+      for (int sl = 0; sl < RSB; ++sl) sum += fl[j * kFlushLd + (f * RSB + sl) * TPF + tt];
+      const int cs_ = j / (kEpt / 2), e = kEpt * tt + half * (kEpt / 2) + j % (kEpt / 2);
+      const int fb = fb0 + f;
+      if (fb < nblocks) atomicAdd((cs_ ? qsin : qcos) + (int64_t)fb * D + e, sum);
     }
   }
 }
 
 // Second pass of the float sums: partials summed in group order, in double.
-__global__ void reduce_partials(const float* __restrict__ part_c,
-                                const float* __restrict__ part_s, int groups,
+__global__ void reduce_partials(const double* __restrict__ part_c,
+                                const double* __restrict__ part_s, int groups,
                                 int64_t width, float* __restrict__ out_c,
                                 float* __restrict__ out_s) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= width) return;
   double c = 0.0, s = 0.0;
   for (int b = 0; b < groups; ++b) {
-    c += (double)part_c[(int64_t)b * width + j];
-    s += (double)part_s[(int64_t)b * width + j];
+    c += part_c[(int64_t)b * width + j];
+    s += part_s[(int64_t)b * width + j];
   }
   out_c[j] = (float)c;
   out_s[j] = (float)s;
 }
 
-template <bool QUANT, bool ONE_BIT>
-int launch(int d, dim3 grid_rows, cudaStream_t stream, const float* x,
-           const float* diags, const float* radii, const float* dither,
-           const float* rowv, int64_t n_pts, int n, int nblocks, float cscale,
-           float qscale, int64_t rows_per_group, float* part_c, float* part_s,
-           int* qcos, int* qsin) {
-#define STRUCTURED_CASE(DD)                                                   \
-  case DD: {                                                                  \
-    const dim3 grid(grid_rows.x, (nblocks + Layout<DD>::FB - 1) / Layout<DD>::FB); \
-    structured<DD, QUANT, ONE_BIT><<<grid, kThreads, 0, stream>>>(            \
-        x, diags, radii, dither, rowv, n_pts, n, nblocks, cscale, qscale,     \
-        rows_per_group, part_c, part_s, qcos, qsin);                          \
-    break;                                                                    \
-  }
+using KernelFn = void (*)(const float*, const float*, const float*, const float*,
+                          const float*, int64_t, int, int, float, float, int64_t,
+                          double*, double*, int*, int*);
+
+struct Instance {
+  KernelFn fn;
+  size_t smem;
+  int freq_blocks;  // frequency blocks per CTA
+};
+
+// Lifts an instance's dynamic shared-memory limit to its size, once per
+// device (a cudaFuncSetAttribute per launch would cost more than a small
+// launch).
+template <int D, int MODE, int NX>
+cudaError_t allow_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(structured<D, MODE, NX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Layout<D, MODE>::BYTES);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <int D, int MODE, int NX>
+cudaError_t instance(Instance* out) {
+  out->fn = structured<D, MODE, NX>;
+  out->smem = Layout<D, MODE>::BYTES;
+  out->freq_blocks = Layout<D, MODE>::FB;
+  return allow_smem<D, MODE, NX>();
+}
+
+template <int MODE>
+cudaError_t pick_mode(int d, int n, Instance* out) {
   switch (d) {
-    STRUCTURED_CASE(32)
-    STRUCTURED_CASE(64)
-    STRUCTURED_CASE(128)
-    STRUCTURED_CASE(256)
-    STRUCTURED_CASE(512)
-    STRUCTURED_CASE(1024)
-    STRUCTURED_CASE(2048)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32:
+      if (n <= 16) return instance<32, MODE, 16>(out);
+      return instance<32, MODE, kEpt>(out);
+    case 64: return instance<64, MODE, kEpt>(out);
+    case 128: return instance<128, MODE, kEpt>(out);
+    case 256: return instance<256, MODE, kEpt>(out);
+    case 512: return instance<512, MODE, kEpt>(out);
+    case 1024: return instance<1024, MODE, kEpt>(out);
+    case 2048: return instance<2048, MODE, kEpt>(out);
+    default: return cudaErrorInvalidValue;
   }
-#undef STRUCTURED_CASE
-  return (int)cudaGetLastError();
+}
+
+// mode: 0 float sums, 1 b-bit codes, 2 1-bit codes.
+cudaError_t pick(int d, int n, int mode, Instance* out) {
+  if (n < 1 || n > d) return cudaErrorInvalidValue;
+  if (mode == kFloat) return pick_mode<kFloat>(d, n, out);
+  if (mode == kCodes) return pick_mode<kCodes>(d, n, out);
+  if (mode == kSigns) return pick_mode<kSigns>(d, n, out);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch(const Instance& in, int nblocks, int64_t rows_per_group, int groups,
+                   cudaStream_t stream, const float* x, const float* diags,
+                   const float* radii, const float* dither, const float* rowv,
+                   int64_t n_pts, int n, float cscale, float qscale, double* part_c,
+                   double* part_s, int* qcos, int* qsin) {
+  if (groups < 1 || rows_per_group < 1 || (int64_t)groups * rows_per_group < n_pts)
+    return cudaErrorInvalidValue;
+  const dim3 grid(groups, (nblocks + in.freq_blocks - 1) / in.freq_blocks);
+  in.fn<<<grid, kThreads, in.smem, stream>>>(x, diags, radii, dither, rowv, n_pts, n, nblocks,
+                                             cscale, qscale, rows_per_group, part_c, part_s,
+                                             qcos, qsin);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (n_pts, n), diags (nblocks, 3, d), radii (nblocks, d), beta (n_pts,)
-// float32, contiguous on the device; d a power of two in [32, 2048], n <= d.
-// part_c / part_s: (groups, nblocks * d) scratch; out_c / out_s:
-// (nblocks * d,).  groups * rows_per_group must cover n_pts.  cscale is the
-// float32 d^-1/2.  Returns a cudaError_t code.
+// CTAs of the instance for (d, n, mode) that fit on one SM of the current
+// device at once, into *blocks_per_sm, and the frequency blocks a CTA owns,
+// into *freq_blocks.  mode: 0 float sums, 1 b-bit codes, 2 1-bit codes.
+// Returns a cudaError_t code.
+int structured_sketch_resident(int d, int n, int mode, int* blocks_per_sm, int* freq_blocks) {
+  Instance in;
+  cudaError_t err = pick(d, n, mode, &in);
+  if (err != cudaSuccess) return (int)err;
+  *freq_blocks = in.freq_blocks;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, kThreads,
+                                                           in.smem);
+}
+
+// x (n_pts, n), diags (nblocks, 3, d) (entries +-1), radii (nblocks, d),
+// beta (n_pts,) float32, contiguous on the device; d a power of two in
+// [32, 2048], 1 <= n <= d.  part_c / part_s: (groups, nblocks * d) double
+// scratch; out_c / out_s: (nblocks * d,).  groups * rows_per_group must cover
+// n_pts.  cscale is the float32 d^-1/2.  Returns a cudaError_t code.
 int structured_sketch_sums(const float* x, const float* diags,
                            const float* radii, const float* beta,
                            int64_t n_pts, int n, int d, int nblocks,
                            float cscale, int64_t rows_per_group, int groups,
-                           float* part_c, float* part_s, float* out_c,
+                           double* part_c, double* part_s, float* out_c,
                            float* out_s, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int err = launch<false, false>(d, dim3(groups), stream, x, diags, radii,
-                                 nullptr, beta, n_pts, n, nblocks, cscale,
-                                 1.0f, rows_per_group, part_c, part_s, nullptr,
-                                 nullptr);
-  if (err != 0) return err;
+  Instance in;
+  cudaError_t err = pick(d, n, kFloat, &in);
+  if (err == cudaSuccess)
+    err = launch(in, nblocks, rows_per_group, groups, stream, x, diags, radii, nullptr, beta,
+                 n_pts, n, cscale, 1.0f, part_c, part_s, nullptr, nullptr);
+  if (err != cudaSuccess) return (int)err;
   const int64_t width = (int64_t)nblocks * d;
   reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, stream>>>(
       part_c, part_s, groups, width, out_c, out_s);
@@ -298,14 +578,12 @@ int quantized_structured_sketch_sums(const float* x, const float* diags,
                                      int64_t rows_per_group, int groups,
                                      int* qcos, int* qsin, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (one_bit) {
-    return launch<true, true>(d, dim3(groups), stream, x, diags, radii, dither,
-                              valid, n_pts, n, nblocks, cscale, scale,
-                              rows_per_group, nullptr, nullptr, qcos, qsin);
-  }
-  return launch<true, false>(d, dim3(groups), stream, x, diags, radii, dither,
-                             valid, n_pts, n, nblocks, cscale, scale,
-                             rows_per_group, nullptr, nullptr, qcos, qsin);
+  Instance in;
+  cudaError_t err = pick(d, n, one_bit ? kSigns : kCodes, &in);
+  if (err == cudaSuccess)
+    err = launch(in, nblocks, rows_per_group, groups, stream, x, diags, radii, dither, valid,
+                 n_pts, n, cscale, scale, nullptr, nullptr, qcos, qsin);
+  return (int)err;
 }
 
 const char* structured_sketch_error_string(int code) {

@@ -21,11 +21,13 @@ Kernels (``csrc/structured_sketch.cu``), for ``x (N, n)`` with ``n <= d``,
   ``(nblocks, d)`` dither, through the QCKM codes, as int32 sums (the
   reference's ``quantized_structured_sketch_kernel``).
 
-The CUDA kernels run the ``O(d log d)`` butterfly; the plain versions run
-:func:`hd_chain` in the Kronecker form over chunks of rows.  Each kernel
-launch adds one to its count (``STRUCTURED_LAUNCHES``,
-``QUANTIZED_STRUCTURED_LAUNCHES``); ``kernels.ops`` picks between
-kernel and plain version by the tensor's device.
+The CUDA kernels run the ``O(d log d)`` butterfly, a thread holding 32
+coordinates of a block, on a grid of one wave of resident CTAs
+(:func:`structured_grid`); the plain versions run :func:`hd_chain` in the
+Kronecker form over chunks of rows.  Each kernel launch adds one to its
+count (``STRUCTURED_LAUNCHES``, ``QUANTIZED_STRUCTURED_LAUNCHES``);
+``kernels.ops`` picks between kernel and plain version by the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_cuda, grid_rows, sm_count
+from repro_torch.kernels._launch import check_cuda, grid_rows, on_device, sm_count, stream_ptr
 
 # Kernel launches since the counts were last reset (plain calls do not count).
 STRUCTURED_LAUNCHES = 0
@@ -45,7 +47,11 @@ QUANTIZED_STRUCTURED_LAUNCHES = 0
 
 # Widest block the kernels take (their shared-memory layout is sized for it).
 MAX_KERNEL_D = 2048
-_THREADS = 256
+# The kernels' instances: float sums, b-bit codes, 1-bit codes.
+_MODE_FLOAT, _MODE_CODES, _MODE_SIGNS = 0, 1, 2
+# (CTAs per SM, frequency blocks per CTA) of each instance, by
+# (device index, d, n, mode).
+_RESIDENT: dict[tuple[int, int, int, int], tuple[int, int]] = {}
 # The plain versions hold (chunk, nblocks, d) float32 projections: at most
 # this many elements per chunk.
 _PLAIN_ELEMS = 1 << 24
@@ -135,9 +141,43 @@ def _lib() -> ctypes.CDLL:
         qfn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32,
                         f32, i64, i32, ptr, ptr, ptr]
         qfn.restype = i32
+        lib.structured_sketch_resident.argtypes = [i32, i32, i32, ctypes.POINTER(i32),
+                                                   ctypes.POINTER(i32)]
+        lib.structured_sketch_resident.restype = i32
         lib.structured_sketch_error_string.argtypes = [i32]
         lib.structured_sketch_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def structured_grid(
+    n_pts: int, nblocks: int, freq_blocks: int, sms: int, resident: int
+) -> tuple[int, int, int]:
+    """``(rows_per_group, groups, col_blocks)`` of the structured kernels'
+    grid: ``col_blocks`` CTAs of ``freq_blocks`` frequency blocks each by
+    ``groups`` contiguous row ranges of ``rows_per_group`` rows (the last
+    one ragged).  One wave of ``resident`` CTAs per SM on ``sms`` SMs, where
+    N is large enough (``_launch.grid_rows``); no cap on the rows of a
+    group, since the float kernel adds each tile's sums into double
+    accumulators and the codes are summed exactly.  So the
+    ``(groups, nblocks * d)`` partials do not grow with N."""
+    col_blocks = -(-nblocks // freq_blocks)
+    rows, groups = grid_rows(n_pts, col_blocks, sms, resident=resident, max_rows=None)
+    return rows, groups, col_blocks
+
+
+def _resident(lib: ctypes.CDLL, dev: torch.device, d: int, n: int, mode: int):
+    """``(CTAs per SM, frequency blocks per CTA)`` of the instance the
+    kernel launches for ``(d, n, mode)`` on ``dev``."""
+    key = (dev.index, d, n, mode)
+    if key not in _RESIDENT:
+        per_sm, fb = ctypes.c_int(0), ctypes.c_int(0)
+        status = lib.structured_sketch_resident(d, n, mode, ctypes.byref(per_sm),
+                                                ctypes.byref(fb))
+        if status != 0 or per_sm.value < 1:
+            msg = lib.structured_sketch_error_string(status).decode()
+            raise RuntimeError(f"structured_sketch occupancy query failed: {msg} ({status})")
+        _RESIDENT[key] = (per_sm.value, fb.value)
+    return _RESIDENT[key]
 
 
 def _check_inputs(x, diags, radii, rowv, freq_rows=()) -> None:
@@ -160,6 +200,13 @@ def _check_inputs(x, diags, radii, rowv, freq_rows=()) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
+def _check_kernel_widths(d: int, n: int) -> None:
+    if not 32 <= d <= MAX_KERNEL_D:
+        raise ValueError(f"the structured kernel takes 32 <= d <= {MAX_KERNEL_D}, got {d}")
+    if n < 1:
+        raise ValueError("the structured kernel takes n >= 1 columns")
+
+
 def _launch_check(lib, status: int, what: str) -> None:
     if status != 0:
         msg = lib.structured_sketch_error_string(status).decode()
@@ -172,34 +219,31 @@ def structured_sketch_sums(
     """The CUDA kernel: ``(cos_sums, sin_sums)``, each ``(nblocks, d)``.
 
     Raises for anything the kernel does not take (a CPU tensor, another
-    dtype, a non-contiguous tensor, mismatched devices, ``d`` above
-    ``MAX_KERNEL_D``).  The sums are bitwise repeatable: per-block partials
-    and a fixed-order second pass, no float atomics.
+    dtype, a non-contiguous tensor, mismatched devices, ``d`` outside
+    ``[32, MAX_KERNEL_D]``, ``n = 0``).  The sums are bitwise repeatable:
+    per-CTA double partials and a fixed-order second pass, no float atomics.
     """
     global STRUCTURED_LAUNCHES
     _check_inputs(x, diags, radii, beta)
     dev = check_cuda((("x", x), ("diags", diags), ("radii", radii), ("beta", beta)))
     nblocks, _, d = diags.shape
-    if not 32 <= d <= MAX_KERNEL_D:
-        raise ValueError(f"the structured kernel takes 32 <= d <= {MAX_KERNEL_D}, got {d}")
     n_pts, n = x.shape
-    fb = max(1, _THREADS // d)
-    rows, groups = grid_rows(n_pts, -(-nblocks // fb), sm_count(dev))
+    _check_kernel_widths(d, n)
     lib = _lib()
-    with torch.cuda.device(dev):
-        part_c = torch.empty((groups, nblocks * d), dtype=torch.float32, device=dev)
-        part_s = torch.empty_like(part_c)
-        cos_out = torch.empty((nblocks, d), dtype=torch.float32, device=dev)
-        sin_out = torch.empty_like(cos_out)
+    with on_device(dev):
+        per_sm, fb = _resident(lib, dev, d, n, _MODE_FLOAT)
+        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+        part = torch.empty((2, groups, nblocks * d), dtype=torch.float64, device=dev)
+        out = torch.empty((2, nblocks, d), dtype=torch.float32, device=dev)
         status = lib.structured_sketch_sums(
             x.data_ptr(), diags.data_ptr(), radii.data_ptr(), beta.data_ptr(),
             n_pts, n, d, nblocks, inv_sqrt(d), rows, groups,
-            part_c.data_ptr(), part_s.data_ptr(), cos_out.data_ptr(), sin_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            stream_ptr(dev),
         )
     _launch_check(lib, status, "structured_sketch")
     STRUCTURED_LAUNCHES += 1
-    return cos_out, sin_out
+    return out[0], out[1]
 
 
 def quantized_structured_sketch_sums(
@@ -221,24 +265,23 @@ def quantized_structured_sketch_sums(
     dev = check_cuda((("x", x), ("diags", diags), ("radii", radii),
                       ("dither", dither), ("valid", valid)))
     nblocks, _, d = diags.shape
-    if not 32 <= d <= MAX_KERNEL_D:
-        raise ValueError(f"the structured kernel takes 32 <= d <= {MAX_KERNEL_D}, got {d}")
     n_pts, n = x.shape
-    fb = max(1, _THREADS // d)
-    rows, groups = grid_rows(n_pts, -(-nblocks // fb), sm_count(dev))
+    _check_kernel_widths(d, n)
     lib = _lib()
-    with torch.cuda.device(dev):
-        qcos = torch.zeros((nblocks, d), dtype=torch.int32, device=dev)
-        qsin = torch.zeros_like(qcos)
+    with on_device(dev):
+        mode = _MODE_SIGNS if bits == 1 else _MODE_CODES
+        per_sm, fb = _resident(lib, dev, d, n, mode)
+        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+        q = torch.zeros((2, nblocks, d), dtype=torch.int32, device=dev)
         status = lib.quantized_structured_sketch_sums(
             x.data_ptr(), diags.data_ptr(), radii.data_ptr(), dither.data_ptr(),
             None if valid is None else valid.data_ptr(), n_pts, n, d, nblocks,
             inv_sqrt(d), int(bits == 1), float(qz.quantization_scale(bits)), rows, groups,
-            qcos.data_ptr(), qsin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            q[0].data_ptr(), q[1].data_ptr(), stream_ptr(dev),
         )
     _launch_check(lib, status, "quantized_structured_sketch")
     QUANTIZED_STRUCTURED_LAUNCHES += 1
-    return qcos, qsin
+    return q[0], q[1]
 
 
 def _plain_phases(x, diags, radii):

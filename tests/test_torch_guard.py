@@ -81,25 +81,34 @@ _FAST_TRIG = re.compile(r"\b__(?:sin|cos|sincos)f\b|\b(?:sin|cos)\.approx")
 def test_kernel_sources_avoid_fast_math_trig():
     """The SFU's trig (``__sinf``, ``__cosf``, ``__sincosf``, PTX
     ``sin.approx``/``cos.approx``) is accurate only on [-pi, pi], and sketch
-    phases reach tens of radians.  No kernel source calls it except kernel 1's,
-    and there only ``__sincosf``, once, inside the helper that first reduces
-    the phase to [-pi, pi]; its kernels reach the SFU through that helper
-    alone.  No ``--use_fast_math``, which would turn every ``sincosf`` into
-    the unreduced intrinsics."""
+    phases reach tens of radians.  Among all the kernel sources and headers it
+    appears once: ``__sincosf`` inside ``sincos_reduced``
+    (``sincos_reduced.cuh``), applied to the phase that ``reduce_2pi`` (with
+    the reduction's four constants) first brings to [-pi, pi].  Kernel 1 calls
+    the helper from its two partial-sum kernels, the structured kernels
+    (4-5) reach the SFU only through it, and neither (nor the header) calls
+    the accurate ``sincosf``/``sinf``/``cosf`` beside it.  No ``--use_fast_math``, which
+    would turn every ``sincosf`` into the unreduced intrinsics."""
     csrc = PORT / "kernels" / "csrc"
-    for src in csrc.glob("*.cu"):
-        if src.stem != "fourier_sketch":
-            assert not _FAST_TRIG.search(_strip_comments(src.read_text())), src.name
-    code = _strip_comments((csrc / "fourier_sketch.cu").read_text())
-    helper = _definition(code, "sincos_reduced")
-    assert [m.group(0) for m in _FAST_TRIG.finditer(code)] == ["__sincosf"]
-    assert "__sincosf" in helper
+    raw = {p.name: p.read_text() for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
+    code = {name: _strip_comments(text) for name, text in raw.items()}
+    hits = [(name, m.group(0)) for name, c in code.items() for m in _FAST_TRIG.finditer(c)]
+    assert hits == [("sincos_reduced.cuh", "__sincosf")], hits
+    header = code["sincos_reduced.cuh"]
+    helper = _definition(header, "sincos_reduced")
+    reduction = _definition(header, "reduce_2pi")
+    assert re.search(r"__sincosf\s*\(\s*reduce_2pi\s*\(\s*p\s*\)", helper)
     for constant in ("kInv2Pi", "kRoundMagic", "kTwoPiHi", "kTwoPiLo"):
-        assert constant in helper, constant
-    rest = code.replace(helper, "")
-    assert not re.search(r"\b(?:sincosf|sinf|cosf|sincospif)\s*\(", rest)
-    # Both partial-sum kernels (per width and chunked) call the helper.
-    assert len(re.findall(r"\bsincos_reduced\s*\(", rest)) == 2
+        assert constant in reduction, constant
+    users = {name for name, text in raw.items() if '#include "sincos_reduced.cuh"' in text}
+    assert users == {"fourier_sketch.cu", "structured_sketch.cu"}
+    accurate = re.compile(r"\b(?:sincosf|sinf|cosf|sincospif)\s*\(")
+    for name in (*users, "sincos_reduced.cuh"):
+        assert not accurate.search(code[name]), name
+    # Both partial-sum kernels of kernel 1 (per width and chunked) call the
+    # helper; the structured kernels' float sums and b-bit codes do.
+    assert len(re.findall(r"\bsincos_reduced\s*\(", code["fourier_sketch.cu"])) == 2
+    assert len(re.findall(r"\bsincos_reduced\s*\(", code["structured_sketch.cu"])) == 1
     from repro_torch.kernels import _build
 
     assert "--use_fast_math" not in _build.NVCC_FLAGS

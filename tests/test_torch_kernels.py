@@ -18,6 +18,7 @@ from repro.core import freq_ops as jfo
 from repro.kernels import ops as jops
 from repro_torch.core import freq_ops as tfo
 from repro_torch.core.engine import SketchEngine
+from repro_torch.kernels import _build
 from repro_torch.kernels import amp_denoise as kamp
 from repro_torch.kernels import assign_argmin as aa
 from repro_torch.kernels import fourier_sketch as fs
@@ -96,11 +97,12 @@ def _fma32(a, b, c):
 
 
 def test_fourier_sketch_phase_reduction_keeps_the_sfu_in_range():
-    """Kernel 1's ``sincos_reduced`` (its constants read from the source),
-    emulated in float32: for |p| <= 1e5 the reduced argument stays within
-    pi + 0.004 of 0 (where ``__sincosf`` is within 2^-21.41) and its sine and
-    cosine are within 1.2e-7 of those of p itself; up to 1e6, pi + 0.04."""
-    src = (Path(fs.__file__).parent / "csrc" / "fourier_sketch.cu").read_text()
+    """The kernels' ``sincos_reduced`` (its constants read from
+    ``sincos_reduced.cuh``), emulated in float32: for |p| <= 1e5 the reduced
+    argument stays within pi + 0.004 of 0 (where ``__sincosf`` is within
+    2^-21.41) and its sine and cosine are within 1.2e-7 of those of p itself;
+    up to 1e6, pi + 0.04."""
+    src = (Path(fs.__file__).parent / "csrc" / "sincos_reduced.cuh").read_text()
     const = {name: np.float32(float(val)) for name, val in re.findall(
         r"constexpr float (k\w+) = ([-+0-9.e]+)f;", src)}
     inv, magic = const["kInv2Pi"], const["kRoundMagic"]
@@ -114,6 +116,33 @@ def test_fourier_sketch_phase_reduction_keeps_the_sfu_in_range():
         p64, r64 = p.astype(np.float64), r.astype(np.float64)
         assert np.abs(np.sin(r64) - np.sin(p64)).max() <= 1.2e-7, lim
         assert np.abs(np.cos(r64) - np.cos(p64)).max() <= 1.2e-7, lim
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """A source's library path hashes the ``csrc`` headers it includes,
+    directly or through another header, so editing a header rebuilds every
+    source that includes it and no other; the kernels that share the SFU
+    helper list its header.  No nvcc needed."""
+    for name in ("fourier_sketch", "structured_sketch"):
+        src = (_build.CSRC / f"{name}.cu").read_bytes()
+        assert _build._headers(src) == ["sincos_reduced.cuh"], name
+    assert _build._headers((_build.CSRC / "assign_argmin.cu").read_bytes()) == []
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "h1.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "h1.cuh").write_text('#pragma once\n  #include "h2.cuh"\nint h1;\n')
+    (tmp_path / "h2.cuh").write_text("int h2;\n")
+    (tmp_path / "h3.cuh").write_text("int h3;\n")
+    assert _build._headers((tmp_path / "a.cu").read_bytes()) == ["h1.cuh", "h2.cuh"]
+    before = {name: _build._target(name) for name in ("a", "b")}
+    assert before["a"].parent == _build.BUILD_DIR and before["a"].name.startswith("a-")
+    (tmp_path / "h3.cuh").write_text("int h3 = 1;\n")  # included by nothing
+    assert {name: _build._target(name) for name in ("a", "b")} == before
+    (tmp_path / "h2.cuh").write_text("int h2 = 1;\n")  # included through h1
+    after = {name: _build._target(name) for name in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
+    (tmp_path / "h2.cuh").write_text("int h2;\n")
+    assert _build._target("a") == before["a"]
 
 
 def _assign_inputs(seed, n_pts, feat, k):

@@ -2,7 +2,9 @@
 reference: the Hadamard helpers, the operator's algebra on shared signs and
 radii, the restricted-norm rescaling, the plain versions of the structured
 sketch kernels (float and quantized), and the slice end to end (structured
-operator + 1-bit QCKM through ``compute_sketch`` and ``fit``).
+operator + 1-bit QCKM through ``compute_sketch`` and ``fit``); a float32
+model of the CUDA kernels' butterfly arithmetic, the 1-bit codes they read
+off the reduced phase, and their launch grid.
 
 Tolerances: 1e-5 for the transform and the operator (float32 rounding of the
 same Kronecker contractions); 1e-4 on sums / N for the float sketch sums (the
@@ -13,6 +15,8 @@ deviation (the blobs have unit variance).
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -184,6 +188,176 @@ def test_quantized_structured_kernel_plain_matches_reference(bits, n, m, n_pts):
     assert got[0].dtype == torch.int32 and got[0].shape == (m,)
     theta = np.asarray(jop.apply(jnp.asarray(x))) + dither
     _assert_sums_within_flips(got, ref, theta, bits)
+
+
+def _butterfly(v, nx=None):
+    """The kernels' unnormalised WHT along the last axis, level by level in
+    their order (h = 1, 2, 4, ...; lower a + b, upper a - b).  With ``nx``,
+    the values at ``k >= nx`` are zeros and levels ``h >= nx`` copy each
+    lower value up, as the d = 32 kernel's first stage does."""
+    d = v.shape[-1]
+    h = 1
+    while h < d:
+        w = v.reshape(*v.shape[:-1], d // (2 * h), 2, h)
+        a, b = w[..., 0, :], w[..., 1, :]
+        pair = (a, a) if nx is not None and h >= nx else (a + b, a - b)
+        v = torch.stack(pair, dim=-2).reshape(v.shape)
+        h *= 2
+    return v
+
+
+def _kernel_phases(x, diags, radii, nx=None, fold=True):
+    """float32 model of the structured kernels' phases ``(N, nblocks, d)``:
+    x (times the first signs) padded with zeros, three butterfly stages,
+    the scale c; with ``fold`` each later stage's sign rides on the previous
+    stage's scale (``v * (+-c)``, one rounding), else it is applied after the
+    scale (``(v * c) * (+-1)``); then the radius, rounded."""
+    n_pts, n = x.shape
+    nblocks, _, d = diags.shape
+    c = tft.inv_sqrt(d)
+    v = torch.zeros((n_pts, nblocks, d), dtype=torch.float32)
+    v[..., :n] = x[:, None, :] * diags[:, 0, :n]
+    for s in range(3):
+        if s:
+            v = v * (diags[:, s] * c) if fold else (v * c) * diags[:, s]
+        v = _butterfly(v, nx if s == 0 else None)
+    return (v * c) * radii
+
+
+def _kernel_nx(n, d):
+    """The first stage's nonzero width of the kernel instance for (n, d)."""
+    if d > 32:
+        return None
+    return 16 if n <= 16 else None
+
+
+def _source_constants(name):
+    src = (Path(tft.__file__).parent / "csrc" / name).read_text()
+    return {k: np.float32(float(v)) for k, v in re.findall(r"constexpr float (k\w+) = ([-+0-9.e]+)f;",
+                                                          src)}
+
+
+def _reduce_2pi(p):
+    """``reduce_2pi`` of ``sincos_reduced.cuh`` emulated in float32 (a float32
+    fma is exact in float64, then rounded once)."""
+    k_ = _source_constants("sincos_reduced.cuh")
+    fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(np.float32)  # noqa: E731
+    k = fma(p, k_["kInv2Pi"], k_["kRoundMagic"]) - k_["kRoundMagic"]
+    return fma(-k, k_["kTwoPiLo"], fma(-k, k_["kTwoPiHi"], p))
+
+
+def _one_bit_codes(theta):
+    """The 1-bit kernel's codes of float32 phases: read off the reduced phase
+    r, cos >= 0 <=> |r| <= pi/2 and sin >= 0 <=> (r >= 0) != (|r| > pi)."""
+    k_ = _source_constants("structured_sketch.cu")
+    with np.errstate(invalid="ignore"):
+        r = _reduce_2pi(np.asarray(theta, np.float32))
+        qc = np.where(np.abs(r) <= k_["kHalfPi"], 1, -1)
+        qs = np.where((r >= 0) != (np.abs(r) > k_["kPi"]), 1, -1)
+    return qc.astype(np.int32), qs.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,m,n_pts", [(10, 1000, 333), (10, 77, 129), (100, 300, 129)])
+def test_kernel_butterfly_model_matches_reference(n, m, n_pts):
+    """The kernels' butterfly (the float32 model above, in their level order,
+    the signs folded into +-c) against the reference's
+    ``structured_sketch_kernel`` in interpret mode and the ``hd_chain``
+    oracle, on shared numpy inputs: 1e-4 on sums / N, at d = 32 and 128,
+    ragged N and m.  Its phases are the Kronecker form's to float32
+    rounding; its 1-bit codes (read off the reduced phase) are the
+    reference's quantized kernel's under the boundary rule."""
+    jop, top = _ops(n, m, seed=n + 1)
+    x = _points(20, n_pts, n, 2.0)
+    beta = np.random.default_rng(21).uniform(size=n_pts).astype(np.float32)
+    phases = _kernel_phases(torch.from_numpy(x), top.diags, top.radii, _kernel_nx(n, top.d))
+    flat = phases.reshape(n_pts, -1)[:, :m].double().numpy()
+    kc, ks = beta @ np.cos(flat), beta @ np.sin(flat)
+    jc, js = jops.fourier_sketch_sums(jnp.asarray(x), jop, jnp.asarray(beta), block_n=128,
+                                      interpret=True)
+    proj = np.asarray(jref.structured_project_ref(jnp.asarray(x), jop.diags, jop.radii))[:, :m]
+    for got, ref in ((kc, jc), (ks, js), (kc, beta @ np.cos(proj)), (ks, beta @ np.sin(proj))):
+        np.testing.assert_allclose(got / n_pts, np.asarray(ref) / n_pts, atol=1e-4)
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, top.d - n))
+    oracle = tft.hd_chain(xp[:, None, :], top.diags) * top.radii
+    np.testing.assert_allclose(phases.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
+
+    dither = np.random.default_rng(22).uniform(0, 2 * np.pi, m).astype(np.float32)
+    theta = (phases.reshape(n_pts, -1)[:, :m] + torch.from_numpy(dither)).numpy()
+    qc, qs = _one_bit_codes(theta)
+    ref = jops.quantized_fourier_sketch_sums(jnp.asarray(x), jop, jnp.asarray(dither), bits=1,
+                                             block_n=128, interpret=True)
+    _assert_sums_within_flips((qc.sum(0), qs.sum(0)), ref,
+                              np.asarray(jop.apply(jnp.asarray(x))) + dither, 1)
+
+
+@pytest.mark.parametrize("n,d", [(1, 32), (3, 32), (10, 32), (16, 32), (20, 32), (32, 32),
+                                 (40, 64), (100, 128)])
+def test_kernel_butterfly_skip_and_fold_keep_the_bits(n, d):
+    """The design's two shortcuts change no bit of the phases: folding each
+    stage's sign into the previous scale (``v * (+-c)`` for
+    ``(v * c) * (+-1)``), and skipping the first stage's levels that the
+    zero padding makes trivial (d = 32, n <= 16)."""
+    rng = np.random.default_rng(n + d)
+    nblocks = 3
+    diags = torch.from_numpy(rng.choice(np.array([-1.0, 1.0], np.float32), (nblocks, 3, d)))
+    radii = torch.from_numpy(rng.uniform(0.1, 3.0, (nblocks, d)).astype(np.float32))
+    x = torch.from_numpy(_points(n, 257, n, 3.0))
+    new = _kernel_phases(x, diags, radii, _kernel_nx(n, d), fold=True)
+    old = _kernel_phases(x, diags, radii, None, fold=False)
+    assert torch.equal(new, old)
+
+
+def test_one_bit_codes_from_the_reduced_phase_follow_float64_signs():
+    """The 1-bit kernel skips the trig: its codes, read off the phase reduced
+    as ``sincos_reduced.cuh`` does, are the signs of float64 cos and sin of
+    the float32 phase for |p| <= 1e5, except within 1e-6 rad of a boundary
+    (cos: pi/2 + k pi; sin: k pi).  The exceptions are counted; points at a
+    boundary are drawn on purpose.  A NaN phase codes to -1 for both, as
+    ``c >= 0 ? 1 : -1`` gives."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(-31_830, 31_830, 20_000)
+    near = np.concatenate([k * np.pi, (k + 0.5) * np.pi]) + rng.uniform(-2e-6, 2e-6, 40_000)
+    p = np.concatenate([rng.uniform(-1e5, 1e5, 1_000_000), near,
+                        rng.uniform(-10.0, 10.0, 100_000)]).astype(np.float32)
+    p = p[np.abs(p) <= 1e5]
+    qc, qs = _one_bit_codes(p)
+    p64 = p.astype(np.float64)
+    want_c = np.where(np.cos(p64) >= 0, 1, -1)
+    want_s = np.where(np.sin(p64) >= 0, 1, -1)
+    dist_c = np.abs(np.remainder(p64 - np.pi / 2 + np.pi / 2, np.pi) - np.pi / 2)
+    dist_s = np.abs(np.remainder(p64 + np.pi / 2, np.pi) - np.pi / 2)
+    bad_c, bad_s = qc != want_c, qs != want_s
+    assert np.all(dist_c[bad_c] <= 1e-6) and np.all(dist_s[bad_s] <= 1e-6), (
+        dist_c[bad_c].max(initial=0), dist_s[bad_s].max(initial=0))
+    # Away from the drawn boundary points the exceptions are rare: a phase
+    # lands within 1e-6 rad of a boundary about 1.3e-6 of the time.
+    uniform = slice(0, 1_000_000)
+    assert int(bad_c[uniform].sum() + bad_s[uniform].sum()) <= 10
+    assert int(bad_c.sum() + bad_s.sum()) < len(near)
+    nan_c, nan_s = _one_bit_codes(np.array([np.nan, np.inf, -np.inf], np.float32))
+    assert nan_c.tolist() == [-1] * 3 and nan_s.tolist() == [-1] * 3
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n_pts,nblocks,fb,resident", [
+    (10**7, 32, 8, 2), (10**6, 32, 8, 2), (1_000_003, 32, 8, 2), (100_003, 10, 1, 1),
+    (20_001, 3, 8, 2), (20_001, 3, 1, 1), (1, 1, 8, 2), (10**10, 640, 1, 2),
+])
+def test_structured_grid_covers_each_row_once_in_one_wave(n_pts, nblocks, fb, resident):
+    """The structured kernels' launch geometry: the groups' row ranges
+    ``[g * rows, min(N, (g + 1) * rows))`` tile [0, N) with none empty, the
+    CTAs' frequency blocks cover nblocks, the grid is at most one wave of the
+    resident CTAs, a large N gets a CTA on every SM, and the double partials
+    do not grow with N."""
+    rows, groups, col_blocks = tft.structured_grid(n_pts, nblocks, fb, H100_SMS, resident)
+    assert (groups - 1) * rows < n_pts <= groups * rows
+    assert (col_blocks - 1) * fb < nblocks <= col_blocks * fb
+    assert groups * col_blocks <= max(resident * H100_SMS, col_blocks)
+    if n_pts >= 256 * H100_SMS * col_blocks:
+        assert groups * col_blocks >= H100_SMS
+    assert groups <= max(1, resident * H100_SMS // col_blocks)
 
 
 def test_plain_versions_are_chunked_invisibly(monkeypatch):
