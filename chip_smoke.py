@@ -11,18 +11,22 @@ quantized and structured kernels also for bitwise repeatability over two
 launches and, for integer sums, exact split invariance), and the structured
 kernels again at the wide shape n = d = 2048, m = 20,000; the decoder
 kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
-wide shape; amp_denoise at the decoder's shape, a wide one, the deep tail
-and open boxes); the sweep of the sketch kernels' widths at N = 20,001
-(kernels 1-3 at n = 3 to 100, kernel 1 also at phases of 10^3-10^4
-radians, kernels 4-5 at d = 64 to 1024, and at phases of 10^3-10^5 radians
-on the fit's operator); flash
+wide shape, with the plain version's time beside the wide one, and at
+n = 3, 40, 64 and 100; amp_denoise at the decoder's shape, a wide one, the
+deep tail and open boxes); the sweep of the sketch kernels' widths at
+N = 20,001 (kernels 1-3 at n = 3 to 100, kernel 1 also at phases of
+10^3-10^4 radians, kernels 4-5 at d = 64 to 1024), and kernels 3-5 at
+phases of 10^3-10^5 radians on 1,000,003 rows; kernel 3's 1- and 4-bit
+times at the fit shape beside kernel 1's; flash
 attention (kernel 8) at its edge cases and at the llama3.2-1B, gemma3-1B
 local-layer and 32k-prefill shapes, beside SDPA's time; ckm.fit,
 ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
 streaming structured, structured 1-bit QCKM) and the slice-3 fits (fit with
 decoder="sketch_shift", fit_streaming with decoder="amp"), each with the
 launch counts it caused; the SSE of each CKM fit against k-means with 5
-replicates; each decoder's full decode again with its loops eager, against
+replicates, beside the values before kernels 3 and 6 were redesigned
+(the fits off those kernels are compared to the digit); each decoder's
+full decode again with its loops eager, against
 the fits' graphed decodes (bits, launch counts, seconds); where fit's time
 goes (the sketch pass alone, and short decodes, eager then graphed, each
 timed alone and under torch.profiler: CLOMPR dense and structured,
@@ -84,6 +88,17 @@ SWEEP_STRUCTURED_NS = (5, 20, 40, 100, 200, 500, 1000)
 # 1e-4 of N, so the case runs at the ragged N of 1,000,003, where CODE_TOL
 # reads as a flip rate.
 LARGE_PHASE_STRUCTURED_SCALE = 100.0
+# Kernel 6 at the rest of its template paths: the narrow (cluster) kernel at
+# n = 3, 40 and 64 (a tiny swarm and sketch, a ragged one, the widest), and
+# the two-phase wide kernel at a ragged n > 64; (P, n, m).
+SHIFT_SWEEP = ((1, 3, 5), (17, 40, 300), (80, 64, 1000), (33, 100, 777))
+# The fits' relative SSEs as this script printed them on the tree before
+# kernels 3 and 6 were redesigned (commit 8d5cea6; NVIDIA H100 80GB HBM3,
+# 700 W): the fits that launch neither kernel must give them to the digit.
+EARLIER_RELATIVE_SSE = {
+    "fit": 1.3570, "fit_streaming": 1.2213, "fit-1bit": 1.4361, "fit-structured": 1.2468,
+    "fit-structured-1bit": 1.2854, "fit-sketch_shift": 1.3045, "fit-amp": 1.3440,
+}
 # Flash attention at the reference's model widths (src/repro/configs/):
 # llama3.2-1B (H = 32, KV = 8, hd = 64) at S = 4096 and at the 32k-token
 # prefill that models/layers.py names, and a gemma3-1B local layer (H = 4,
@@ -429,6 +444,7 @@ def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None
         for (name, bits), r in out.items():
             if bits == 1:
                 results[name] = r
+    return out
 
 
 def check_shift(ks, c, w, z, label):
@@ -682,16 +698,23 @@ def main() -> None:
     g_dither = ckm.stream_keys(FIT_SEED, dev)[2]
     dither = quantize.draw_dither(g_dither, M)
     op = freq_ops.make_operator("structured", g_freq, M, DIM, sigma2, device=dev)
-    check_slice2_kernels(fs, ft, x, w, op, dither, "fit shape", N // 3, results)
+    fit_codes = check_slice2_kernels(fs, ft, x, w, op, dither, "fit shape", N // 3, results)
+    print(f"[quantized_fourier_sketch fit shape] 1bit "
+          f"{fit_codes[('quantized_fourier_sketch', 1)]['ms']:.3f} ms, 4bit "
+          f"{fit_codes[('quantized_fourier_sketch', 4)]['ms']:.3f} ms; fourier_sketch (float) "
+          f"{results['fourier_sketch']['ms']:.3f} ms", flush=True)
     check_slice2_kernels(fs, ft, x[:chunk], w, op, dither, "stream-batch shape", chunk // 3)
     check_slice2_kernels(fs, ft, x[:RAGGED_N], w, op, dither, "ragged", 333_333)
     x_big = x[:RAGGED_N] * LARGE_PHASE_STRUCTURED_SCALE
     big = max_structured_phase(x_big, op)
+    big_dense = max_phase(x_big, w)
     check(1e3 <= big <= 1e5, f"structured large-phase case: max|phase| {big:.1f} outside [1e3, 1e5]")
-    check_slice2_kernels(fs, ft, x_big, None, op, dither, f"large phases max|phase|={big:.1f}",
-                         333_333)
+    check(1e3 <= big_dense <= 1e5,
+          f"dense large-phase case: max|x w| {big_dense:.1f} outside [1e3, 1e5]")
+    check_slice2_kernels(fs, ft, x_big, w, op, dither,
+                         f"large phases max|phase|={big:.1f} (dense {big_dense:.1f})", 333_333)
     print(f"[structured phases] fit shape: max|phase| = {max_structured_phase(x, op):.3f} rad; "
-          f"large-phase case {big:.1f} rad", flush=True)
+          f"large-phase case {big:.1f} rad (dense {big_dense:.1f} rad)", flush=True)
     del x_big
 
     # 4c. The structured kernels' generic path (d > 32) at the wide shape.
@@ -723,9 +746,18 @@ def main() -> None:
     check_shift(ks, swarm(RAGGED_P, lo_x, hi_x), w_r, dense_sketch(x[:RAGGED_N], w_r), "ragged")
     c_w, s_w = ft.structured_sketch_sums(xw, op_w.diags, op_w.radii, ones[:WIDE_N])
     z_w = torch.cat([c_w.reshape(-1)[:WIDE_M], -s_w.reshape(-1)[:WIDE_M]]) / WIDE_N
-    check_shift(ks, swarm(SHIFT_P, torch.amin(xw, 0), torch.amax(xw, 0)),
-                op_w.materialize().contiguous(), z_w, "wide structured")
+    wide = check_shift(ks, swarm(SHIFT_P, torch.amin(xw, 0), torch.amax(xw, 0)),
+                       op_w.materialize().contiguous(), z_w, "wide structured")
+    print(f"[sketch_shift wide structured] kernel {wide['ms']:.3f} ms against the plain "
+          f"version's {wide['plain_ms']:.3f} ms ({wide['ms'] / wide['plain_ms']:.2f}x), bound "
+          f"{wide['bound_ms']:.3f} ms", flush=True)
     del xw, c_w, s_w, z_w
+    for p_s, n_s, m_s in SHIFT_SWEEP:
+        xs = torch.randn((20_001, n_s), generator=gen, device=dev) * 2
+        ws = torch.randn((n_s, m_s), generator=gen, device=dev) * 0.5
+        check_shift(ks, swarm(p_s, torch.amin(xs, 0), torch.amax(xs, 0)), ws,
+                    dense_sketch(xs, ws), f"sweep P={p_s} n={n_s}")
+    del xs
 
     # amp_denoise at the decoder's shape (K estimates in the data's box), a
     # wide one across three variances, the deep tail and open boxes.
@@ -867,7 +899,8 @@ def main() -> None:
         f"relative SSE {rel:.4f} (stream {sse_stream / sse_km:.4f}, limit "
         f"{MAX_RELATIVE_SSE})  |z_stream - z|={dz:.2e} (tol {STREAM_TOL})  "
         f"sigma2={float(res.sigma2):.4f}  SSE ckm {sse_ckm_raw:.9g} kmeans "
-        f"{sse_km_raw:.9g} ratio {rel:.9g}",
+        f"{sse_km_raw:.9g} ratio {rel:.9g}; before: {EARLIER_RELATIVE_SSE['fit']:.4f} "
+        f"(stream {EARLIER_RELATIVE_SSE['fit_streaming']:.4f})",
         flush=True,
     )
     check(rel <= MAX_RELATIVE_SSE, f"relative SSE {rel:.4f} > {MAX_RELATIVE_SSE}")
@@ -908,11 +941,19 @@ def main() -> None:
         print(
             f"[{label} quality] sketch pass {pass_s:.3f}s, decode "
             f"{phase_s[label] - pass_s:.2f}s; SSE/N {rel2 * sse_km:.4f}, relative SSE "
-            f"{rel2:.4f} (limit {MAX_RELATIVE_SSE}); SSE ckm {sse2_raw:.9g} kmeans "
-            f"{sse_km_raw:.9g} ratio {rel2:.9g}",
+            f"{rel2:.4f} (limit {MAX_RELATIVE_SSE}; before {EARLIER_RELATIVE_SSE[label]:.4f}); "
+            f"SSE ckm {sse2_raw:.9g} kmeans {sse_km_raw:.9g} ratio {rel2:.9g}",
             flush=True,
         )
         check(rel2 <= MAX_RELATIVE_SSE, f"{label}: relative SSE {rel2:.4f} > {MAX_RELATIVE_SSE}")
+
+    # The fits that launch neither kernel 3 nor kernel 6, against their
+    # earlier relative SSEs (kernel 5 shares kernel 3's 1-bit helper).
+    rel_now = {**rel_of, "fit_streaming": sse_stream / sse_km}
+    kept = {label: f"{rel_now[label]:.4f}" == f"{EARLIER_RELATIVE_SSE[label]:.4f}"
+            for label in ("fit", "fit_streaming", "fit-structured", "fit-structured-1bit",
+                          "fit-amp")}
+    print(f"[quality off kernels 3, 6] the same 4 digits as before: {kept}", flush=True)
 
     # 8c. Each decoder's full decode with its loops eager, against the fit's
     # graphed decode of the same sketch: the same bits (or, where they
@@ -1042,7 +1083,7 @@ def main() -> None:
                                    shift_polish_steps=0)
     by_name = short_decode("fit-sketch_shift", slice2_res["fit-sketch_shift"], short_ss, K * 30,
                            "mean-shift step")
-    in_graph("sketch_shift", by_name, ("sketch_shift_kernel", "sum_splits"))
+    in_graph("sketch_shift", by_name, ("shift_cluster",))
     short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
     by_name = short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
     in_graph("amp_denoise", by_name, ("amp_denoise_kernel",))

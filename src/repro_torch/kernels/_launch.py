@@ -8,12 +8,8 @@ import functools
 
 import torch
 
-# Blocks the grid aims for per SM, and the rows a block sums at least (where
-# N allows) and at most (a float partial's register accumulators stay
-# accurate over that many rows).
-_BLOCKS_PER_SM = 8
+# The rows a block sums at least, where N allows.
 _MIN_ROWS_PER_GROUP = 256
-_MAX_ROWS_PER_GROUP = 16384
 
 
 def check_cuda(named) -> torch.device:
@@ -55,23 +51,16 @@ def stream_ptr(dev: torch.device) -> int:
 
 
 def grid_rows(
-    n_pts: int, col_blocks: int, sms: int, *, resident: int | None = None,
-    min_rows: int = _MIN_ROWS_PER_GROUP, max_rows: int | None = _MAX_ROWS_PER_GROUP,
+    n_pts: int, col_blocks: int, sms: int, resident: int, min_rows: int = _MIN_ROWS_PER_GROUP,
 ) -> tuple[int, int]:
     """``(rows_per_group, groups)`` for a grid of ``groups`` row ranges by
-    ``col_blocks`` column blocks: about ``_BLOCKS_PER_SM`` blocks per SM or,
-    given the kernel's ``resident`` blocks per SM (its occupancy), at most
-    one wave of them, so no SM gets a second, ragged round; at least
-    ``min_rows`` rows a block where N allows, and at most
-    ``max_rows`` (``None``: no cap, for a kernel that keeps long sums
-    accurate itself).  A fixed function of the shape on one card, so a
+    ``col_blocks`` column blocks: given the kernel's ``resident`` blocks per
+    SM (its occupancy), at most one wave of them, so no SM gets a second,
+    ragged round; at least ``min_rows`` rows a block where N allows, and no
+    cap (the kernels keep long sums accurate themselves: double tile sums,
+    or exact int32).  A fixed function of the shape on one card, so a
     fixed-order reduction over the groups repeats its bits."""
-    if resident is None:
-        groups = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
-    else:
-        groups = max(1, resident * sms // col_blocks)
+    groups = max(1, resident * sms // col_blocks)
     groups = min(groups, max(1, -(-n_pts // min_rows)))
-    if max_rows is not None:
-        groups = max(groups, -(-n_pts // max_rows))
     rows = max(1, -(-n_pts // groups))
     return rows, max(1, -(-n_pts // rows))

@@ -63,11 +63,10 @@
 //    (freq_transform.structured_grid), a fixed function of the shape on one
 //    card.
 //  * Trig: the phase is reduced exactly and sin, cos come from the SFU
-//    (sincos_reduced.cuh).  The 1-bit code skips the trig: on the reduced
-//    r in [-pi - 0.004, pi + 0.004], cos r >= 0 <=> |r| <= pi/2, and
-//    sin r >= 0 <=> (r >= 0) != (|r| > pi); a NaN phase gives -1 for both,
-//    as c >= 0 ? 1 : -1 does (tests/test_torch_structured.py holds the rule
-//    against float64 sin and cos).  The b-bit codes round with
+//    (sincos_reduced.cuh).  The 1-bit code skips the trig: one_bit_signs()
+//    (the same header, shared with quantized_fourier_sketch.cu) reads both
+//    signs off the reduced phase; a NaN phase gives -1 for both, as
+//    c >= 0 ? 1 : -1 does.  The b-bit codes round with
 //    __float2int_rn (half to even), never roundf.
 //  * The radius multiply and the dither add are explicit _rn operations
 //    (the reference rounds each); the stage scales too, so that no multiply
@@ -86,8 +85,6 @@ constexpr int kTileFloats = 8960;   // x staged per tile and buffer (35 KB)
 constexpr int kMaxTileRows = 1024;
 constexpr int kFlushLd = kThreads + 1;  // the flush buffer's row, padded
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kHalfPi = 1.5707963705062866f;  // float(pi / 2)
-constexpr float kPi = 3.1415927410125732f;      // float(pi)
 
 // float sums (beta weights), b-bit codes, 1-bit codes.
 enum Mode { kFloat = 0, kCodes = 1, kSigns = 2 };
@@ -351,9 +348,10 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
           float theta = __fmul_rn(__fmul_rn(v[k], cscale), comp(rad, j));
           if (MODE != kFloat) theta = __fadd_rn(theta, comp(dth, j));
           if (MODE == kSigns) {
-            const float rr = reduce_2pi(theta);
-            if (fabsf(rr) <= kHalfPi) iacc_c[k] += vr;
-            if ((rr >= 0.0f) != (fabsf(rr) > kPi)) iacc_s[k] += vr;
+            bool cos_pos, sin_pos;
+            one_bit_signs(theta, &cos_pos, &sin_pos);
+            if (cos_pos) iacc_c[k] += vr;
+            if (sin_pos) iacc_s[k] += vr;
           } else {
             float s, c;
             sincos_reduced(theta, &s, &c);

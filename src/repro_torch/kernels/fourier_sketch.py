@@ -35,15 +35,16 @@ from repro_torch.kernels._launch import check_cuda, grid_rows, on_device, sm_cou
 # Kernel launches since the counts were last reset (plain calls do not count).
 LAUNCHES = 0
 QUANTIZED_LAUNCHES = 0
-_THREADS = 256  # frequencies per block of the quantized kernel
 
-# Frequencies per block of the float kernel, and the rows it stages at a
-# time (the least a block is given where N allows).
+# Frequencies per block of the float kernel (the quantized kernel reports
+# its own), and the rows both stage at a time (the least a block is given
+# where N allows).
 FREQS_PER_BLOCK = 256
 TILE_ROWS = 128
 _PLAIN_CHUNK = 1 << 16
-# Blocks per SM of each width's float kernel, by (device index, n).
-_RESIDENT: dict[tuple[int, int], int] = {}
+# What each kernel's occupancy query reported, by (device index, kernel,
+# n[, one_bit]).
+_RESIDENT: dict[tuple, tuple[int, ...]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -76,30 +77,33 @@ def _check_inputs(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def sketch_grid(n_pts: int, m: int, sms: int, resident: int) -> tuple[int, int, int]:
-    """``(rows_per_group, groups, col_blocks)`` of the float kernel's grid:
-    ``col_blocks`` blocks of ``FREQS_PER_BLOCK`` frequencies by ``groups``
+def sketch_grid(n_pts: int, m: int, sms: int, resident: int,
+                freqs: int = FREQS_PER_BLOCK) -> tuple[int, int, int]:
+    """``(rows_per_group, groups, col_blocks)`` of both kernels' grids:
+    ``col_blocks`` blocks of ``freqs`` frequencies by ``groups``
     contiguous row ranges of ``rows_per_group`` rows (the last one ragged).
     One wave of ``resident`` blocks per SM on ``sms`` SMs, where N is large
     enough for a tile of ``TILE_ROWS`` rows a block (``_launch.grid_rows``);
-    no cap on the rows of a group, since the kernel adds each tile's float
-    sums into double registers.  So the ``(groups, m)`` partials do not grow
-    with N."""
-    col_blocks = -(-m // FREQS_PER_BLOCK)
-    rows, groups = grid_rows(n_pts, col_blocks, sms, resident=resident, min_rows=TILE_ROWS,
-                             max_rows=None)
+    no cap on the rows of a group: the float kernel adds each tile's float
+    sums into double registers, so its ``(groups, m)`` partials do not grow
+    with N, and the quantized kernel's int32 sums are exact at any length."""
+    col_blocks = -(-m // freqs)
+    rows, groups = grid_rows(n_pts, col_blocks, sms, resident, min_rows=TILE_ROWS)
     return rows, groups, col_blocks
 
 
-def _resident(lib: ctypes.CDLL, dev: torch.device, n: int) -> int:
-    key = (dev.index, n)
+def _resident(lib: ctypes.CDLL, name: str, dev: torch.device, *args: int, outs: int = 1):
+    """What ``<name>_resident(*args, ...)`` reports for this device (blocks
+    per SM; for the quantized kernel also its frequencies per block), asked
+    of the library once per device."""
+    key = (dev.index, name, *args)
     if key not in _RESIDENT:
-        out = ctypes.c_int(0)
-        status = lib.fourier_sketch_resident(n, ctypes.byref(out))
-        if status != 0 or out.value < 1:
-            msg = lib.fourier_sketch_error_string(status).decode()
-            raise RuntimeError(f"fourier_sketch occupancy query failed: {msg} ({status})")
-        _RESIDENT[key] = out.value
+        out = [ctypes.c_int(0) for _ in range(outs)]
+        status = getattr(lib, f"{name}_resident")(*args, *map(ctypes.byref, out))
+        if status != 0 or min(o.value for o in out) < 1:
+            msg = getattr(lib, f"{name}_error_string")(status).decode()
+            raise RuntimeError(f"{name} occupancy query failed: {msg} ({status})")
+        _RESIDENT[key] = tuple(o.value for o in out)
     return _RESIDENT[key]
 
 
@@ -121,7 +125,8 @@ def fourier_sketch_sums(
         raise ValueError(f"m = {m} exceeds the kernel's grid limit")
     lib = _lib()
     with on_device(dev):
-        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), _resident(lib, dev, n))
+        (resident,) = _resident(lib, "fourier_sketch", dev, n)
+        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), resident)
         part = torch.empty((2, groups, m), dtype=torch.float64, device=dev)
         out = torch.empty((2, m), dtype=torch.float32, device=dev)
         status = lib.fourier_sketch_sums(
@@ -160,6 +165,8 @@ def _qlib() -> ctypes.CDLL:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i64, i32, ptr, ptr, ptr]
         fn.restype = i32
+        lib.quantized_fourier_sketch_resident.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 2
+        lib.quantized_fourier_sketch_resident.restype = i32
         lib.quantized_fourier_sketch_error_string.argtypes = [i32]
         lib.quantized_fourier_sketch_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,18 +208,20 @@ def quantized_fourier_sketch_sums(
     dev = check_cuda((("x", x), ("w", w), ("dither", dither), ("valid", valid)))
     n_pts, n = x.shape
     m = w.shape[1]
-    if m > 65535 * _THREADS:
-        raise ValueError(f"m = {m} exceeds the kernel's grid limit")
-    rows, groups = grid_rows(n_pts, -(-m // _THREADS), sm_count(dev))
+    one_bit = int(bits == 1)
     lib = _qlib()
-    with torch.cuda.device(dev):
+    with on_device(dev):
+        resident, freqs = _resident(lib, "quantized_fourier_sketch", dev, n, one_bit, outs=2)
+        if m > 65535 * freqs:
+            raise ValueError(f"m = {m} exceeds the kernel's grid limit")
+        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), resident, freqs)
         qcos = torch.zeros((m,), dtype=torch.int32, device=dev)
         qsin = torch.zeros_like(qcos)
         status = lib.quantized_fourier_sketch_sums(
             x.data_ptr(), w.data_ptr(), dither.data_ptr(),
-            None if valid is None else valid.data_ptr(), n_pts, n, m, int(bits == 1),
+            None if valid is None else valid.data_ptr(), n_pts, n, m, one_bit,
             float(qz.quantization_scale(bits)), rows, groups, qcos.data_ptr(),
-            qsin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            qsin.data_ptr(), stream_ptr(dev),
         )
     if status != 0:
         msg = lib.quantized_fourier_sketch_error_string(status).decode()

@@ -161,7 +161,7 @@ def structured_grid(
     accumulators and the codes are summed exactly.  So the
     ``(groups, nblocks * d)`` partials do not grow with N."""
     col_blocks = -(-nblocks // freq_blocks)
-    rows, groups = grid_rows(n_pts, col_blocks, sms, resident=resident, max_rows=None)
+    rows, groups = grid_rows(n_pts, col_blocks, sms, resident)
     return rows, groups, col_blocks
 
 

@@ -1,39 +1,50 @@
-"""Where kernels 1, 4-5 and 8 spend their time: each timed beside copies of
-its source with one part of the work taken out, on one card.
+"""Where kernels 1, 3, 4-6 and 8 spend their time: each timed beside copies
+of its source with one part of the work taken out, on one card.
 
     PYTHONPATH=src python3 -m repro_torch.tools.kernel_variants   (one CUDA card)
-        [--structured-baseline PATH]
+        [--baseline NAME=PATH ...] [--only NAME,NAME,...]
 
 Each variant is the kernel's source under ``kernels/csrc/`` (with the
 ``.cuh`` headers it includes) with one edit, built by nvcc with the
 package's flags into its own directory under ``build/variants/`` and called
 through its C interface at the smoke run's main shapes: kernel 1
 (``fourier_sketch``) at N = 10^7, n = 10, m = 1000 on the fit's frequencies;
-kernel 4 (``structured_sketch``) at the same data on the fit's structured
-operator (d = 32), at the wide shape N = 100,003, n = 2048, m = 20,000, and
-at the smoke run's sweep of d = 64 .. 1024 (N = 20,001; as is and the
-baseline only); kernel 5 at 1 bit at the fit shape; kernel 8
-(``flash_attention``) at llama3.2-1B width, bf16, B = 1, S = 4096, causal.
+kernel 3 (``quantized_fourier_sketch``) at the same data at 1 and 4 bits on
+the fit's dither, and at the sweep's n = 100 (N = 20,001, m = 300); kernel 4
+(``structured_sketch``) at the fit shape on the fit's structured operator
+(d = 32), at the wide shape N = 100,003, n = 2048, m = 20,000, and at the
+smoke run's sweep of d = 64 .. 1024 (N = 20,001; as is and the baseline
+only); kernel 5 at 1 bit at the fit shape; kernel 6 (``sketch_shift``) at
+the decoder's swarm (P = 80, n = 10, m = 1000, on the fit's sketch) timed
+eagerly and as 100 launches replayed in a CUDA graph (device time a
+launch), and at the wide shape (P = 80, n = 2048, m = 20,000, on the
+materialised wide structured operator); kernel 8 (``flash_attention``) at
+llama3.2-1B width, bf16, B = 1, S = 4096, causal.
 
-``--structured-baseline PATH`` adds another ``structured_sketch.cu`` (an
-earlier version, for example one written out by ``git show
-<commit>:src/repro_torch/kernels/csrc/structured_sketch.cu``) to kernels 4-5's
-calls, so that the two versions are compared on one card in one call.  A
-source without the ``structured_sketch_resident`` entry point is launched on
-the grid and float partials of that earlier interface (8 CTAs an SM, at most
-16,384 rows a CTA).  That branch serves only the comparison with the source
-before the one-wave redesign of kernels 4-5; the next change to those
-kernels drops it and accepts only sources with the current C interface.
+``--baseline NAME=PATH`` adds another source of kernel NAME (an earlier
+version, for example one written out by ``git show
+<commit>:src/repro_torch/kernels/csrc/<NAME>.cu``) to that kernel's calls,
+so that the two versions are compared on one card in one call; it may be
+given once per kernel.  Kernels 3 and 6 also take their sources from before
+their redesign (commit 8d5cea6, with those C interfaces: kernel 3 without
+``quantized_fourier_sketch_resident``, on the grid of 8 CTAs an SM and at
+most 16,384 rows a CTA; kernel 6's ``sketch_shift_sums`` with its split of
+m into chunks of 1024); kernel 4-5 baselines must have the current C
+interface.  ``--only`` runs only the named kernels (``fourier_sketch``,
+``quantized_fourier_sketch``, ``structured_sketch``, ``sketch_shift``,
+``flash_attention``).
 
 The variants run in turns (in order, then in reverse) and each line gives
 the median of 10 CUDA-event timings per turn.  The edits drop work, so their
 outputs are wrong on purpose (the error against the plain version is
-printed): they show what each part costs, not a faster kernel.  One edit
-keeps the bits: "no first-stage skip" sends n = 10 to the d = 32 instance
+printed): they show what each part costs, not a faster kernel.  Some edits
+keep the bits: "no first-stage skip" sends n = 10 to the d = 32 instance
 with NX = 32 instead of NX = 16, to show what skipping the zero padding's
-level saves at the fit shape (kernels 4 and 5).  Kernel 8's
-"P in bf16 alone" variant also shows how far rounding P to bf16 without the
-lo half moves the output against the smoke's bf16 bar.
+level saves at the fit shape (kernels 4 and 5); kernel 3's "F = 2" gives a
+thread 2 frequencies at 1 bit instead of 4; kernel 6's "one CTA a group"
+launches the narrow path with clusters of one CTA that each take all of m.
+Kernel 8's "P in bf16 alone" variant also shows how far rounding P to bf16
+without the lo half moves the output against the smoke's bf16 bar.
 """
 
 from __future__ import annotations
@@ -47,12 +58,14 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import ckm, freq_ops, frequencies
+from repro_torch.core import quantize as qz
 from repro_torch.data import synthetic
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fourier_sketch as fs
 from repro_torch.kernels import freq_transform as ft
-from repro_torch.kernels._launch import grid_rows, sm_count, stream_ptr
+from repro_torch.kernels import sketch_shift as ks
+from repro_torch.kernels._launch import sm_count, stream_ptr
 
 OUT = _build.BUILD_DIR.parent / "variants"
 
@@ -68,6 +81,36 @@ SKETCH_VARIANTS = {
         "for (int k = 0; k < N; ++k) p = fmaf(xv[k], wr[f][k], p);":
         "p = fmaf(xv[0], wr[f][0], p);"}},
 }
+QSKETCH_VARIANTS = {
+    "as is": {},
+    "no reduction (1 bit: codes off the raw phase; b bits: __sincosf(p))": {
+        "sincos_reduced.cuh": {
+            "  const float r = reduce_2pi(p);\n  *cos_pos": "  const float r = p;\n  *cos_pos",
+            "  __sincosf(reduce_2pi(p), s, c);\n": "  __sincosf(p, s, c);\n"}},
+    "one phase FMA instead of n": {"quantized_fourier_sketch.cu": {
+        "for (int k = 0; k < N; ++k) p = fmaf(xv[k], wr[f][k], p);":
+        "p = fmaf(xv[0], wr[f][0], p);"}},
+    "F = 2 at 1 bit (256 frequencies a block)": {"quantized_fourier_sketch.cu": {
+        "constexpr int F = ONE_BIT ? 4 : 2;": "constexpr int F = 2;"}},
+    "rows unrolled 2": {"quantized_fourier_sketch.cu": {
+        "#pragma unroll 4\n    for (int r = 0; r < rows; ++r) {":
+        "#pragma unroll 2\n    for (int r = 0; r < rows; ++r) {"}},
+}
+SHIFT_VARIANTS = {
+    "as is": {},
+    "no SFU trig (sin = r, cos = r * r)": SKETCH_VARIANTS["no SFU trig (sin = r, cos = r * r)"],
+    "no pass 2 (narrow: no f, g sums)": {"sketch_shift.cu": {
+        "    for (int k = 4 * warp + sub; k < 4 * kWarps * ((n + 4 * kWarps) / (4 * kWarps));":
+        "    for (int k = 4 * warp + sub; k < 0;"}},
+    "no gradient phase (wide: phase B not launched)": {"sketch_shift.cu": {
+        "  shift_phase_b<TP><<<": "  if (false) shift_phase_b<TP><<<"}},
+    "4 candidates a cluster (narrow)": {"sketch_shift.cu": {
+        "constexpr int kCands = 2; ": "constexpr int kCands = 4; "}},
+    "no cluster exchange (narrow: each CTA leaves with its partial)": {"sketch_shift.cu": {
+        "  if (rank != 0) {\n    cluster_wait();": "  if (rank != 0) {\n    return;",
+        "  if (ranks > 1) mbar_wait_first_phase(smem_addr(&arrived));\n": ""}},
+}
+NO_CLUSTER = "one CTA a group (no cluster)"
 NO_SKIP = "no first-stage skip (NX = 32 at n <= 16)"
 STRUCTURED_VARIANTS = {
     "as is": {},
@@ -85,7 +128,7 @@ FLASH_VARIANTS = {
         "          mma_bf16(oacc[2 * tp], lo, b[0], b[1]);\n": "",
         "          mma_bf16(oacc[2 * tp + 1], lo, b[2], b[3]);\n": ""}},
 }
-BASELINE = "baseline (--structured-baseline)"
+BASELINE = "baseline (--baseline)"
 
 
 def build(name: str, variants: dict, baseline: Path | None = None) -> dict[str, ctypes.CDLL]:
@@ -141,13 +184,35 @@ def median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+class Clocks:
+    """``nvidia-smi``'s SM clock (MHz) and power draw (W), sampled every
+    100 ms while the ``with`` block runs; prints their range after it."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate()
+        rows = [[float(v) for v in ln.split(",")] for ln in out.splitlines() if ln.count(",") == 1]
+        if rows:
+            mhz, watts = sorted(r[0] for r in rows), sorted(r[1] for r in rows)
+            print(f"  clocks.sm {mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median "
+                  f"{statistics.median(mhz):.0f}), power.draw {watts[0]:.0f}-{watts[-1]:.0f} W "
+                  f"over {len(rows)} samples", flush=True)
+
+
 def in_turns(calls: dict, check) -> None:
     """Times each call in order and then in reverse; prints both medians and
-    ``check(output)``."""
+    ``check(output)``, and the SM clock and power over the turns."""
     times = {label: [] for label in calls}
-    for order in (list(calls), list(calls)[::-1]):
-        for label in order:
-            times[label].append(median_ms(calls[label]))
+    with Clocks():
+        for order in (list(calls), list(calls)[::-1]):
+            for label in order:
+                times[label].append(median_ms(calls[label]))
     for label, call in calls.items():
         print(f"  {label}: {times[label][0]:.3f} / {times[label][1]:.3f} ms; {check(call())}",
               flush=True)
@@ -198,19 +263,14 @@ def structured_calls(libs, x, op, one_bit: bool):
             ptr] * 5
         lib.quantized_structured_sketch_sums.argtypes = [ptr] * 5 + [
             i64, i32, i32, i32, f32, i32, f32, i64, i32, ptr, ptr, ptr]
-        if hasattr(lib, "structured_sketch_resident"):
-            lib.structured_sketch_resident.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
-            per_sm, fb = ctypes.c_int(0), ctypes.c_int(0)
-            if lib.structured_sketch_resident(d, n, 2 if one_bit else 0, ctypes.byref(per_sm),
-                                              ctypes.byref(fb)):
-                raise RuntimeError(f"structured_sketch variant {label!r}: occupancy query failed")
-            rows, groups, _ = ft.structured_grid(n_pts, nblocks, fb.value, sm_count(dev),
-                                                 per_sm.value)
-            part_dtype = torch.float64
-        else:
-            rows, groups = grid_rows(n_pts, -(-nblocks // max(1, 256 // d)), sm_count(dev))
-            part_dtype = torch.float32
-        part = torch.empty((2, groups, nblocks * d), dtype=part_dtype, device=dev)
+        lib.structured_sketch_resident.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 2
+        per_sm, fb = ctypes.c_int(0), ctypes.c_int(0)
+        if lib.structured_sketch_resident(d, n, 2 if one_bit else 0, ctypes.byref(per_sm),
+                                          ctypes.byref(fb)):
+            raise RuntimeError(f"structured_sketch variant {label!r}: occupancy query failed")
+        rows, groups, _ = ft.structured_grid(n_pts, nblocks, fb.value, sm_count(dev),
+                                             per_sm.value)
+        part = torch.empty((2, groups, nblocks * d), dtype=torch.float64, device=dev)
         out = torch.empty((2, nblocks, d), dtype=torch.float32, device=dev)
         q = torch.zeros((2, nblocks, d), dtype=torch.int32, device=dev)
 
@@ -235,6 +295,141 @@ def structured_calls(libs, x, op, one_bit: bool):
     return calls, ft.structured_sketch_sums_plain(x, op.diags, op.radii, ones)
 
 
+def qsketch_calls(libs, x, w, dither, bits):
+    """Kernel 3 of each library at ``bits`` on ``x``, ``w`` and ``dither``,
+    and the plain version's result.  A library without the occupancy entry
+    point (the source before the redesign) runs on that source's grid."""
+    n_pts, n = x.shape
+    m = w.shape[1]
+    dev = x.device
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    scale = float(qz.quantization_scale(bits))
+    calls = {}
+    for label, lib in libs.items():
+        lib.quantized_fourier_sketch_sums.argtypes = [ptr] * 4 + [
+            i64, i32, i32, i32, f32, i64, i32, ptr, ptr, ptr]
+        if hasattr(lib, "quantized_fourier_sketch_resident"):
+            lib.quantized_fourier_sketch_resident.argtypes = [i32, i32] + [
+                ctypes.POINTER(i32)] * 2
+            resident, freqs = ctypes.c_int(0), ctypes.c_int(0)
+            if lib.quantized_fourier_sketch_resident(n, int(bits == 1), ctypes.byref(resident),
+                                                     ctypes.byref(freqs)):
+                raise RuntimeError(f"quantized_fourier_sketch variant {label!r}: occupancy "
+                                   "query failed")
+            rows, groups, _ = fs.sketch_grid(n_pts, m, sm_count(dev), resident.value,
+                                             freqs.value)
+        else:
+            rows, groups = _grid_before_one_wave(n_pts, -(-m // 256), sm_count(dev))
+        q = torch.zeros((2, m), dtype=torch.int32, device=dev)
+
+        def call(lib=lib, rows=rows, groups=groups, q=q):
+            q.zero_()
+            status = lib.quantized_fourier_sketch_sums(
+                x.data_ptr(), w.data_ptr(), dither.data_ptr(), None, n_pts, n, m,
+                int(bits == 1), scale, rows, groups, q[0].data_ptr(), q[1].data_ptr(),
+                stream_ptr(dev))
+            if status:
+                raise RuntimeError(f"quantized_fourier_sketch variant launch failed ({status})")
+            return q
+        calls[label] = call
+    return calls, fs.quantized_fourier_sketch_sums_plain(x, w, dither, bits)
+
+
+def _grid_before_one_wave(n_pts: int, col_blocks: int, sms: int) -> tuple[int, int]:
+    """Kernel 3's ``(rows_per_group, groups)`` before its one-wave redesign
+    (commit 8d5cea6): about 8 blocks an SM, each of 256 to 16,384 rows."""
+    groups = max(1, -(-8 * sms // col_blocks))
+    groups = max(min(groups, max(1, -(-n_pts // 256))), -(-n_pts // 16384))
+    rows = max(1, -(-n_pts // groups))
+    return rows, max(1, -(-n_pts // rows))
+
+
+def _split_before_clusters(p_cand: int, m: int, sms: int) -> tuple[int, int]:
+    """Kernel 6's grid along m before its cluster redesign (commit
+    8d5cea6): whole chunks of 1024 frequencies, split so that the grid of
+    4-candidate blocks reaches 2 blocks an SM."""
+    chunks = -(-m // 1024)
+    wanted = max(1, -(-2 * sms // -(-p_cand // 4)))
+    per_split = -(-chunks // min(chunks, wanted, 65535))
+    return per_split * 1024, -(-chunks // per_split)
+
+
+def shift_calls(libs, c, w, z1, z2, cluster_off: bool = False):
+    """Kernel 6 of each library on ``c``, ``w``, ``z1``, ``z2`` (the current
+    C interface's narrow or wide path by n, or the earlier
+    ``sketch_shift_sums``),
+    plus, with ``cluster_off``, the as-is source's narrow path with clusters
+    of one CTA; and the plain version's result."""
+    p_cand, n = c.shape
+    m = w.shape[1]
+    dev = c.device
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    out = torch.empty((p_cand * (n + 1),), dtype=torch.float32, device=dev)
+    geo = ks.wide_grid(p_cand, n, m, sm_count(dev))
+    scratch = torch.empty((max(geo["scratch"], 1),), dtype=torch.float32, device=dev)
+    old_len, old_splits = _split_before_clusters(p_cand, m, sm_count(dev))
+    part = torch.empty((old_splits * p_cand * (n + 1),), dtype=torch.float32, device=dev)
+    args = (c.data_ptr(), w.data_ptr(), z1.data_ptr(), z2.data_ptr(), p_cand, n, m)
+    entries = [(label, lib, False) for label, lib in libs.items()]
+    if cluster_off and n <= ks.NARROW_MAX_N:
+        entries.append((NO_CLUSTER, libs["as is"], True))
+    calls = {}
+    for label, lib, single in entries:
+        if hasattr(lib, "sketch_shift_narrow"):
+            lib.sketch_shift_narrow.argtypes = [ptr] * 4 + [i32] * 5 + [ptr, ptr]
+            lib.sketch_shift_wide.argtypes = [ptr] * 4 + [i32] * 6 + [ptr, ptr, ptr]
+            if n > ks.NARROW_MAX_N:
+                def launch(lib=lib):
+                    return lib.sketch_shift_wide(*args, geo["tp"], geo["splits"],
+                                                 geo["split_len"], scratch.data_ptr(),
+                                                 out.data_ptr(), stream_ptr(dev))
+            else:
+                cluster, split_len, _ = (1, m, 0) if single else ks.shift_grid(p_cand, m)
+
+                def launch(lib=lib, cluster=cluster, split_len=split_len):
+                    return lib.sketch_shift_narrow(*args, cluster, split_len, out.data_ptr(),
+                                                   stream_ptr(dev))
+        else:
+            lib.sketch_shift_sums.argtypes = [ptr] * 4 + [i32] * 5 + [ptr, ptr, ptr]
+
+            def launch(lib=lib):
+                return lib.sketch_shift_sums(*args, old_len, old_splits, part.data_ptr(),
+                                             out.data_ptr(), stream_ptr(dev))
+
+        def call(launch=launch):
+            status = launch()
+            if status:
+                raise RuntimeError(f"sketch_shift variant launch failed ({status})")
+            return out[:p_cand], out[p_cand:].view(p_cand, n)
+        calls[label] = call
+    return calls, ks.sketch_shift_sums_plain(c, w, z1, z2)
+
+
+def in_graph_us(calls: dict, launches: int = 100) -> None:
+    """Each call captured ``launches`` times into a CUDA graph; prints the
+    device time a launch of the replayed graph (median of 10 replays), in
+    turns, as ``in_turns`` does."""
+    graphs = {}
+    for label, call in calls.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                call()
+        graphs[label] = graph
+    times = {label: [] for label in graphs}
+    for order in (list(graphs), list(graphs)[::-1]):
+        for label in order:
+            times[label].append(median_ms(graphs[label].replay) * 1e3 / launches)
+    for label in graphs:
+        print(f"  {label}: {times[label][0]:.3f} / {times[label][1]:.3f} us a launch in a graph",
+              flush=True)
+
+
 def flash_calls(libs, q, k, v, rep):
     bh, s_q, hd = q.shape
     calls = {}
@@ -256,78 +451,154 @@ def flash_calls(libs, q, k, v, rep):
     return calls, fa.flash_attention_plain(q, k, v, rep, True, 0, q_chunk=512)[0]
 
 
-def max_err(out, ref, n_pts: int) -> str:
+def max_err(out, ref, n_pts: int, what: str = "sums/N") -> str:
     err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, ref)) / n_pts
-    return f"max|d(sums/N)| = {err:.3e}"
+    return f"max|d({what})| = {err:.3e}"
+
+
+KERNELS = ("fourier_sketch", "quantized_fourier_sketch", "structured_sketch", "sketch_shift",
+           "flash_attention")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--structured-baseline", type=Path, default=None,
-                        help="another structured_sketch.cu to time beside this one")
+    parser.add_argument("--baseline", action="append", default=[], metavar="NAME=PATH",
+                        help="another csrc/NAME.cu to time beside this one")
+    parser.add_argument("--only", default=",".join(KERNELS),
+                        help="comma-separated kernels to run (default: all)")
     args = parser.parse_args()
+    baselines = {}
+    for spec in args.baseline:
+        name, _, path = spec.partition("=")
+        if name not in KERNELS or not path:
+            parser.error(f"--baseline takes NAME=PATH with NAME one of {KERNELS}: {spec!r}")
+        baselines[name] = Path(path)
+    only = set(args.only.split(","))
+    if only - set(KERNELS):
+        parser.error(f"--only takes names from {KERNELS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    sketch_libs = build("fourier_sketch", SKETCH_VARIANTS)
-    structured_libs = build("structured_sketch", STRUCTURED_VARIANTS, args.structured_baseline)
-    flash_libs = build("flash_attention", FLASH_VARIANTS)
+    tables = {"fourier_sketch": SKETCH_VARIANTS, "quantized_fourier_sketch": QSKETCH_VARIANTS,
+              "structured_sketch": STRUCTURED_VARIANTS, "sketch_shift": SHIFT_VARIANTS,
+              "flash_attention": FLASH_VARIANTS}
+    libs = {name: build(name, tables[name], baselines.get(name))
+            for name in KERNELS if name in only}
 
     n_pts, m = 10_000_000, 1000
     x = synthetic.gaussian_mixture(0, n_pts, 10, 10, device=dev)
-    g_sig, g_freq, _ = ckm.stream_keys(1, dev)
+    g_sig, g_freq, g_dither = ckm.stream_keys(1, dev)
     sigma2 = frequencies.estimate_sigma2(g_sig, x[: ckm.CKMConfig(k=10, m=m).sigma2_sample],
                                          device=dev)
     w = frequencies.draw_frequencies(g_freq, m, 10, sigma2, device=dev)
-    calls, ref = sketch_calls(sketch_libs, x, w)
-    print(f"[fourier_sketch] N={n_pts} n=10 m={m}", flush=True)
-    in_turns(calls, lambda out: max_err(out, ref, n_pts))
-
-    # Kernels 4-5 at the fit shape; kernel 5 at 1 bit as is beside the
-    # instance without the first-stage skip and the baseline only (the other
-    # variants take out the float path's trig).
-    op = freq_ops.make_operator("structured", g_freq, m, 10, sigma2, device=dev)
-    pair = {k: v for k, v in structured_libs.items() if k in ("as is", BASELINE)}
-    skip = {k: v for k, v in structured_libs.items() if k in ("as is", NO_SKIP, BASELINE)}
-    for one_bit, libs in ((False, structured_libs), (True, skip)):
-        calls, ref = structured_calls(libs, x, op, one_bit)
-        what = "quantized_structured_sketch 1bit" if one_bit else "structured_sketch"
-        print(f"[{what}] fit shape N={n_pts} n=10 d={op.d} m={m}", flush=True)
+    if "fourier_sketch" in libs:
+        calls, ref = sketch_calls(libs["fourier_sketch"], x, w)
+        print(f"[fourier_sketch] N={n_pts} n=10 m={m}", flush=True)
         in_turns(calls, lambda out: max_err(out, ref, n_pts))
-    del x, calls
-    wide_n, wide_dim, wide_m = 100_003, 2048, 20_000
-    xw = synthetic.gaussian_mixture(0, wide_n, 10, wide_dim, device=dev)
-    sigma2_w = frequencies.estimate_sigma2(g_sig, xw[: ckm.CKMConfig(k=10).sigma2_sample],
-                                           device=dev)
-    op_w = freq_ops.make_operator("structured", g_freq, wide_m, wide_dim, sigma2_w, device=dev)
-    calls, ref = structured_calls(structured_libs, xw, op_w, False)
-    print(f"[structured_sketch] wide N={wide_n} n={wide_dim} d={op_w.d} m={wide_m}", flush=True)
-    in_turns(calls, lambda out: max_err(out, ref, wide_n))
-    del calls, xw
-    # The smoke run's sweep of the other block widths (N = 20,001, three
-    # blocks, the last one ragged): as is beside the baseline.
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for n_s in (40, 100, 200, 500, 1000):
-        xs = torch.randn((20_001, n_s), generator=gen, device=dev)
-        d_s = 1 << (n_s - 1).bit_length()
-        op_s = freq_ops.make_operator("structured", g_freq, 3 * d_s - 5, n_s, 1.0, device=dev)
-        calls, ref = structured_calls(pair, xs, op_s, False)
-        print(f"[structured_sketch] sweep N=20001 n={n_s} d={op_s.d} m={3 * d_s - 5}",
-              flush=True)
-        in_turns(calls, lambda out: max_err(out, ref, 20_001))
-    del calls
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    h, kvh, s_a, hd = 32, 8, 4096, 64
-    q, k, v = (torch.randn((n_h, s_a, hd), generator=gen, device=dev).to(torch.bfloat16)
-               for n_h in (h, kvh, kvh))
-    calls, po = flash_calls(flash_libs, q, k, v, h // kvh)
-    po = po.float()
-    print(f"[flash_attention] BH={h} BKV={kvh} S={s_a} hd={hd} causal bf16", flush=True)
-    in_turns(calls, lambda o: "|do| against the bar 2^-7 |o| + 1e-4: "
-             f"{float(((o.float() - po).abs() / (2.0**-7 * po.abs() + 1e-4)).max()):.3f} of it")
+    if "quantized_fourier_sketch" in libs:
+        # Kernel 3 at the fit shape, 1 and 4 bits; then the sweep's n = 100
+        # (the chunked path), as is beside the baseline.
+        dither = qz.draw_dither(g_dither, m)
+        for bits in (1, 4):
+            calls, ref = qsketch_calls(libs["quantized_fourier_sketch"], x, w, dither, bits)
+            print(f"[quantized_fourier_sketch {bits}bit] fit shape N={n_pts} n=10 m={m}",
+                  flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, n_pts, "q/N"))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        xs = torch.randn((20_001, 100), generator=gen, device=dev) * 2
+        ws = torch.randn((100, 300), generator=gen, device=dev)
+        pair = {k: v for k, v in libs["quantized_fourier_sketch"].items()
+                if k in ("as is", BASELINE)}
+        for bits in (1, 4):
+            calls, ref = qsketch_calls(pair, xs, ws, qz.draw_dither(g_dither, 300), bits)
+            print(f"[quantized_fourier_sketch {bits}bit] sweep N=20001 n=100 m=300", flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, 20_001, "q/N"))
+        del xs, calls
+
+    if "structured_sketch" in libs:
+        structured_libs = libs["structured_sketch"]
+        # Kernels 4-5 at the fit shape; kernel 5 at 1 bit as is beside the
+        # instance without the first-stage skip and the baseline only (the
+        # other variants take out the float path's trig).
+        op = freq_ops.make_operator("structured", g_freq, m, 10, sigma2, device=dev)
+        pair = {k: v for k, v in structured_libs.items() if k in ("as is", BASELINE)}
+        skip = {k: v for k, v in structured_libs.items() if k in ("as is", NO_SKIP, BASELINE)}
+        for one_bit, group in ((False, structured_libs), (True, skip)):
+            calls, ref = structured_calls(group, x, op, one_bit)
+            what = "quantized_structured_sketch 1bit" if one_bit else "structured_sketch"
+            print(f"[{what}] fit shape N={n_pts} n=10 d={op.d} m={m}", flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, n_pts))
+
+    if "sketch_shift" in libs:
+        # Kernel 6 at the decoder's swarm on the fit's sketch, eagerly and
+        # in a graph (with the narrow path's clusters of one CTA beside).
+        gen = torch.Generator(device=dev).manual_seed(0)
+        lo, hi = torch.amin(x, 0), torch.amax(x, 0)
+        c_s, s_s = fs.fourier_sketch_sums_plain(x[:1_000_000], w, torch.ones(
+            (1_000_000,), device=dev))
+        z = torch.cat([c_s, -s_s]) / 1_000_000
+        cand = (lo + torch.rand((80, 10), generator=gen, device=dev) * (hi - lo)).contiguous()
+        calls, ref = shift_calls(libs["sketch_shift"], cand, w, z[:m], z[m:], cluster_off=True)
+        print(f"[sketch_shift] decoder shape P=80 n=10 m={m}", flush=True)
+        in_turns(calls, lambda out: max_err(out, ref, m, "f, g / m"))
+        in_graph_us(calls)
+    del x
+
+    if {"structured_sketch", "sketch_shift"} & set(libs):
+        wide_n, wide_dim, wide_m = 100_003, 2048, 20_000
+        xw = synthetic.gaussian_mixture(0, wide_n, 10, wide_dim, device=dev)
+        sigma2_w = frequencies.estimate_sigma2(g_sig, xw[: ckm.CKMConfig(k=10).sigma2_sample],
+                                               device=dev)
+        op_w = freq_ops.make_operator("structured", g_freq, wide_m, wide_dim, sigma2_w,
+                                      device=dev)
+        if "structured_sketch" in libs:
+            calls, ref = structured_calls(libs["structured_sketch"], xw, op_w, False)
+            print(f"[structured_sketch] wide N={wide_n} n={wide_dim} d={op_w.d} m={wide_m}",
+                  flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, wide_n))
+        if "sketch_shift" in libs:
+            ones = torch.ones((wide_n,), device=dev)
+            c_w, s_w = ft.structured_sketch_sums_plain(xw, op_w.diags, op_w.radii, ones)
+            z_w = torch.cat([c_w.reshape(-1)[:wide_m], -s_w.reshape(-1)[:wide_m]]) / wide_n
+            lo_w, hi_w = torch.amin(xw, 0), torch.amax(xw, 0)
+            cand = (lo_w + torch.rand((80, wide_dim), generator=gen, device=dev)
+                    * (hi_w - lo_w)).contiguous()
+            w_dense = op_w.materialize().contiguous()
+            calls, ref = shift_calls(libs["sketch_shift"], cand, w_dense, z_w[:wide_m],
+                                     z_w[wide_m:])
+            print(f"[sketch_shift] wide P=80 n={wide_dim} m={wide_m}", flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, wide_m, "f, g / m"))
+            del w_dense
+        del calls, xw
+        if "structured_sketch" in libs:
+            # The smoke run's sweep of the other block widths (N = 20,001,
+            # three blocks, the last one ragged): as is beside the baseline.
+            gen = torch.Generator(device=dev).manual_seed(0)
+            for n_s in (40, 100, 200, 500, 1000):
+                xs = torch.randn((20_001, n_s), generator=gen, device=dev)
+                d_s = 1 << (n_s - 1).bit_length()
+                op_s = freq_ops.make_operator("structured", g_freq, 3 * d_s - 5, n_s, 1.0,
+                                              device=dev)
+                calls, ref = structured_calls(pair, xs, op_s, False)
+                print(f"[structured_sketch] sweep N=20001 n={n_s} d={op_s.d} m={3 * d_s - 5}",
+                      flush=True)
+                in_turns(calls, lambda out: max_err(out, ref, 20_001))
+            del calls
+
+    if "flash_attention" in libs:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        h, kvh, s_a, hd = 32, 8, 4096, 64
+        q, k, v = (torch.randn((n_h, s_a, hd), generator=gen, device=dev).to(torch.bfloat16)
+                   for n_h in (h, kvh, kvh))
+        calls, po = flash_calls(libs["flash_attention"], q, k, v, h // kvh)
+        po = po.float()
+        print(f"[flash_attention] BH={h} BKV={kvh} S={s_a} hd={hd} causal bf16", flush=True)
+        in_turns(calls, lambda o: "|do| against the bar 2^-7 |o| + 1e-4: "
+                 f"{float(((o.float() - po).abs() / (2.0**-7 * po.abs() + 1e-4)).max()):.3f} "
+                 "of it")
 
 
 if __name__ == "__main__":

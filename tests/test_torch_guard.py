@@ -84,11 +84,13 @@ def test_kernel_sources_avoid_fast_math_trig():
     phases reach tens of radians.  Among all the kernel sources and headers it
     appears once: ``__sincosf`` inside ``sincos_reduced``
     (``sincos_reduced.cuh``), applied to the phase that ``reduce_2pi`` (with
-    the reduction's four constants) first brings to [-pi, pi].  Kernel 1 calls
-    the helper from its two partial-sum kernels, the structured kernels
-    (4-5) reach the SFU only through it, and neither (nor the header) calls
-    the accurate ``sincosf``/``sinf``/``cosf`` beside it.  No ``--use_fast_math``, which
-    would turn every ``sincosf`` into the unreduced intrinsics."""
+    the reduction's four constants) first brings to [-pi, pi].  Kernel 1
+    calls the helper from its two partial-sum kernels, kernel 3 from its
+    b-bit code, the structured kernels (4-5) from their float sums and b-bit
+    codes, and kernel 6 from its narrow and its wide path; none of them (nor
+    the header) calls the accurate ``sincosf``/``sinf``/``cosf`` beside it.
+    No ``--use_fast_math``, which would turn every ``sincosf`` into the
+    unreduced intrinsics."""
     csrc = PORT / "kernels" / "csrc"
     raw = {p.name: p.read_text() for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
     code = {name: _strip_comments(text) for name, text in raw.items()}
@@ -101,19 +103,44 @@ def test_kernel_sources_avoid_fast_math_trig():
     for constant in ("kInv2Pi", "kRoundMagic", "kTwoPiHi", "kTwoPiLo"):
         assert constant in reduction, constant
     users = {name for name, text in raw.items() if '#include "sincos_reduced.cuh"' in text}
-    assert users == {"fourier_sketch.cu", "structured_sketch.cu"}
+    assert users == {"fourier_sketch.cu", "quantized_fourier_sketch.cu", "structured_sketch.cu",
+                     "sketch_shift.cu"}
     accurate = re.compile(r"\b(?:sincosf|sinf|cosf|sincospif)\s*\(")
     for name in (*users, "sincos_reduced.cuh"):
         assert not accurate.search(code[name]), name
-    # Both partial-sum kernels of kernel 1 (per width and chunked) call the
-    # helper; the structured kernels' float sums and b-bit codes do.
-    assert len(re.findall(r"\bsincos_reduced\s*\(", code["fourier_sketch.cu"])) == 2
-    assert len(re.findall(r"\bsincos_reduced\s*\(", code["structured_sketch.cu"])) == 1
+    calls = {name: len(re.findall(r"\bsincos_reduced\s*\(", code[name])) for name in users}
+    assert calls == {"fourier_sketch.cu": 2, "quantized_fourier_sketch.cu": 1,
+                     "structured_sketch.cu": 1, "sketch_shift.cu": 2}, calls
     from repro_torch.kernels import _build
 
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == set(_build.SOURCES)
+
+
+def test_one_bit_rule_is_defined_once_in_the_header():
+    """The 1-bit codes' trig-free rule lives in one helper,
+    ``one_bit_signs`` in ``sincos_reduced.cuh``: it reduces the phase with
+    ``reduce_2pi`` and compares against ``kHalfPi`` and ``kPi``.  Kernel 3
+    (``quantized_fourier_sketch.cu``) and kernel 5 (``structured_sketch.cu``)
+    call it and define neither the helper, nor the constants, nor a
+    comparison of their own against them."""
+    csrc = PORT / "kernels" / "csrc"
+    code = {p.name: _strip_comments(p.read_text())
+            for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
+    helper = _definition(code["sincos_reduced.cuh"], "one_bit_signs")
+    assert re.search(r"=\s*reduce_2pi\s*\(\s*p\s*\)", helper)
+    assert "kHalfPi" in helper and "kPi" in helper
+    definitions = [name for name, c in code.items()
+                   if re.search(r"__device__[^;{]*\bone_bit_signs\s*\(", c)]
+    assert definitions == ["sincos_reduced.cuh"], definitions
+    for name in ("kHalfPi", "kPi"):
+        declared = [f for f, c in code.items() if re.search(rf"constexpr float {name}\b", c)]
+        assert declared == ["sincos_reduced.cuh"], (name, declared)
+        used = [f for f, c in code.items() if re.search(rf"\b{name}\b", c)]
+        assert used == ["sincos_reduced.cuh"], (name, used)
+    for name in ("quantized_fourier_sketch.cu", "structured_sketch.cu"):
+        assert len(re.findall(r"\bone_bit_signs\s*\(", code[name])) == 1, name
 
 
 def test_amp_denoise_source_uses_the_accurate_math_functions():

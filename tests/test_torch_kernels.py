@@ -91,6 +91,28 @@ def test_fourier_sketch_grid_covers_each_row_once_and_fills_the_card(n_pts, m, r
     assert partial_bytes < 16 * 2**20
 
 
+@pytest.mark.parametrize("n_pts,m,resident", [
+    (10**7, 1000, 16), (10**7, 1000, 6), (1_000_003, 1000, 16), (20_001, 300, 8),
+    (1, 7, 8), (517, 130, 3), (10**10, 10**4, 8),
+])
+def test_quantized_sketch_grid_covers_each_row_once_in_one_wave(n_pts, m, resident):
+    """Kernel 3's launch geometry (kernel 1's ``sketch_grid`` with kernel
+    3's occupancy): the row ranges tile [0, N) with none empty, the grid is
+    at most one wave of the resident blocks and, where N allows a tile of
+    rows a block, a full one but for a partial column of blocks; int32 sums
+    need no cap on a block's rows (at N = 10^7 a block sums ~19,000 rows,
+    past the float partials' old 16,384)."""
+    rows, groups, col_blocks = fs.sketch_grid(n_pts, m, H100_SMS, resident)
+    assert (groups - 1) * rows < n_pts <= groups * rows
+    assert (col_blocks - 1) * fs.FREQS_PER_BLOCK < m <= col_blocks * fs.FREQS_PER_BLOCK
+    wave = resident * H100_SMS
+    assert groups * col_blocks <= max(wave, col_blocks)
+    if n_pts >= wave * fs.TILE_ROWS:
+        assert groups * col_blocks > wave - col_blocks
+    if (n_pts, resident) == (10**7, 16):
+        assert rows > 16_384
+
+
 def _fma32(a, b, c):
     """float32 fma, emulated: the product of two floats is exact in float64."""
     return (a.astype(np.float64) * b + c).astype(np.float32)

@@ -25,7 +25,9 @@ from repro_torch.kernels import fourier_sketch as fs
 from repro_torch.kernels import ops as kops
 
 from _torch_codes import assert_sums_within_flips as _assert_sums_within_flips
+from _torch_codes import fma32 as _fma32
 from _torch_codes import on_boundary as _on_boundary
+from _torch_codes import one_bit_codes as _one_bit_codes
 
 pytestmark = pytest.mark.torch_port
 
@@ -129,6 +131,37 @@ def test_quantized_kernel_plain_matches_reference_kernel(bits, n_pts, feat, m):
         torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(dither), bits
     )
     assert all(torch.equal(a, b) for a, b in zip(same, got))
+
+
+@pytest.mark.parametrize("n_pts,feat,m", [(333, 10, 1000), (129, 3, 77), (130, 100, 77)])
+def test_quantized_kernel_one_bit_arithmetic_matches_reference(n_pts, feat, m):
+    """Kernel 3's 1-bit arithmetic, emulated in float32 on the CPU: the phase
+    as its FMA chain (k ascending, as both its paths carry it), the dither
+    added and rounded apart, both codes read off the reduced phase
+    (``one_bit_signs``, no trig), valid truncated to int, and each code sum
+    formed as the kernel forms it, 2 * (valid-weighted count of +1 codes) -
+    (sum of valid).  Against the reference's Pallas kernel in interpret mode
+    with a 0 / 1 / 1.7 mask, under the boundary rule; the plain version
+    too."""
+    x, w, dither = _data(7, n_pts, feat, m)
+    valid = np.resize(np.array([1.0, 0.0, 1.7, 1.0], np.float32), n_pts)
+    phase = np.zeros((n_pts, m), np.float32)
+    for k in range(feat):
+        phase = _fma32(x[:, k:k + 1], w[k:k + 1, :], phase)
+    theta = (phase.astype(np.float64) + dither).astype(np.float32)
+    v = valid.astype(np.int32)[:, None]
+    got = tuple(2 * np.where(q > 0, v, 0).sum(axis=0) - v.sum() for q in _one_bit_codes(theta))
+    assert all(np.array_equal(g, (q * v).sum(axis=0)) for g, q in zip(got, _one_bit_codes(theta)))
+    ref = jops.quantized_fourier_sketch_sums(
+        jnp.asarray(x), jfo.as_operator(jnp.asarray(w)), jnp.asarray(dither),
+        valid=jnp.asarray(valid), bits=1, block_n=128, block_m=128, interpret=True,
+    )
+    _assert_sums_within_flips(got, ref, x @ w + dither, 1, valid)
+    plain = fs.quantized_fourier_sketch_sums_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(dither), 1,
+        valid=torch.from_numpy(valid),
+    )
+    _assert_sums_within_flips(plain, ref, x @ w + dither, 1, valid)
 
 
 @pytest.mark.parametrize("bits", [1, 4])

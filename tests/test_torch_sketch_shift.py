@@ -111,14 +111,81 @@ def test_score_dispatch_and_kernel_wrapper(monkeypatch):
         kss.sketch_shift_sums_plain(c.double(), w, z[:50], z[50:])
 
 
-@pytest.mark.parametrize("p_cand,m", [(80, 1000), (83, 1024), (80, 1025), (80, 20000),
-                                     (4, 100000), (1, 5)])
-def test_frequency_splits_cover_m_without_an_empty_split(p_cand, m):
-    """The kernel's grid along m: whole chunks, every split nonempty, one
-    split (one launch) while m fits a chunk, as at the decoder's shapes."""
-    split_len, splits = kss.split_frequencies(p_cand, m, 132)
-    assert split_len % 1024 == 0 and split_len * splits >= m > split_len * (splits - 1)
-    assert (splits == 1) == (m <= 1024)  # these swarms are too small to fill the card
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("p_cand,m", [(80, 1000), (83, 1003), (83, 1024), (80, 1025),
+                                     (80, 20000), (4, 100000), (1, 5), (7, 100)])
+def test_shift_grid_fills_the_card_with_clusters_that_cover_m_once(p_cand, m):
+    """The narrow path's grid: clusters of at most 8 CTAs whose slices of m
+    are contiguous, none empty, and cover m once; each slice holds at least
+    ``MIN_SLICE`` frequencies where m has them; the groups of ``CANDS``
+    candidates cover P.  The decoder's P = 80, m = 1000 (and the smoke's
+    ragged 83, 1003) get at least one CTA per SM of the card."""
+    cluster, split_len, groups = kss.shift_grid(p_cand, m)
+    assert 1 <= cluster <= kss.MAX_CLUSTER
+    assert (cluster - 1) * split_len < m <= cluster * split_len
+    assert split_len >= min(m, kss.MIN_SLICE)
+    assert (groups - 1) * kss.CANDS < p_cand <= groups * kss.CANDS
+    if (p_cand, m) in ((80, 1000), (83, 1003)):
+        assert cluster * groups >= H100_SMS
+        assert split_len <= 128  # one chunk of the CTA's 128 threads
+
+
+@pytest.mark.parametrize("p_cand,n,m", [(80, 2048, 20000), (83, 65, 1003), (1, 100, 5),
+                                       (300, 70, 777), (129, 2048, 64)])
+def test_wide_grid_covers_every_output_and_m_once(p_cand, n, m):
+    """The wide path's geometry: the candidate tiles cover P (one tile up to
+    128), the phase kernel's frequency tiles and the gradient kernel's
+    coordinate tiles cover m and n, the gradient's splits are whole steps
+    of ``DEPTH``, none empty, covering m once, and the scratch holds t, f's
+    tile partials and g's split partials.  At the smoke's wide shape both
+    kernels launch at least two CTAs an SM."""
+    geo = kss.wide_grid(p_cand, n, m, H100_SMS)
+    tp, splits, split_len = geo["tp"], geo["splits"], geo["split_len"]
+    assert 1 <= tp <= kss.MAX_TP
+    assert (geo["p_tiles"] - 1) * 16 * tp < p_cand <= geo["p_tiles"] * 16 * tp
+    assert geo["p_tiles"] == 1 or tp == kss.MAX_TP
+    assert (geo["m_tiles"] - 1) * kss.TILE < m <= geo["m_tiles"] * kss.TILE
+    assert (geo["n_tiles"] - 1) * kss.TILE < n <= geo["n_tiles"] * kss.TILE
+    assert split_len % kss.DEPTH == 0 and (splits - 1) * split_len < m <= splits * split_len
+    assert geo["scratch"] == p_cand * m + geo["m_tiles"] * p_cand + splits * p_cand * n
+    if (p_cand, n, m) == (80, 2048, 20000):
+        assert geo["m_tiles"] * geo["p_tiles"] >= 2 * H100_SMS
+        assert geo["n_tiles"] * geo["p_tiles"] * splits >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("p_cand,n,m", [(83, 10, 1003), (17, 70, 300)])
+def test_kernel_partition_of_the_sums_adds_up_to_the_whole(p_cand, n, m):
+    """The sums split as the kernel splits them add up to the whole: per
+    cluster of ``CANDS`` candidates the narrow path's slices of m (added in
+    rank order), and the wide path's frequency tiles (f) and gradient
+    splits (g), each part through the plain version; within 1e-5 of the
+    whole after the division by m."""
+    c, w, z = (torch.from_numpy(a) for a in _score_inputs(3, p_cand, n, m))
+    z1, z2 = z[:m], z[m:]
+    f, g = kss.sketch_shift_sums_plain(c, w, z1, z2)
+    cluster, split_len, groups = kss.shift_grid(p_cand, m)
+    fn, gn = torch.zeros_like(f), torch.zeros_like(g)
+    for grp in range(groups):
+        rows = slice(grp * kss.CANDS, (grp + 1) * kss.CANDS)
+        for r in range(cluster):
+            cols = slice(r * split_len, (r + 1) * split_len)
+            pf, pg = kss.sketch_shift_sums_plain(c[rows], w[:, cols].contiguous(), z1[cols],
+                                                 z2[cols])
+            fn[rows] += pf
+            gn[rows] += pg
+    geo = kss.wide_grid(p_cand, n, m, H100_SMS)
+    fw, gw = torch.zeros_like(f), torch.zeros_like(g)
+    for tile in range(geo["m_tiles"]):
+        cols = slice(tile * kss.TILE, (tile + 1) * kss.TILE)
+        fw += kss.sketch_shift_sums_plain(c, w[:, cols].contiguous(), z1[cols], z2[cols])[0]
+    for s in range(geo["splits"]):
+        cols = slice(s * geo["split_len"], (s + 1) * geo["split_len"])
+        gw += kss.sketch_shift_sums_plain(c, w[:, cols].contiguous(), z1[cols], z2[cols])[1]
+    for got_f, got_g in ((fn, gn), (fw, gw)):
+        np.testing.assert_allclose(got_f.numpy() / m, f.numpy() / m, atol=1e-5)
+        np.testing.assert_allclose(got_g.numpy() / m, g.numpy() / m, atol=1e-5)
 
 
 def test_gradient_is_the_density_gradient():

@@ -41,6 +41,7 @@ from repro_torch.kernels import freq_transform as tft
 from repro_torch.kernels import ops as kops
 
 from _torch_codes import BOUNDARY
+from _torch_codes import one_bit_codes as _one_bit_codes
 from _torch_codes import assert_sums_within_flips as _assert_sums_within_flips
 
 pytestmark = pytest.mark.torch_port
@@ -231,32 +232,6 @@ def _kernel_nx(n, d):
     return 16 if n <= 16 else None
 
 
-def _source_constants(name):
-    src = (Path(tft.__file__).parent / "csrc" / name).read_text()
-    return {k: np.float32(float(v)) for k, v in re.findall(r"constexpr float (k\w+) = ([-+0-9.e]+)f;",
-                                                          src)}
-
-
-def _reduce_2pi(p):
-    """``reduce_2pi`` of ``sincos_reduced.cuh`` emulated in float32 (a float32
-    fma is exact in float64, then rounded once)."""
-    k_ = _source_constants("sincos_reduced.cuh")
-    fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(np.float32)  # noqa: E731
-    k = fma(p, k_["kInv2Pi"], k_["kRoundMagic"]) - k_["kRoundMagic"]
-    return fma(-k, k_["kTwoPiLo"], fma(-k, k_["kTwoPiHi"], p))
-
-
-def _one_bit_codes(theta):
-    """The 1-bit kernel's codes of float32 phases: read off the reduced phase
-    r, cos >= 0 <=> |r| <= pi/2 and sin >= 0 <=> (r >= 0) != (|r| > pi)."""
-    k_ = _source_constants("structured_sketch.cu")
-    with np.errstate(invalid="ignore"):
-        r = _reduce_2pi(np.asarray(theta, np.float32))
-        qc = np.where(np.abs(r) <= k_["kHalfPi"], 1, -1)
-        qs = np.where((r >= 0) != (np.abs(r) > k_["kPi"]), 1, -1)
-    return qc.astype(np.int32), qs.astype(np.int32)
-
-
 @pytest.mark.parametrize("n,m,n_pts", [(10, 1000, 333), (10, 77, 129), (100, 300, 129)])
 def test_kernel_butterfly_model_matches_reference(n, m, n_pts):
     """The kernels' butterfly (the float32 model above, in their level order,
@@ -308,12 +283,18 @@ def test_kernel_butterfly_skip_and_fold_keep_the_bits(n, d):
 
 
 def test_one_bit_codes_from_the_reduced_phase_follow_float64_signs():
-    """The 1-bit kernel skips the trig: its codes, read off the phase reduced
-    as ``sincos_reduced.cuh`` does, are the signs of float64 cos and sin of
-    the float32 phase for |p| <= 1e5, except within 1e-6 rad of a boundary
-    (cos: pi/2 + k pi; sin: k pi).  The exceptions are counted; points at a
-    boundary are drawn on purpose.  A NaN phase codes to -1 for both, as
-    ``c >= 0 ? 1 : -1`` gives."""
+    """The 1-bit kernels skip the trig: the codes of the header's helper
+    (``one_bit_signs``, which kernels 3 and 5 both call), read off the phase
+    reduced as ``sincos_reduced.cuh`` does, are the signs of float64 cos and
+    sin of the float32 phase for |p| <= 1e5, except within 1e-6 rad of a
+    boundary (cos: pi/2 + k pi; sin: k pi).  The exceptions are counted;
+    points at a boundary are drawn on purpose.  A NaN phase codes to -1 for
+    both, as ``c >= 0 ? 1 : -1`` gives."""
+    csrc = Path(tft.__file__).parent / "csrc"
+    helper = (csrc / "sincos_reduced.cuh").read_text()
+    assert "kHalfPi" in helper and "one_bit_signs" in helper
+    for user in ("quantized_fourier_sketch.cu", "structured_sketch.cu"):
+        assert re.search(r"\bone_bit_signs\s*\(", (csrc / user).read_text()), user
     rng = np.random.default_rng(0)
     k = rng.integers(-31_830, 31_830, 20_000)
     near = np.concatenate([k * np.pi, (k + 0.5) * np.pi]) + rng.uniform(-2e-6, 2e-6, 40_000)
