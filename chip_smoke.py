@@ -31,10 +31,15 @@ the fits' graphed decodes (bits, launch counts, seconds); where fit's time
 goes (the sketch pass alone, and short decodes, eager then graphed, each
 timed alone and under torch.profiler: CLOMPR dense and structured,
 sketch_shift, amp, with kernels 6 and 7's device time per launch inside the
-graphs); the attention
+graphs, beside an empty kernel's in a graph); the attention
 entry point (ops.flash_attention) at the three model shapes, with its launch
-counts; one JSON line of per-kernel numbers, the total wall time and, last,
-the device line.  Any failed check raises and the script exits non-zero
+counts; the streaming layer (``streaming_phases``): N points made on the host
+as numpy and streamed by fit_streaming in 10 and 100 batches, sync and async
+(pinned buffers and a side stream), float and 1-bit, with the bits compared,
+the walls, the ingest stats and the peak device memory; decayed states and a
+SketchWindow over 100 ticks; telemetry on and off; the decoders' convergence
+traces, graphed and eager; one JSON line of per-kernel numbers, the total
+wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
 
@@ -92,12 +97,12 @@ LARGE_PHASE_STRUCTURED_SCALE = 100.0
 # n = 3, 40 and 64 (a tiny swarm and sketch, a ragged one, the widest), and
 # the two-phase wide kernel at a ragged n > 64; (P, n, m).
 SHIFT_SWEEP = ((1, 3, 5), (17, 40, 300), (80, 64, 1000), (33, 100, 777))
-# The fits' relative SSEs as this script printed them on the tree before
-# kernels 3 and 6 were redesigned (commit 8d5cea6; NVIDIA H100 80GB HBM3,
-# 700 W): the fits that launch neither kernel must give them to the digit.
+# The fits' relative SSEs as this script printed them on commit 227003f
+# (NVIDIA H100 80GB HBM3, 700 W), before the streaming layer: with
+# telemetry off, every fit should give them to the digit.
 EARLIER_RELATIVE_SSE = {
-    "fit": 1.3570, "fit_streaming": 1.2213, "fit-1bit": 1.4361, "fit-structured": 1.2468,
-    "fit-structured-1bit": 1.2854, "fit-sketch_shift": 1.3045, "fit-amp": 1.3440,
+    "fit": 1.3570, "fit_streaming": 1.2213, "fit-1bit": 1.2861, "fit-structured": 1.2468,
+    "fit-structured-1bit": 1.2854, "fit-sketch_shift": 1.3237, "fit-amp": 1.3440,
 }
 # Flash attention at the reference's model widths (src/repro/configs/):
 # llama3.2-1B (H = 32, KV = 8, hd = 64) at S = 4096 and at the 32k-token
@@ -164,6 +169,20 @@ FLASH_LSE_TOL = 1e-5
 # share of the eager wall time, with the device busy for at least this share.
 GRAPHED_WALL_SHARE = 0.5
 GRAPHED_MIN_BUSY = 0.4
+
+# The streaming layer.  Host-fed streams: the N points made on the host as a
+# numpy array, streamed in 10 batches of 10^6 rows and 100 of 10^5, sync
+# then async with INGEST_PREFETCH batches staged.  Decayed states and the
+# window: 100 ticks of 10^5 rows; the window's mixture moves halfway.
+HOST_BATCH_ROWS = (1_000_000, 100_000)
+INGEST_PREFETCH = 2
+TICKS, TICK_ROWS, DECAY, WINDOW_BUCKETS = 100, 100_000, 0.99, 24
+HOST_DATA_SEED, DRIFT_SEED = 3, 4
+# A decoder's convergence series against its returned cost: the polish after
+# the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
+# is at most the last residual norm squared, and CL-AMP's cost per frequency
+# at most its last unexplained energy, each with this slack.
+TRACE_COST_SLACK = 1.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -617,6 +636,358 @@ def sdpa_ms(q, k, v, b, h, kvh, causal, window) -> tuple[float, str]:
     return ms, top[:90]
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _peak_since(dev, base: int) -> int:
+    """Device bytes allocated at the peak since the last reset, over ``base``."""
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def _reset_peak(dev) -> int:
+    """Start a peak-memory window on an emptied cache: a cached block is
+    handed out unsplit when it is at most 1 MB larger than asked, and would
+    count in full; returns the bytes allocated at the start."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def launch_floor(dev, launches: int = 100) -> tuple[float, float]:
+    """An empty kernel's cost inside a CUDA graph: ``launches`` zero-cycle
+    spin kernels (``torch.cuda._sleep(0)``) captured in one graph, replayed;
+    returns (device µs per launch from the profiler, graph µs per launch from
+    CUDA events, gaps between the kernels included)."""
+    stream = torch.cuda.Stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda._sleep(0)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        for _ in range(launches):
+            torch.cuda._sleep(0)
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    per_replay_ms = median_ms(graph.replay)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize(dev)
+    device = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    count = sum(e.count for e in device)
+    device_us = sum(e.self_device_time_total for e in device) / count if count else float("nan")
+    return device_us, per_replay_ms * 1e3 / launches
+
+
+def trace_consistent(decoder: str, series: dict, cost: float, m: int) -> tuple[bool, str]:
+    """Whether a decoder's last traced point is consistent with its cost
+    (``TRACE_COST_SLACK``), and the numbers that say so."""
+    if decoder == "amp":
+        last = series["decoder.amp.unexplained_energy"][-1]
+        return cost / m <= TRACE_COST_SLACK * last, f"cost/m {cost / m:.6g}, last energy {last:.6g}"
+    last = series[f"decoder.{decoder}.residual_norm"][-1]
+    return cost <= TRACE_COST_SLACK * last * last, f"cost {cost:.6g}, last |r|^2 {last * last:.6g}"
+
+
+def streaming_phases(dev, run, cfg, path_cfg, x, batches, fits, n_host=N,
+                     batch_rows=HOST_BATCH_ROWS, ticks=TICKS, tick_rows=TICK_ROWS):
+    """The streaming layer on the card, through the entry points a user calls.
+
+    ``run(label, fn, kernel)`` drives a counted main-path phase; ``fits``
+    holds the earlier fits by label, ``path_cfg`` their configs, ``x`` and
+    ``batches`` their device data.  Phases: [stream-host sync/async] (and
+    1-bit), [decay], [window], [obs], [trace]; every failed check raises.
+    """
+    from repro_torch import device as device_mod
+    from repro_torch import obs
+    from repro_torch.core import SketchEngine, SketchWindow, ckm, ingest_stream, lloyd
+    from repro_torch.core.engine import (
+        DecayedQuantizedSketchEngineState,
+        DecayedSketchEngineState,
+    )
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fourier_sketch as fs
+
+    seed0, seed1 = device_mod.derive_seed(FIT_SEED, 0), device_mod.derive_seed(FIT_SEED, 1)
+    km_cfg = lloyd.LloydConfig(k=K, replicates=KMEANS_REPLICATES)
+
+    # The host data: numpy, made on the host; k-means x5 on a device copy of
+    # it (for the quality bar only).
+    t0 = time.perf_counter()
+    xh = synthetic.gaussian_mixture(HOST_DATA_SEED, n_host, K, DIM, device="cpu").numpy()
+    make_s = time.perf_counter() - t0
+    x_eval = torch.from_numpy(xh).to(dev)
+    km = run("kmeans-host", lambda: lloyd.kmeans(KMEANS_SEED, x_eval, km_cfg, device=dev),
+             "assign_argmin")
+    sse_km = float(km.sse) / n_host
+    print(f"[stream-host data] N={n_host} n={DIM} float32 numpy on the host "
+          f"({xh.nbytes / 1e6:.0f} MB) made in {make_s:.2f}s; kmeans x{KMEANS_REPLICATES} "
+          f"SSE/N {sse_km:.4f}", flush=True)
+
+    def rel_sse(pts, c, ref):
+        return float(ckm.sse(pts, c, device=dev)) / pts.shape[0] / ref
+
+    # 1. Host-fed streams, sync then async: the pass alone (sync, async, and
+    # ingest_stream with its stats and peak memory), then the async fit.
+    host_fits = {}
+    for quant, kernel in (("none", "fourier_sketch"), ("1bit", "quantized_fourier_sketch")):
+        tag = "stream-host" if quant == "none" else "stream-host-1bit"
+        cfg_s = dataclasses.replace(cfg, sketch_quantization=quant)
+        cfg_a = dataclasses.replace(cfg_s, ingest="async", ingest_prefetch=INGEST_PREFETCH)
+        for rows in batch_rows:
+            host_batches = [xh[i:i + rows] for i in range(0, n_host, rows)]
+            # The pass in turns, sync, async, async, sync: the first async
+            # pass at a batch size also pins its ring of host buffers.
+            walls, sketches = {"sync": [], "async": []}, {"sync": [], "async": []}
+            for mode in ("sync", "async", "async", "sync"):
+                t0 = time.perf_counter()
+                z, op, _, _, first = ckm.compute_sketch_streaming(
+                    seed0, iter(host_batches), cfg_a if mode == "async" else cfg_s, device=dev)
+                torch.cuda.synchronize(dev)
+                walls[mode].append(time.perf_counter() - t0)
+                sketches[mode].append(z)
+            z_s = sketches["sync"][0]
+            eng = ckm.make_engine(op, cfg_a, dev, ckm.make_quantizer(seed0, cfg_a, op.m, dev))
+            state0 = eng.update(eng.init_state(), first)
+            base = _reset_peak(dev)
+            eng.update(state0, first)  # one fold alone: the kernel's own scratch
+            scratch = _peak_since(dev, base)
+            base = _reset_peak(dev)
+            state, stats = ingest_stream(eng, iter(host_batches[1:]), state=state0,
+                                         prefetch=INGEST_PREFETCH)
+            peak = _peak_since(dev, base)
+            batch_bytes = rows * DIM * 4
+            bound_b = (INGEST_PREFETCH + 2) * batch_bytes + _nbytes(state0) + _nbytes([op.w])
+            # The caching allocator hands a block out unsplit when at most
+            # 1 MiB would remain (a 20 MiB segment holds five 4 MB batches,
+            # the fifth with the remainder): up to 1 MiB more a batch.
+            slack = (INGEST_PREFETCH + 2) * (1 << 20)
+            z_i = eng.finalize(state)[0]
+            t0 = time.perf_counter()
+            r = run(f"{tag} async fit B={rows}",
+                    lambda: ckm.fit_streaming(FIT_SEED, iter(host_batches), cfg_a, device=dev),
+                    kernel)
+            fit_s = time.perf_counter() - t0
+            host_fits[(quant, rows)] = (r, fit_s, host_batches, cfg_a)
+            rel = rel_sse(x_eval, r.centroids, sse_km)
+            same = {"sync pass": torch.equal(sketches["sync"][1], z_s),
+                    "async passes": all(torch.equal(z, z_s) for z in sketches["async"]),
+                    "ingest_stream": torch.equal(z_i, z_s), "async fit": torch.equal(r.sketch, z_s)}
+            wall_s, wall_a = min(walls["sync"]), min(walls["async"])
+            print(f"[{tag} sync] B={rows} ({len(host_batches)} batches): pass "
+                  f"{walls['sync'][0]:.4f}s, {walls['sync'][1]:.4f}s", flush=True)
+            print(
+                f"[{tag} async] B={rows} ({len(host_batches)} batches), prefetch "
+                f"{INGEST_PREFETCH}: pass {walls['async'][0]:.4f}s (first), "
+                f"{walls['async'][1]:.4f}s; best {wall_s / wall_a:.2f}x the best sync; "
+                f"ingest_stream {dataclasses.asdict(stats)}, overlap_efficiency "
+                f"{stats.overlap_efficiency:.3f}; peak device memory {peak / 1e6:.1f} MB against "
+                f"(prefetch + 2) x batch + state + operator {bound_b / 1e6:.1f} MB + the fold's "
+                f"scratch {scratch / 1e6:.1f} MB + the allocator's split allowance "
+                f"{slack / 1e6:.1f} MB (margin {(bound_b + scratch + slack - peak) / 1e6:.1f} MB, "
+                f"{(bound_b + scratch - peak) / 1e6:.1f} MB without the allowance); the sync "
+                f"sketch's bits: {same}; fit {fit_s:.2f}s, relative SSE {rel:.4f} "
+                f"(limit {MAX_RELATIVE_SSE})",
+                flush=True,
+            )
+            check(all(same.values()), f"{tag} B={rows}: async differs from sync: {same}")
+            check(peak <= bound_b + scratch + slack,
+                  f"{tag} B={rows}: peak {peak} B over the bound {bound_b} + scratch {scratch} "
+                  f"+ allowance {slack}")
+            check(rel <= MAX_RELATIVE_SSE, f"{tag} B={rows}: relative SSE {rel:.4f}")
+    del x_eval
+
+    # 2. Decayed states over `ticks` ticks of the device data: the kernel's
+    # state against the plain versions' through the same algebra, decay = 1
+    # against the lifetime engine, decay_to against the closed form.
+    op = fits["fit"].freq_op
+    q1 = ckm.make_quantizer(seed0, dataclasses.replace(cfg, sketch_quantization="1bit"), op.m, dev)
+    chunks = torch.split(x[: ticks * tick_rows], tick_rows)
+    ones = torch.ones((tick_rows,), dtype=torch.float32, device=dev)
+    eng_f = SketchEngine(op, device=dev, decay=DECAY)
+    eng_q = SketchEngine(op, device=dev, quantizer=q1, decay=DECAY)
+
+    def fold(eng, tick=None):
+        s = eng.init_state()
+        for t, c in enumerate(chunks):
+            s = eng.update(s, c, **({} if eng.decay is None else
+                                    {"t": float(t if tick is None else tick)}))
+        return s
+
+    s_f = run("decay", lambda: fold(eng_f), "fourier_sketch")
+    s_q = run("decay-1bit", lambda: fold(eng_q), "quantized_fourier_sketch")
+    p_f, p_q = eng_f.init_state(), eng_q.init_state()
+    kernel_parts = []
+    for t, c in enumerate(chunks):
+        stamp = torch.full((), float(t), device=dev)
+        gamma = torch.full((), DECAY, device=dev)
+        n_c = torch.full((), float(tick_rows), device=dev)
+        lo_c, hi_c = torch.amin(c, 0), torch.amax(c, 0)
+        cs, ss = fs.fourier_sketch_sums_plain(c, op.w, ones)
+        p_f = eng_f.merge(p_f, DecayedSketchEngineState(
+            cs, ss, torch.sum(ones), lo_c, hi_c, n_c, stamp, gamma))
+        qc, qs = fs.quantized_fourier_sketch_sums_plain(c, op.w, q1.dither, 1)
+        p_q = eng_q.merge(p_q, DecayedQuantizedSketchEngineState(
+            qc, qs, torch.zeros_like(cs), torch.zeros_like(ss), n_c, lo_c, hi_c, n_c, stamp,
+            gamma))
+        kernel_parts.append(fs.fourier_sketch_sums(c, op.w, ones))
+    err_f = float(torch.amax(torch.abs(eng_f.finalize(s_f)[0] - eng_f.finalize(p_f)[0])))
+    wsum = float(s_f.weight_sum)
+    err_q = max(float(torch.amax(torch.abs(a.long() - b.long()))) / tick_rows
+                for a, b in ((s_q.qcos_acc, p_q.qcos_acc), (s_q.qsin_acc, p_q.qsin_acc)))
+    err_d = max(float(torch.amax(torch.abs(a - b))) / wsum
+                for a, b in ((s_q.dcos_acc, p_q.dcos_acc), (s_q.dsin_acc, p_q.dsin_acc)))
+    qc_last, qs_last = fs.quantized_fourier_sketch_sums(chunks[-1], op.w, q1.dither, 1)
+    ints_exact = torch.equal(s_q.qcos_acc, qc_last) and torch.equal(s_q.qsin_acc, qs_last)
+    same_rest = all(torch.equal(getattr(s_f, f), getattr(p_f, f))
+                    for f in ("weight_sum", "lower", "upper", "count", "stamp"))
+    check(err_f <= SKETCH_TOL, f"decay: kernel against plain |dz| {err_f:.3e}")
+    check(err_q <= CODE_TOL and err_d <= CODE_TOL,
+          f"decay-1bit: kernel against plain |dq|/N {err_q:.3e}, |d side|/mass {err_d:.3e}")
+    check(ints_exact and same_rest, "decay: the int32 segment or the exact fields differ")
+    transparent = []
+    for quantizer in (None, q1):
+        life = SketchEngine(op, device=dev, quantizer=quantizer)
+        one = SketchEngine(op, device=dev, quantizer=quantizer, decay=1.0)
+        a, b = life.finalize(fold(life)), one.finalize(fold(one, tick=7))
+        transparent.append(all(torch.equal(u, v) for u, v in zip(a, b)))
+    check(all(transparent), f"decay=1.0 at a constant tick is not the lifetime state: {transparent}")
+    t_end = ticks - 1 + 5
+    z_end = eng_f.finalize(eng_f.decay_to(s_f, float(t_end)))[0]
+    f64 = [DECAY ** (t_end - t) for t in range(ticks)]
+    cos_ref = sum(f * c.double() for f, (c, _) in zip(f64, kernel_parts))
+    sin_ref = sum(f * s_.double() for f, (_, s_) in zip(f64, kernel_parts))
+    z_ref = torch.cat([cos_ref, -sin_ref]) / (sum(f64) * tick_rows)
+    err_c = float(torch.amax(torch.abs(z_end.double() - z_ref)))
+    check(err_c <= SKETCH_TOL, f"decay_to against the closed form: |dz| {err_c:.3e}")
+    print(f"[decay] gamma={DECAY}, {ticks} ticks of {tick_rows} rows, m={op.m}: kernel against "
+          f"plain max|dz| {err_f:.3e} (tol {SKETCH_TOL}); 1-bit max|dq|/N {err_q:.3e}, side "
+          f"channel max|d|/mass {err_d:.3e} (tol {CODE_TOL}), newest int32 segment the last "
+          f"tick's codes exactly: {ints_exact}; decay=1.0 at one tick bitwise the lifetime "
+          f"state (float, 1-bit): {transparent}; decay_to({t_end}) against the closed form "
+          f"max|dz| {err_c:.3e}; decayed mass {wsum:.6g} of {ticks * tick_rows} points",
+          flush=True)
+
+    # 3. The window: the mixture moves halfway through the ticks.
+    half = ticks // 2
+    drift = torch.cat([
+        synthetic.gaussian_mixture(DRIFT_SEED, half * tick_rows, K, DIM, device=dev),
+        synthetic.gaussian_mixture(DRIFT_SEED + 1, (ticks - half) * tick_rows, K, DIM, device=dev),
+    ])
+    d_chunks = torch.split(drift, tick_rows)
+    eng = SketchEngine(op, device=dev)
+    sw = SketchWindow(eng, WINDOW_BUCKETS)
+
+    def drive():
+        ws, life = sw.init_state(), eng.init_state()
+        for t, c in enumerate(d_chunks):
+            ws = sw.update(ws, c, t=float(t))
+            life = eng.update(life, c)
+        return ws, life
+
+    t0 = time.perf_counter()
+    ws, life = run("window", drive, "fourier_sketch")
+    drive_s = time.perf_counter() - t0
+    read = sw.read(ws)
+    ref = eng.init_state()
+    for c in d_chunks[ticks - WINDOW_BUCKETS:]:
+        ref = eng.merge(ref, eng.update(eng.init_state(), c))
+    read_bitwise = all(torch.equal(a, b) for a, b in zip(read, ref))
+    check(read_bitwise, "window: the read differs from the merge of the last W ticks' states")
+    pts = drift[(ticks - WINDOW_BUCKETS) * tick_rows:]
+    km_w = run("kmeans-window", lambda: lloyd.kmeans(KMEANS_SEED, pts, km_cfg, device=dev),
+               "assign_argmin")
+    sse_w = float(km_w.sse) / pts.shape[0]
+    rels = {}
+    for name, st in (("window", read), ("lifetime", life)):
+        z, lo, hi = eng.finalize(st)
+        cents = ckm.decode_sketch(seed1, z, op, lo, hi, cfg, device=dev)[0]
+        rels[name] = rel_sse(pts, cents, sse_w)
+    print(f"[window] W={WINDOW_BUCKETS} buckets over {ticks} ticks of {tick_rows} rows (mixture "
+          f"moved at tick {half}), {drive_s:.2f}s; the read bitwise the merge of the last "
+          f"{WINDOW_BUCKETS} ticks' states: {read_bitwise}; ring {sw.state_bytes(ws)} B; relative "
+          f"SSE on the window's {pts.shape[0]} points: window {rels['window']:.4f} (limit "
+          f"{MAX_RELATIVE_SSE}), lifetime sketch {rels['lifetime']:.4f}", flush=True)
+    check(rels["window"] <= MAX_RELATIVE_SSE, f"window: relative SSE {rels['window']:.4f}")
+    del drift, d_chunks, pts
+
+    # 4. Telemetry on and off over the host-fed async fit (the off run is
+    # the [stream-host async] fit at the first batch size).
+    r_off, wall_off, host_batches, cfg_a = host_fits[("none", batch_rows[0])]
+    obs.reset()
+    obs.enable()
+    t0 = time.perf_counter()
+    r_on = run("obs", lambda: ckm.fit_streaming(FIT_SEED, iter(host_batches), cfg_a, device=dev),
+               "fourier_sketch")
+    wall_on = time.perf_counter() - t0
+    path = obs.export_jsonl(Path(__file__).resolve().parent / "build" / "obs" / "stream-host.jsonl")
+    obs.disable()
+    lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+    obs.reset()
+    spans = [e["name"] for e in lines if e["kind"] == "span"]
+    metrics = {e["name"]: e["value"] for e in lines if e["kind"] == "metric"}
+    series = {e["name"]: e["values"] for e in lines if e["kind"] == "series"}
+    ingest_keys = sorted(k for k in metrics if k.startswith("ingest."))
+    want = ["ingest.batches", "ingest.compute_s", "ingest.consumer_wait_s", "ingest.overlap_efficiency",
+            "ingest.points", "ingest.produce_s", "ingest.producer_wait_s", "ingest.resident_batches",
+            "ingest.wall_s"]
+    same_c = all(torch.equal(getattr(r_on, f), getattr(r_off, f))
+                 for f in ("centroids", "weights", "cost", "sketch"))
+    print(f"[obs] host-fed async fit_streaming, telemetry off {wall_off:.3f}s, on {wall_on:.3f}s; "
+          f"the same bits: {same_c}; {len(lines)} JSONL lines ({path.stat().st_size} B): "
+          f"{spans.count('engine.update')} engine.update spans for {len(host_batches)} batches, "
+          f"ingest instruments {ingest_keys}, overlap_efficiency "
+          f"{metrics.get('ingest.overlap_efficiency', float('nan')):.3f}, series "
+          f"{ {k: len(v) for k, v in series.items()} }", flush=True)
+    check(same_c, "obs: telemetry changed the fit's bits")
+    check(spans.count("engine.update") == len(host_batches),
+          f"obs: {spans.count('engine.update')} engine.update spans for {len(host_batches)} batches")
+    check(ingest_keys == want, f"obs: ingest instruments {ingest_keys}")
+    check(len(series.get("decoder.clompr.residual_norm", ())) == 2 * K, "obs: no CLOMPR series")
+
+    # 5. Convergence traces, graphed (the fit) and eager (decode_sketch).
+    obs.enable()
+    for label, decoder, kernel, streaming in (
+        ("fit", "clompr", "fourier_sketch", False),
+        ("fit-sketch_shift", "sketch_shift", "sketch_shift", False),
+        ("fit-amp", "amp", "amp_denoise", True),
+    ):
+        r0 = fits[label]
+        tcfg = dataclasses.replace(path_cfg[label], trace_convergence=True)
+        obs.TRACER.reset()
+        if streaming:
+            r_t = run(f"trace {decoder}", lambda c=tcfg: ckm.fit_streaming(
+                FIT_SEED, iter(batches), c, device=dev), kernel)
+        else:
+            r_t = run(f"trace {decoder}", lambda c=tcfg: ckm.fit(FIT_SEED, x, c, device=dev),
+                      kernel)
+        graphed = {e["name"]: e["values"] for e in obs.TRACER.events if e["kind"] == "series"}
+        obs.TRACER.reset()
+        t0 = time.perf_counter()
+        out_e = ckm.decode_sketch(seed1, r_t.sketch, r_t.freq_op, *r_t.bounds, tcfg, device=dev,
+                                  eager=True)
+        torch.cuda.synchronize(dev)
+        eager_s = time.perf_counter() - t0
+        eager = {e["name"]: e["values"] for e in obs.TRACER.events if e["kind"] == "series"}
+        same_c = all(torch.equal(getattr(r_t, f), getattr(r0, f))
+                     for f in ("centroids", "weights", "cost"))
+        same_e = all(torch.equal(a, b) for a, b in zip(out_e, (r_t.centroids, r_t.weights,
+                                                               r_t.cost)))
+        ok, numbers = trace_consistent(decoder, graphed, float(r_t.cost), op.m)
+        print(f"[trace {decoder}] series { {k: len(v) for k, v in graphed.items()} }; centroids "
+              f"bitwise the untraced fit's: {same_c}; graphed series bitwise the eager "
+              f"decode's ({eager_s:.2f}s): {graphed == eager} (eager centroids the same: "
+              f"{same_e}); first/last {[(v[0], v[-1]) for v in graphed.values()]}; {numbers}",
+              flush=True)
+        check(same_c, f"trace {decoder}: tracing changed the fit's bits")
+        check(bool(graphed) and graphed == eager, f"trace {decoder}: graphed and eager series differ")
+        check(ok, f"trace {decoder}: the last traced point is inconsistent with the cost ({numbers})")
+    obs.disable()
+    obs.reset()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -947,13 +1318,11 @@ def main() -> None:
         )
         check(rel2 <= MAX_RELATIVE_SSE, f"{label}: relative SSE {rel2:.4f} > {MAX_RELATIVE_SSE}")
 
-    # The fits that launch neither kernel 3 nor kernel 6, against their
-    # earlier relative SSEs (kernel 5 shares kernel 3's 1-bit helper).
+    # Every fit, telemetry off, against its relative SSE on 227003f.
     rel_now = {**rel_of, "fit_streaming": sse_stream / sse_km}
     kept = {label: f"{rel_now[label]:.4f}" == f"{EARLIER_RELATIVE_SSE[label]:.4f}"
-            for label in ("fit", "fit_streaming", "fit-structured", "fit-structured-1bit",
-                          "fit-amp")}
-    print(f"[quality off kernels 3, 6] the same 4 digits as before: {kept}", flush=True)
+            for label in EARLIER_RELATIVE_SSE}
+    print(f"[quality as on 227003f] the same 4 digits as before: {kept}", flush=True)
 
     # 8c. Each decoder's full decode with its loops eager, against the fit's
     # graphed decode of the same sketch: the same bits (or, where they
@@ -1087,6 +1456,11 @@ def main() -> None:
     short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
     by_name = short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
     in_graph("amp_denoise", by_name, ("amp_denoise_kernel",))
+    floor_us, floor_graph_us = launch_floor(dev)
+    print(f"[launch floor] an empty kernel (torch.cuda._sleep(0)) in a CUDA graph: "
+          f"{floor_us:.2f} us of device time per launch, {floor_graph_us:.2f} us per launch "
+          "with the gaps (CUDA events over the replay); beside amp_denoise's in-graph time "
+          "above", flush=True)
 
     # 9b. The attention entry point (ops.flash_attention, the reference's
     # (B, S, H, hd) layout) at the model shapes: the same bits as the kernel
@@ -1105,6 +1479,12 @@ def main() -> None:
     print(f"[attention] {len(outs)} shapes through ops.flash_attention: the checked kernel's "
           "bits", flush=True)
     del outs, attention
+
+    # 9c. The streaming layer: host-fed streams, decayed states, the window,
+    # telemetry and the decoders' convergence traces.
+    t0 = time.perf_counter()
+    streaming_phases(dev, run, cfg, path_cfg, x, batches, fit_res)
+    print(f"[streaming] {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 10. Per-kernel numbers.
     meta = {
@@ -1134,6 +1514,7 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         })
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"[smoke] total wall time {time.perf_counter() - smoke_t0:.1f}s", flush=True)
 

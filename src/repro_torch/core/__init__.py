@@ -1,2 +1,82 @@
 """The compressive K-means pipeline: frequencies, operators, sketch engine,
-decoders and the Lloyd-Max baseline (counterpart of ``repro.core``)."""
+ingest, windows, decoders and the Lloyd-Max baseline (counterpart of
+``repro.core``).
+
+The paper's pipeline is sketch -> decode behind one config:
+
+    from repro_torch.core import CKMConfig, fit, sse
+
+    res = fit(0, x, CKMConfig(k=10, decoder="sketch_shift"))
+
+Submodules (``repro_torch.core.ckm``, ``.engine``, ``.quantize``, ...) stay
+importable for internals.  The reference's fleet, topology, ``FreqOpSpec``
+and ``diagnose`` exports are not ported yet.
+"""
+
+from repro_torch.core.ckm import (
+    CKMConfig,
+    CKMResult,
+    compute_sketch,
+    compute_sketch_streaming,
+    decode_sketch,
+    fit,
+    fit_streaming,
+    predict,
+    sse,
+)
+from repro_torch.core.decoders import (
+    DECODERS,
+    Decoder,
+    available_decoders,
+    get_decoder,
+    register_decoder,
+)
+from repro_torch.core.engine import (
+    BACKENDS,
+    DecayedQuantizedSketchEngineState,
+    DecayedSketchEngineState,
+    SketchEngine,
+)
+from repro_torch.core.freq_ops import (
+    FREQ_OPS,
+    FrequencyOperator,
+    as_operator,
+    available_freq_ops,
+    make_operator,
+    register_freq_op,
+)
+from repro_torch.core.ingest import BatchSource, IngestStats, ingest_stream, prefetched
+from repro_torch.core.window import SketchWindow, WindowState
+
+__all__ = [
+    "CKMConfig",
+    "CKMResult",
+    "compute_sketch",
+    "compute_sketch_streaming",
+    "decode_sketch",
+    "fit",
+    "fit_streaming",
+    "predict",
+    "sse",
+    "DECODERS",
+    "Decoder",
+    "available_decoders",
+    "get_decoder",
+    "register_decoder",
+    "BACKENDS",
+    "DecayedQuantizedSketchEngineState",
+    "DecayedSketchEngineState",
+    "SketchEngine",
+    "SketchWindow",
+    "WindowState",
+    "FREQ_OPS",
+    "FrequencyOperator",
+    "as_operator",
+    "available_freq_ops",
+    "make_operator",
+    "register_freq_op",
+    "BatchSource",
+    "IngestStats",
+    "ingest_stream",
+    "prefetched",
+]

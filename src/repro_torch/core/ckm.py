@@ -46,8 +46,7 @@ class CKMConfig:
     """The fields of the reference's ``CKMConfig`` that this port honours.
 
     ``shift_impl`` and ``amp_impl`` have no counterpart (the tensor's device
-    picks the kernel or its plain version), nor has ``trace_convergence``
-    (the decoders' tracing comes with the obs port).
+    picks the kernel or its plain version).
     """
 
     k: int
@@ -69,11 +68,22 @@ class CKMConfig:
     # Sketch-computation backend (core.engine.BACKENDS): "kernel", the fused
     # CUDA kernel (plain PyTorch version on the CPU).
     sketch_backend: str = "kernel"
+    # Streaming ingest mode for fit_streaming: "sync" feeds the engine batch
+    # by batch; "async" overlaps batch production and the host-to-device copy
+    # with the sketch through core.ingest (a producer thread, pinned buffers
+    # and a side stream on the card, ingest_prefetch batches staged).  The
+    # same bits either way.
+    ingest: str = "sync"
+    ingest_prefetch: int = 2
     # Universal quantization of the sketch (QCKM): "none" | "1bit" | "<b>bit".
     # Per-point contributions become integer codes of the dithered phase,
     # summed in int32; finalize dequantizes (E[sign] correction) before the
     # decoder sees the sketch (see core.quantize).
     sketch_quantization: str = "none"
+    # Exponential time decay of the sketch state (None = lifetime average): a
+    # gamma in (0, 1] switches the engine to the timestamped state, whose
+    # merges scale older content by gamma**dt (core.engine, core.window).
+    decay: float | None = None
     # Sketch decoder (core.decoders registry): "clompr" (paper Algorithm 1),
     # "sketch_shift" (mean shift on the residual sketched density) or "amp"
     # (CL-AMP joint message passing, accurate at small m).
@@ -90,6 +100,13 @@ class CKMConfig:
     amp_iters: int = 300  # GAMP iterations
     amp_damp: float = 0.3  # damping on the message updates (1 = undamped)
     amp_polish_steps: int = 600  # joint (C, alpha) Adam after the loop
+    # Decoder convergence tracing: the decoder also returns its per-iteration
+    # trajectory (CLOMPR and sketch_shift: residual norms; amp: unexplained
+    # energy and posterior variance), and decode_sketch emits the selected
+    # replicate's series through repro_torch.obs.trace.  decode_sketch turns
+    # it on by itself when telemetry is enabled.  The centroids are bitwise
+    # those of an untraced decode.
+    trace_convergence: bool = False
 
     def sketch_size(self, n: int) -> int:
         return self.m if self.m is not None else 10 * self.k * n
@@ -105,6 +122,7 @@ class CKMConfig:
             polish_lr=self.joint_lr,
             init=self.init,
             dedup_radius_scale=self.shift_dedup_scale,
+            trace=self.trace_convergence,
         )
 
     def amp_config(self) -> AMPConfig:
@@ -116,6 +134,7 @@ class CKMConfig:
             polish_steps=self.amp_polish_steps,
             polish_lr=self.joint_lr,
             init=self.init,
+            trace=self.trace_convergence,
         )
 
     def clompr_config(self) -> CLOMPRConfig:
@@ -130,6 +149,7 @@ class CKMConfig:
             atom_restarts=self.atom_restarts,
             final_steps=self.final_steps,
             merge_radius_scale=self.merge_radius_scale,
+            trace=self.trace_convergence,
         )
 
 
@@ -169,7 +189,8 @@ def make_quantizer(seed: int, cfg: CKMConfig, m: int, device=dev_mod.DEFAULT):
 
 def make_engine(w, cfg: CKMConfig, device=dev_mod.DEFAULT, quantizer=None) -> SketchEngine:
     """The SketchEngine for ``cfg`` on ``device``."""
-    return SketchEngine(w, cfg.sketch_backend, device=device, quantizer=quantizer)
+    return SketchEngine(w, cfg.sketch_backend, device=device, quantizer=quantizer,
+                        decay=cfg.decay)
 
 
 def _draw_freqs(seed: int, sample: torch.Tensor, n: int, cfg: CKMConfig, dev):
@@ -210,9 +231,13 @@ def compute_sketch_streaming(
     The first batch doubles as the sigma^2-estimation sample; every batch —
     the first included — is folded into the engine state, and the device is
     waited on after each fold so a batch may be dropped the moment it is in
-    (the O(m)-memory contract).  Returns ``(z, op, sigma2, (lower, upper),
+    (the O(m)-memory contract).  ``cfg.ingest="async"`` folds the batches
+    after the first through ``core.ingest.ingest_stream`` (same batches,
+    same order, the same bits).  Returns ``(z, op, sigma2, (lower, upper),
     first_batch)``.
     """
+    if cfg.ingest not in ("sync", "async"):
+        raise ValueError(f"CKMConfig.ingest must be 'sync' or 'async', got {cfg.ingest!r}")
     dev = dev_mod.resolve(device)
     it = iter(batches)
     try:
@@ -222,9 +247,14 @@ def compute_sketch_streaming(
     op, sigma2 = _draw_freqs(seed, first, first.shape[1], cfg, dev)
     eng = make_engine(op, cfg, dev, make_quantizer(seed, cfg, op.m, dev))
     state = eng.update(eng.init_state(), first)
-    for batch in it:
-        state = eng.update(state, batch)
-        dev_mod.sync(dev)
+    if cfg.ingest == "async":
+        from repro_torch.core import ingest as ingest_mod
+
+        state, _ = ingest_mod.ingest_stream(eng, it, state=state, prefetch=cfg.ingest_prefetch)
+    else:
+        for batch in it:
+            state = eng.update(state, batch)
+            dev_mod.sync(dev)
     z, lo, hi = eng.finalize(state)
     return z, op, sigma2, (lo, hi), first
 
@@ -244,8 +274,19 @@ def decode_sketch(
     """Step 4: decode with ``cfg.decoder``; of ``cfg.replicates`` runs, the one
     with the lowest cost (4) wins (the first on ties), so more replicates can
     never return a higher cost.  On the card the decoders' loops run as CUDA
-    graphs; ``eager`` runs them eagerly (for comparisons only)."""
+    graphs; ``eager`` runs them eagerly (for comparisons only).
+
+    Convergence tracing: with ``cfg.trace_convergence`` set, or telemetry
+    enabled (``repro_torch.obs``), the decoder runs with its ``trace`` flag
+    on and the selected replicate's series are emitted as
+    ``decoder.<name>.<series>`` events on the default tracer.  The return
+    contract stays ``(centroids, weights, cost)``.
+    """
+    from repro_torch.obs import runtime as obs_rt
+
     dev = dev_mod.resolve(device)
+    if obs_rt.ENABLED and not cfg.trace_convergence:
+        cfg = dataclasses.replace(cfg, trace_convergence=True)
     w = fo.as_operator(w).to(dev)
     z, lower, upper = (_f32_on(t, dev) for t in (z, lower, upper))
     if x_init is not None:
@@ -257,7 +298,14 @@ def decode_sketch(
         out = decode(gen, z, w, lower, upper, cfg, x_init, eager=eager)
         if best is None or float(out[2]) < float(best[2]):
             best = out
-    return best
+    # A tracing decoder returns (cents, alphas, cost, {series}).
+    if len(best) == 4 and obs_rt.ENABLED:
+        from repro_torch.obs import trace as obs_trace
+
+        for name, vals in best[3].items():
+            obs_trace.series(f"decoder.{cfg.decoder}.{name}", vals.tolist(),
+                             decoder=cfg.decoder)
+    return best[:3]
 
 
 def fit(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DEFAULT) -> CKMResult:

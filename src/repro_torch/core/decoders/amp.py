@@ -27,7 +27,10 @@ variance (``q_p``, ``q_z``, ``q_s``, ``q_r``, ``q_x``) is a 0-d tensor on the
 device, and the clamps with a traced bound use ``torch.minimum`` /
 ``torch.maximum``.  On the card the GAMP iteration (with its inner NNLS
 weight refresh), the final NNLS and the polish run as CUDA graphs
-(``core.graphs``).
+(``core.graphs``).  With ``trace`` on, the GAMP step also writes its noise
+level and input variance into two ``(iters,)`` device buffers carried in the
+loop's state, at the step index it reads from a schedule of step numbers:
+the graphed loop records the eager loop's series without a host read.
 """
 
 from __future__ import annotations
@@ -52,8 +55,7 @@ _GAMP_UNROLL = 10
 @dataclasses.dataclass(frozen=True)
 class AMPConfig:
     """Hyper-parameters of the decoder (the reference's defaults).  The
-    reference's ``impl`` (the device picks the kernel here) and ``trace``
-    (convergence tracing, with the obs port) have no counterpart."""
+    reference's ``impl`` has no counterpart: the device picks the kernel."""
 
     k: int
     iters: int = 300  # GAMP iterations
@@ -67,6 +69,11 @@ class AMPConfig:
     # component whose weight collapses keeps receiving likelihood.
     alpha_floor: float = 0.05
     noise_floor: float = 1e-8  # floor on the output-channel noise variance
+    # Convergence tracing: the decoder also returns {"unexplained_energy":
+    # (iters,), "posterior_variance": (iters,)}, the output-channel noise
+    # level v and the damped input-channel variance q_x per GAMP iteration;
+    # the centroids are bitwise those of the untraced decode.
+    trace: bool = False
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -98,9 +105,11 @@ def _estimates_init(gen, cfg: AMPConfig, lo, hi, span, x_init):
 
 def _gamp_step(state, inputs, row, w, const):
     """One GAMP iteration: the linear stage, the von Mises output channel,
-    the truncated-normal input channel and the NNLS weight refresh."""
-    k, damp, alpha_floor, noise_floor, nnls_iters, eager = const
-    cents, s_mat, q_x, alpha = state
+    the truncated-normal input channel and the NNLS weight refresh.  With
+    ``trace``, ``row`` is the step number ``(1,)`` and the state carries the
+    two series."""
+    k, damp, alpha_floor, noise_floor, nnls_iters, eager, trace = const
+    cents, s_mat, q_x, alpha = state[:4]
     z, anorm2, lo, hi, all_k = inputs
     n, m = w.n, w.m
     # Stacked-real z = [sum b cos, -sum b sin]: the sampled CF is z1 - i z2.
@@ -150,6 +159,10 @@ def _gamp_step(state, inputs, row, w, const):
     alpha = nnls_mod.nnls(sk.atoms(cents, w).T, z, all_k, iters=nnls_iters,
                           eager=eager)
     alpha = alpha / torch.clamp(torch.sum(alpha), min=1e-20)
+    if trace:
+        v_trace = state[4].index_copy(0, row, v.reshape(1))
+        qx_trace = state[5].index_copy(0, row, q_x.reshape(1))
+        return cents, s_mat, q_x, alpha, v_trace, qx_trace
     return cents, s_mat, q_x, alpha
 
 
@@ -168,8 +181,9 @@ def cl_amp(
     GAMP on the sketched characteristic function.
 
     Returns ``(centroids (K, n), weights (K,), cost)`` with ``cost`` the
-    shared objective ``||z - A(C) alpha||^2``.  ``x_init`` seeds the
-    estimates with data rows when ``cfg.init != "range"``.  All tensors live
+    shared objective ``||z - A(C) alpha||^2`` (with ``cfg.trace``, also the
+    two series).  ``x_init`` seeds the estimates with data rows when
+    ``cfg.init != "range"``.  All tensors live
     on ``z``'s device, and ``gen`` must live there too.  ``eager`` runs the
     loops eagerly on the card too (for comparisons only).
     """
@@ -189,11 +203,18 @@ def cl_amp(
     s_mat = torch.zeros((k, m), dtype=torch.float32, device=dev)
     q_x = torch.mean(span * span) / 12.0  # variance of the box prior
     alpha = torch.full((k,), 1.0 / k, dtype=torch.float32, device=dev)
-    cents, s_mat, q_x, alpha = graphs.loop(
-        _gamp_step, (cents, s_mat, q_x, alpha), (z, anorm2, lo, hi, all_k), cfg.iters,
+    state, steps = (cents, s_mat, q_x, alpha), None
+    if cfg.trace:
+        state += tuple(torch.zeros((cfg.iters,), dtype=torch.float32, device=dev)
+                       for _ in range(2))
+        steps = torch.arange(cfg.iters, device=dev).reshape(-1, 1)
+    state = graphs.loop(
+        _gamp_step, state, (z, anorm2, lo, hi, all_k), cfg.iters, sched=steps,
         op=w, unroll=_GAMP_UNROLL, eager=eager,
-        const=(k, cfg.damp, cfg.alpha_floor, cfg.noise_floor, cfg.inner_nnls_iters, eager),
+        const=(k, cfg.damp, cfg.alpha_floor, cfg.noise_floor, cfg.inner_nnls_iters, eager,
+               cfg.trace),
     )
+    cents, s_mat, q_x, alpha = state[:4]
 
     # Final weights, then the joint polish in unit-box coordinates.
     alpha = nnls_mod.nnls(sk.atoms(cents, w).T, z, all_k, iters=cfg.nnls_iters, eager=eager)
@@ -206,6 +227,9 @@ def cl_amp(
 
     cost = common.residual_cost(z, cents, alpha, w)
     wsum = torch.clamp(torch.sum(alpha), min=1e-20)
+    if cfg.trace:
+        traces = {"unexplained_energy": state[4], "posterior_variance": state[5]}
+        return cents, alpha / wsum, cost, traces
     return cents, alpha / wsum, cost
 
 

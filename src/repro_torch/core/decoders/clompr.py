@@ -56,6 +56,10 @@ class CLOMPRConfig:
     # ``merge_radius_scale / median||omega||`` to a higher-beta atom are
     # suppressed (within-resolution duplicates); 0 = off (paper-faithful).
     merge_radius_scale: float = 2.5
+    # Convergence tracing: the decoder also returns {"residual_norm": (2K,)},
+    # ||r|| after each outer iteration, written into a device buffer; the
+    # centroids are bitwise those of the untraced decode.
+    trace: bool = False
 
 
 def _clip_unit(p):
@@ -136,7 +140,8 @@ def clompr(
 
     Returns ``(centroids (K, n), weights (K,), cost)`` where ``cost`` is the
     final value of the paper's objective (4), used to select among
-    replicates.  ``x_init`` is only read by the "sample"/"kpp" inits.  All
+    replicates, and with ``cfg.trace`` also ``{"residual_norm": (2K,)}``.
+    ``x_init`` is only read by the "sample"/"kpp" inits.  All
     tensors live on ``z``'s device, and ``gen`` must live there too.  On
     the card the Adam and NNLS loops run as CUDA graphs; ``eager`` runs them
     eagerly (for comparisons only).
@@ -162,6 +167,7 @@ def clompr(
     alpha = torch.zeros((kp1,), dtype=torch.float32, device=dev)
     active = 0  # slots [0, active) of the support are in use
     r = z
+    res_trace = torch.zeros((2 * cfg.k,), dtype=torch.float32, device=dev)
     for t in range(2 * cfg.k):
         # -- Step 1+2: find a new centroid, expand support into the free slot.
         mask = slots < active
@@ -198,6 +204,8 @@ def clompr(
 
         # -- Step 5: joint gradient descent on (C, alpha), box + nonneg proj.
         s_buf, alpha, r = joint_descent(s_buf, alpha, mask, cfg.joint_steps)
+        if cfg.trace:
+            res_trace[t] = torch.linalg.vector_norm(r)
 
     # Final polish: one long joint descent (Matlab runs step 5 to convergence).
     if cfg.final_steps > 0:
@@ -209,6 +217,8 @@ def clompr(
     weights = torch.where(mask, alpha, 0.0)[order][: cfg.k]
     wsum = torch.clamp(torch.sum(weights), min=1e-20)
     cost = torch.sum(r * r)
+    if cfg.trace:
+        return centroids, weights / wsum, cost, {"residual_norm": res_trace}
     return centroids, weights / wsum, cost
 
 

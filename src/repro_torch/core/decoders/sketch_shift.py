@@ -46,8 +46,7 @@ from repro_torch.kernels import ops
 @dataclasses.dataclass(frozen=True)
 class SketchShiftConfig:
     """Hyper-parameters of the decoder (the reference's defaults).  The
-    reference's ``impl`` (the device picks the kernel here) and ``trace``
-    (convergence tracing, with the obs port) have no counterpart."""
+    reference's ``impl`` has no counterpart: the device picks the kernel."""
 
     k: int
     candidates: int = 40  # P, the mean-shift swarm size per round
@@ -64,6 +63,10 @@ class SketchShiftConfig:
     # Floor on the mean-shift denominator: the residual surrogate is signed,
     # so far from any mode it can be ~0 or negative.
     density_floor: float = 1e-3
+    # Convergence tracing: the decoder also returns {"residual_norm": (K,)},
+    # ||r|| after each deflation round; the centroids are bitwise those of
+    # the untraced decode.
+    trace: bool = False
 
 
 # Mean-shift steps per captured graph (a divisor of the step count, at most
@@ -118,8 +121,9 @@ def sketch_shift(
     the residual sketched density.
 
     Returns ``(centroids (K, n), weights (K,), cost)`` with ``cost`` the
-    shared objective ``||z - A(C) alpha||^2``.  ``x_init`` seeds the swarm
-    with data rows when ``cfg.init != "range"``.  All tensors live on
+    shared objective ``||z - A(C) alpha||^2`` (with ``cfg.trace``, also
+    ``{"residual_norm": (K,)}``).  ``x_init`` seeds the swarm with data rows
+    when ``cfg.init != "range"``.  All tensors live on
     ``z``'s device, and ``gen`` must live there too.  ``eager`` runs the
     loops eagerly on the card too (for comparisons only).
     """
@@ -144,6 +148,7 @@ def sketch_shift(
 
     s_buf = torch.zeros((k, n), dtype=torch.float32, device=dev)
     alpha = torch.zeros((k,), dtype=torch.float32, device=dev)
+    res_trace = torch.zeros((k,), dtype=torch.float32, device=dev)
     r = z
     for t in range(k):
         # Mean-shift swarm on the residual density.
@@ -165,6 +170,8 @@ def sketch_shift(
         a = sk.atoms(s_buf, w)  # (K, 2m)
         alpha = nnls_mod.nnls(a.T, z, mask, iters=cfg.nnls_iters, eager=eager)
         r = z - (alpha * mask.to(torch.float32)) @ a
+        if cfg.trace:
+            res_trace[t] = torch.linalg.vector_norm(r)
     cents = s_buf
 
     # Polish: joint descent on the shared objective in unit-box coordinates.
@@ -177,6 +184,8 @@ def sketch_shift(
 
     cost = common.residual_cost(z, cents, alpha, w)
     wsum = torch.clamp(torch.sum(alpha), min=1e-20)
+    if cfg.trace:
+        return cents, alpha / wsum, cost, {"residual_norm": res_trace}
     return cents, alpha / wsum, cost
 
 

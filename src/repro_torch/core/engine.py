@@ -28,8 +28,23 @@ the fused CUDA kernel of the operator's family (dense or structured, float or
 quantized) on a CUDA tensor and its plain PyTorch version on a CPU tensor.
 It is the counterpart of the reference's ``"pallas"`` backend.  An operator
 family with no kernel is refused when the engine is built.  The reference's
-``"sharded"`` backend, the decayed state transforms, topology schedules and
-telemetry spans are not ported yet.
+``"sharded"`` backend and topology schedules are not ported yet.
+
+Decayed states: ``SketchEngine(decay=gamma)`` (0 < gamma <= 1) swaps the
+state for its time-decayed twin.  Each state carries ``stamp``, the tick of
+its newest contribution (``-inf`` for the identity), and merging scales the
+older operand's trig and weight sums by ``gamma**dt`` first, so the
+finalized sketch is ``sum_i gamma**(T - t_i) part_i / sum_i gamma**(T - t_i)
+w_i``.  Same-stamp merges are bitwise the undecayed merge (every factor is
+exactly 1.0).  On the quantized twin the int32 code sums are never scaled:
+the newest-stamp segment stays an exact integer sum and decay moves older
+segments into float ``dcos_acc``/``dsin_acc``.  Bounds and ``count`` stay
+lifetime.  The batch partial still comes from the kernel (1, 3, 4 or 5); the
+decay is plain tensor algebra on (m,) vectors.
+
+Telemetry: with ``repro_torch.obs`` enabled, ``update``, ``merge`` and
+``finalize`` record spans and the ``engine.*`` counters; disabled, they run
+no telemetry code at all.
 """
 
 from __future__ import annotations
@@ -42,8 +57,16 @@ from repro_torch import device as dev_mod
 from repro_torch.core import freq_ops as fo
 from repro_torch.core import quantize as qz
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import runtime as obs_rt
 
-__all__ = ["SketchEngineState", "QuantizedSketchEngineState", "SketchEngine", "BACKENDS"]
+__all__ = [
+    "SketchEngineState",
+    "QuantizedSketchEngineState",
+    "DecayedSketchEngineState",
+    "DecayedQuantizedSketchEngineState",
+    "SketchEngine",
+    "BACKENDS",
+]
 
 BACKENDS = ("kernel",)
 
@@ -75,12 +98,126 @@ class QuantizedSketchEngineState(NamedTuple):
     count: torch.Tensor  # () f32 — number of points folded in
 
 
+class DecayedSketchEngineState(NamedTuple):
+    """Time-decayed twin of :class:`SketchEngineState`.
+
+    ``cos_acc/sin_acc/weight_sum`` are held in the units of ``stamp`` (the
+    tick of the newest contribution): at any moment they equal
+    ``sum_i gamma**(stamp - t_i) * contribution_i``.  ``lower/upper`` stay
+    the lifetime envelope and ``count`` the raw folded-point total.
+    ``gamma`` rides the state so the merge is self-describing.
+    """
+
+    cos_acc: torch.Tensor  # (m,) f32 — decayed sum of beta_l cos(w^T y_l)
+    sin_acc: torch.Tensor  # (m,) f32 — decayed sum of beta_l sin(w^T y_l)
+    weight_sum: torch.Tensor  # () f32 — decayed mass sum_i gamma^dt_i * w_i
+    lower: torch.Tensor  # (n,) f32 — lifetime per-coordinate min
+    upper: torch.Tensor  # (n,) f32 — lifetime per-coordinate max
+    count: torch.Tensor  # () f32 — raw number of points folded (undecayed)
+    stamp: torch.Tensor  # () f32 — tick of the newest fold; -inf = identity
+    gamma: torch.Tensor  # () f32 — decay base per tick
+
+
+class DecayedQuantizedSketchEngineState(NamedTuple):
+    """Decay + quantization: exact int32 codes, decay in a float side-scale.
+
+    ``qcos/qsin_acc`` hold the exact int32 code sums of the newest-stamp
+    segment (same-tick merges add integers: bitwise split-invariant), while
+    ``dcos/dsin_acc`` carry every older segment as float32 code mass with
+    its decay factors applied.  A merge that advances the stamp folds the
+    older operand's whole content into the side channel through one
+    ``gamma**dt`` multiply; finalize dequantizes the sum of both segments.
+    """
+
+    qcos_acc: torch.Tensor  # (m,) i32 — exact code sums of the newest segment
+    qsin_acc: torch.Tensor  # (m,) i32
+    dcos_acc: torch.Tensor  # (m,) f32 — decayed older code mass
+    dsin_acc: torch.Tensor  # (m,) f32
+    weight_sum: torch.Tensor  # () f32 — decayed effective count
+    lower: torch.Tensor  # (n,) f32 — lifetime per-coordinate min
+    upper: torch.Tensor  # (n,) f32 — lifetime per-coordinate max
+    count: torch.Tensor  # () f32 — raw number of points folded (undecayed)
+    stamp: torch.Tensor  # () f32 — tick of the newest fold; -inf = identity
+    gamma: torch.Tensor  # () f32 — decay base per tick
+
+
+class _EngineInstruments(NamedTuple):
+    """Per-engine cached metric handles (resolved once per registry
+    generation, so the enabled steady state is plain ``float +=``)."""
+
+    gen: int
+    update_calls: object
+    update_rows: object
+    merge_calls: object
+    finalize_calls: object
+    state_bytes: object
+
+
+def _state_nbytes(state) -> int:
+    """Bytes of a state's tensors — what a partial ships on merge."""
+    return sum(t.numel() * t.element_size() for t in state)
+
+
+def _decay_factor(gamma: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """``gamma**dt`` with the identity edge cases pinned.
+
+    ``dt`` is ``nan`` when both operands are the ``stamp=-inf`` identity and
+    ``inf`` when the identity folds into a stamped state; both must behave as
+    "no decay of nothing".  ``dt <= 0`` (the newest operand, or
+    identity-identity) gives exactly 1.0, so same-stamp merges stay bitwise
+    the undecayed merge.
+    """
+    positive = dt > 0
+    safe = torch.where(positive, dt, torch.zeros_like(dt))
+    return torch.where(positive, torch.pow(gamma, safe), torch.ones_like(dt))
+
+
+def _merge_decayed(a, b):
+    t = torch.maximum(a.stamp, b.stamp)
+    fa = _decay_factor(a.gamma, t - a.stamp)
+    fb = _decay_factor(b.gamma, t - b.stamp)
+    common = dict(
+        weight_sum=fa * a.weight_sum + fb * b.weight_sum,
+        lower=torch.minimum(a.lower, b.lower),
+        upper=torch.maximum(a.upper, b.upper),
+        count=a.count + b.count,
+        stamp=t,
+        gamma=torch.maximum(a.gamma, b.gamma),
+    )
+    if isinstance(a, DecayedSketchEngineState):
+        return DecayedSketchEngineState(
+            cos_acc=fa * a.cos_acc + fb * b.cos_acc,
+            sin_acc=fa * a.sin_acc + fb * b.sin_acc,
+            **common,
+        )
+    # Segment by stamp: the operand(s) at the new stamp keep their int32
+    # codes exact; an older operand folds entirely (ints + side channel)
+    # into the float side channel through one gamma**dt multiply.
+    a_new, b_new = a.stamp >= t, b.stamp >= t
+
+    def ints(new, q):
+        return torch.where(new, q, torch.zeros_like(q))
+
+    def side(new, f, q, d):
+        return torch.where(new, d, f * (d + q.to(torch.float32)))
+
+    return DecayedQuantizedSketchEngineState(
+        qcos_acc=ints(a_new, a.qcos_acc) + ints(b_new, b.qcos_acc),
+        qsin_acc=ints(a_new, a.qsin_acc) + ints(b_new, b.qsin_acc),
+        dcos_acc=side(a_new, fa, a.qcos_acc, a.dcos_acc) + side(b_new, fb, b.qcos_acc, b.dcos_acc),
+        dsin_acc=side(a_new, fa, a.qsin_acc, a.dsin_acc) + side(b_new, fb, b.qsin_acc, b.dsin_acc),
+        **common,
+    )
+
+
 def _merge_states(a, b):
     if type(a) is not type(b):
         raise TypeError(
             f"cannot merge mismatched state flavours: "
             f"{type(a).__name__} vs {type(b).__name__}"
         )
+    if isinstance(a, (DecayedSketchEngineState, DecayedQuantizedSketchEngineState)):
+        return _merge_decayed(a, b)
     if isinstance(a, QuantizedSketchEngineState):
         return QuantizedSketchEngineState(
             qcos_acc=a.qcos_acc + b.qcos_acc,
@@ -111,8 +248,16 @@ def _finalize_state(state: SketchEngineState):
     return z, state.lower, state.upper
 
 
-def _finalize_quantized(state: QuantizedSketchEngineState, dither: torch.Tensor, bits: int):
-    cos_acc, sin_acc = qz.dequantize_sums(state.qcos_acc, state.qsin_acc, dither, bits)
+def _finalize_quantized(state, dither: torch.Tensor, bits: int):
+    qcos, qsin = state.qcos_acc, state.qsin_acc
+    if isinstance(state, DecayedQuantizedSketchEngineState):
+        # The E[sign] correction is linear in the code sums, so it applies to
+        # the combined (exact newest segment + decayed older mass) total.
+        # With an empty side channel this is bitwise the undecayed path:
+        # ``q.float() + 0.0`` is the float the int path converts to.
+        qcos = qcos.to(torch.float32) + state.dcos_acc
+        qsin = qsin.to(torch.float32) + state.dsin_acc
+    cos_acc, sin_acc = qz.dequantize_sums(qcos, qsin, dither, bits)
     denom = torch.clamp(state.weight_sum, min=1e-30)
     z = torch.cat([cos_acc, -sin_acc]) / denom
     # Same guard as the float path: an empty quantized stream finalizes to
@@ -149,6 +294,10 @@ class SketchEngine:
         CUDA card; raises without one unless ``device="cpu"``).
     quantizer : optional ``core.quantize.SketchQuantizer`` — switches to the
         integer QCKM state; its ``(m,)`` dither is moved to ``device``.
+    decay : optional per-tick decay base ``gamma`` in (0, 1] — switches to the
+        time-decayed state: ``update`` takes a keyword ``t``, merging scales
+        the older operand by ``gamma**dt`` first (see the module doc).
+        ``decay=1.0`` keeps timestamps and decays nothing.
     """
 
     def __init__(
@@ -158,9 +307,12 @@ class SketchEngine:
         *,
         device=dev_mod.DEFAULT,
         quantizer: qz.SketchQuantizer | None = None,
+        decay: float | None = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if decay is not None and not 0.0 < float(decay) <= 1.0:
+            raise ValueError(f"decay must be in (0, 1], got {decay!r}")
         self.device = dev_mod.resolve(device)
         op = fo.as_operator(w).to(self.device)
         self.freq_op = op
@@ -178,32 +330,80 @@ class SketchEngine:
                 quantizer.bits, quantizer.dither.to(self.device, torch.float32).contiguous()
             )
         self.quantizer = quantizer
+        self.decay = None if decay is None else float(decay)
+        self._obs_h: _EngineInstruments | None = None
 
-    def init_state(self) -> SketchEngineState | QuantizedSketchEngineState:
+    def _obs(self) -> _EngineInstruments:
+        """Resolve (or re-resolve after a registry reset) the engine's
+        cached instrument handles.  Only reached when telemetry is on."""
+        from repro_torch.obs import metrics as obs_metrics
+
+        h = self._obs_h
+        gen = obs_metrics.REGISTRY.generation
+        if h is None or h.gen != gen:
+            bits = str(self.quantizer.bits) if self.quantizer is not None else "none"
+            labels = dict(backend=self.backend, bits=bits)
+            h = self._obs_h = _EngineInstruments(
+                gen=gen,
+                update_calls=obs_metrics.counter("engine.update.calls", **labels),
+                update_rows=obs_metrics.counter("engine.update.rows", **labels),
+                merge_calls=obs_metrics.counter("engine.merge.calls", **labels),
+                finalize_calls=obs_metrics.counter("engine.finalize.calls", **labels),
+                state_bytes=obs_metrics.gauge("engine.state.bytes", **labels),
+            )
+        return h
+
+    # -- monoid ops ---------------------------------------------------------
+
+    def init_state(self):
         """The monoid identity: merge(init_state(), s) == s for any s."""
         f32, dev = torch.float32, self.device
-        if self.quantizer is not None:
-            return QuantizedSketchEngineState(
-                qcos_acc=torch.zeros((self.m,), dtype=torch.int32, device=dev),
-                qsin_acc=torch.zeros((self.m,), dtype=torch.int32, device=dev),
-                weight_sum=torch.zeros((), dtype=f32, device=dev),
-                lower=torch.full((self.n,), float("inf"), dtype=f32, device=dev),
-                upper=torch.full((self.n,), float("-inf"), dtype=f32, device=dev),
-                count=torch.zeros((), dtype=f32, device=dev),
-            )
-        return SketchEngineState(
-            cos_acc=torch.zeros((self.m,), dtype=f32, device=dev),
-            sin_acc=torch.zeros((self.m,), dtype=f32, device=dev),
+
+        def zeros_m(dtype):
+            return torch.zeros((self.m,), dtype=dtype, device=dev)
+
+        rest = dict(
             weight_sum=torch.zeros((), dtype=f32, device=dev),
             lower=torch.full((self.n,), float("inf"), dtype=f32, device=dev),
             upper=torch.full((self.n,), float("-inf"), dtype=f32, device=dev),
             count=torch.zeros((), dtype=f32, device=dev),
         )
+        if self.decay is not None:
+            rest.update(
+                stamp=torch.full((), float("-inf"), dtype=f32, device=dev),
+                gamma=torch.full((), self.decay, dtype=f32, device=dev),
+            )
+            if self.quantizer is not None:
+                return DecayedQuantizedSketchEngineState(
+                    qcos_acc=zeros_m(torch.int32), qsin_acc=zeros_m(torch.int32),
+                    dcos_acc=zeros_m(f32), dsin_acc=zeros_m(f32), **rest,
+                )
+            return DecayedSketchEngineState(cos_acc=zeros_m(f32), sin_acc=zeros_m(f32), **rest)
+        if self.quantizer is not None:
+            return QuantizedSketchEngineState(
+                qcos_acc=zeros_m(torch.int32), qsin_acc=zeros_m(torch.int32), **rest
+            )
+        return SketchEngineState(cos_acc=zeros_m(f32), sin_acc=zeros_m(f32), **rest)
 
-    def update(self, state, batch: torch.Tensor, weights: torch.Tensor | None = None):
-        """Fold ``batch: (B, n)`` into ``state``; ``weights`` default to 1 per
-        point, so streaming batches of any size weight points equally.  A
-        quantized engine takes no weights (``ValueError``)."""
+    def _lift_partial(self, part, t: torch.Tensor):
+        """A base (undecayed) batch partial as a decayed state at tick ``t``:
+        the bridge between the batch kernels, which know nothing of time,
+        and the timestamped merge."""
+        stamp = t.to(self.device, torch.float32)
+        gamma = torch.full_like(stamp, self.decay)
+        if isinstance(part, QuantizedSketchEngineState):
+            return DecayedQuantizedSketchEngineState(
+                qcos_acc=part.qcos_acc,
+                qsin_acc=part.qsin_acc,
+                dcos_acc=torch.zeros_like(part.qcos_acc, dtype=torch.float32),
+                dsin_acc=torch.zeros_like(part.qsin_acc, dtype=torch.float32),
+                weight_sum=part.weight_sum, lower=part.lower, upper=part.upper,
+                count=part.count, stamp=stamp, gamma=gamma,
+            )
+        return DecayedSketchEngineState(*part, stamp=stamp, gamma=gamma)
+
+    def _partial_state(self, batch: torch.Tensor, weights: torch.Tensor | None):
+        """One batch -> one undecayed partial state (update before its merge)."""
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device).contiguous()
         if x.ndim != 2 or x.shape[1] != self.n:
             raise ValueError(f"batch must be (B, {self.n}), got {tuple(x.shape)}")
@@ -213,18 +413,85 @@ class SketchEngine:
                     "quantized sketch states accumulate unit-weight integer "
                     "counts; per-point weights are not representable"
                 )
-            return _merge_states(state, self._quantized_batch_state(x))
+            return self._quantized_batch_state(x)
         if weights is None:
             weights = torch.ones((x.shape[0],), dtype=torch.float32, device=self.device)
         else:
             weights = torch.as_tensor(weights, dtype=torch.float32).to(self.device)
             weights = weights.reshape(-1).contiguous()
-        return _merge_states(state, self._batch_state(x, weights))
+        return self._batch_state(x, weights)
+
+    def update(self, state, batch: torch.Tensor, weights: torch.Tensor | None = None, *,
+               t=None):
+        """Fold ``batch: (B, n)`` into ``state``; ``weights`` default to 1 per
+        point, so streaming batches of any size weight points equally.  A
+        quantized engine takes no weights (``ValueError``).
+
+        Under ``decay``, ``t`` is the batch's tick: older state content is
+        scaled by ``gamma**(t - state.stamp)`` as it merges.  ``t=None``
+        reuses the state's stamp (no time advance; the empty state resolves
+        to tick 0).  ``t`` without ``decay`` raises.
+        """
+        if t is not None and self.decay is None:
+            raise ValueError(
+                "update(t=...) requires a decay-enabled engine (SketchEngine(decay=gamma))"
+            )
+        if not obs_rt.ENABLED:
+            part = self._partial_state(batch, weights)
+            if self.decay is not None:
+                part = self._lift_partial(part, self._resolve_t(state, t))
+            return _merge_states(state, part)
+        from repro_torch.obs import trace as obs_trace
+
+        h = self._obs()
+        with obs_trace.span("engine.update", backend=self.backend):
+            part = self._partial_state(batch, weights)
+            if self.decay is not None:
+                part = self._lift_partial(part, self._resolve_t(state, t))
+            with obs_trace.span("engine.merge", backend=self.backend):
+                out = _merge_states(state, part)
+        h.update_calls.inc()
+        h.update_rows.inc(float(batch.shape[0]))
+        h.merge_calls.inc()
+        h.state_bytes.set(_state_nbytes(out))
+        return out
+
+    def _resolve_t(self, state, t) -> torch.Tensor:
+        """``t`` as a 0-d float32 tensor on the device; ``t=None`` -> the
+        state's own stamp, the identity's ``-inf`` resolving to tick 0 (a
+        non-empty partial stamped ``-inf`` would decay to nothing in any
+        later merge)."""
+        if t is None:
+            return torch.where(torch.isfinite(state.stamp), state.stamp,
+                               torch.zeros_like(state.stamp))
+        if isinstance(t, torch.Tensor):
+            return t.to(self.device, torch.float32).reshape(())
+        return torch.full((), float(t), dtype=torch.float32, device=self.device)
+
+    def decay_to(self, state, t):
+        """Advance a decayed state's clock to tick ``t`` without folding data:
+        the trig and weight sums scale by ``gamma**(t - stamp)``.  Done as a
+        merge with an empty state stamped ``t``, so it commutes with every
+        other monoid op; a ``t`` at or before the stamp is a bitwise no-op."""
+        if self.decay is None:
+            raise ValueError(
+                "decay_to requires a decay-enabled engine (SketchEngine(decay=gamma))"
+            )
+        empty = self.init_state()
+        return _merge_states(state, empty._replace(stamp=self._resolve_t(empty, t)))
 
     def merge(self, a, b):
         """Associative + commutative combine of two partial states of one
         flavour (mismatched flavours raise ``TypeError``)."""
-        return _merge_states(a, b)
+        if not obs_rt.ENABLED:
+            return _merge_states(a, b)
+        from repro_torch.obs import trace as obs_trace
+
+        h = self._obs()
+        with obs_trace.span("engine.merge", backend=self.backend):
+            out = _merge_states(a, b)
+        h.merge_calls.inc()
+        return out
 
     def finalize(self, state):
         """-> ``(z stacked-real (2m,), lower (n,), upper (n,))``.
@@ -234,7 +501,20 @@ class SketchEngine:
         checked against the int32 capacity: beyond it the integer sums would
         have wrapped.
         """
+        if not obs_rt.ENABLED:
+            return self._finalize_impl(state)
+        from repro_torch.obs import trace as obs_trace
+
+        h = self._obs()
+        with obs_trace.span("engine.finalize", backend=self.backend):
+            out = self._finalize_impl(state)
+        h.finalize_calls.inc()
+        return out
+
+    def _finalize_impl(self, state):
         if self.quantizer is None:
+            # Duck-typed over the float flavours: the decayed state has the
+            # same accumulator fields.
             return _finalize_state(state)
         bits = self.quantizer.bits
         cap = qz.accumulator_capacity(bits)
@@ -250,8 +530,21 @@ class SketchEngine:
         """One-shot ``(z, lower, upper)`` — init/update/finalize in one call."""
         return self.finalize(self.update(self.init_state(), x, weights))
 
-    def sketch_stream(self, batches: Iterable[torch.Tensor]):
-        """One pass over an iterator of ``(B_i, n)`` batches -> (z, lo, hi)."""
+    def sketch_stream(self, batches: Iterable[torch.Tensor], *, async_ingest: bool = False,
+                      prefetch: int = 2):
+        """One pass over an iterator of ``(B_i, n)`` batches -> (z, lo, hi).
+
+        ``async_ingest=True`` routes the pass through
+        ``core.ingest.ingest_stream``: a producer thread keeps ``prefetch``
+        batches staged on the device (pinned buffers and a side stream on
+        the card), so batch production and the copy overlap the sketch.
+        Same batches, same order: the same bits.
+        """
+        if async_ingest:
+            from repro_torch.core import ingest as ingest_mod
+
+            state, _ = ingest_mod.ingest_stream(self, batches, prefetch=prefetch)
+            return self.finalize(state)
         state = self.init_state()
         for batch in batches:
             state = self.update(state, batch)

@@ -26,6 +26,7 @@ from repro_torch.core import quantize as qz
 __all__ = [
     "sketch",
     "sketch_quantized",
+    "sketch_complex",
     "to_complex",
     "from_complex",
     "atom",
@@ -108,6 +109,13 @@ def sketch_quantized(
         qcos += qc.sum(dim=0, dtype=torch.int32)
         qsin += qs.sum(dim=0, dtype=torch.int32)
     return qcos, qsin
+
+
+def sketch_complex(
+    x: torch.Tensor, w, weights: torch.Tensor | None = None, chunk: int = 8192
+) -> torch.Tensor:
+    """Complex view of :func:`sketch` — the paper's ``Sk(Y, beta)``."""
+    return to_complex(sketch(x, w, weights, chunk))
 
 
 def atom(c: torch.Tensor, w) -> torch.Tensor:

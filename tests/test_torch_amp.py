@@ -317,8 +317,9 @@ def test_config_carries_the_knobs_and_inits_draw_in_the_box():
                          nnls_iters=11, joint_lr=0.1, init="sample")
     assert dataclasses.asdict(cfg.amp_config()) == dict(
         k=4, iters=17, damp=0.2, inner_nnls_iters=40, nnls_iters=11, polish_steps=9,
-        polish_lr=0.1, init="sample", alpha_floor=0.05, noise_floor=1e-8,
+        polish_lr=0.1, init="sample", alpha_floor=0.05, noise_floor=1e-8, trace=False,
     )
+    assert dataclasses.replace(cfg, trace_convergence=True).amp_config().trace
     gen = torch.Generator().manual_seed(0)
     lo, hi = torch.tensor([-1.0, 0.0]), torch.tensor([1.0, 3.0])
     x = torch.rand((50, 2), generator=gen) * (hi - lo) + lo

@@ -101,3 +101,44 @@ def test_decoder_registry_contract():
         tdec.get_decoder("no_such_decoder")
     with pytest.raises(ValueError, match="already registered"):
         tdec.register_decoder("clompr")(lambda *a: None)
+
+
+_TRACE_BUDGET = dict(atom_steps=15, joint_steps=10, nnls_iters=20, final_steps=20,
+                     shift_steps=10, shift_polish_steps=10, amp_iters=12, amp_polish_steps=10)
+
+
+@pytest.mark.parametrize("decoder", ["clompr", "sketch_shift", "amp"])
+def test_trace_flag_series_match_reference_and_leave_the_decode_alone(decoder):
+    """``trace=True`` adds the reference's series (same names, same
+    lengths, finite) and leaves the decode's bits as they were."""
+    import jax
+
+    from repro.core import ckm as jckm
+    from repro_torch.core import ckm as tckm
+
+    rng = np.random.default_rng(4)
+    x = (rng.uniform(-3, 3, (3, 2))[rng.integers(0, 3, 600)]
+         + 0.3 * rng.standard_normal((600, 2))).astype(np.float32)
+    w = (rng.standard_normal((2, 40)) * 0.8).astype(np.float32)
+    jcfg = jckm.CKMConfig(k=3, m=40, decoder=decoder, trace_convergence=True, **_TRACE_BUDGET)
+    jop = jfo.as_operator(jnp.asarray(w))
+    jz = jnp.asarray(np.concatenate([np.cos(x @ w).mean(0), -np.sin(x @ w).mean(0)]))
+    jlo, jhi = jnp.asarray(x.min(0)), jnp.asarray(x.max(0))
+    from repro.core.decoders import get_decoder as jget_decoder
+
+    ref = jget_decoder(decoder)(jax.random.PRNGKey(0), jz, jop, jlo, jhi, jcfg)[3]
+
+    cfg = tckm.CKMConfig(k=3, m=40, decoder=decoder, **_TRACE_BUDGET)
+    op = convert.operator_from_numpy(w, device="cpu")
+    z, lo, hi = (torch.from_numpy(np.array(a)) for a in (jz, jlo, jhi))
+    plain = tdec.get_decoder(decoder)(torch.Generator().manual_seed(0), z, op, lo, hi, cfg)
+    traced_cfg = tckm.CKMConfig(k=3, m=40, decoder=decoder, trace_convergence=True,
+                                **_TRACE_BUDGET)
+    traced = tdec.get_decoder(decoder)(torch.Generator().manual_seed(0), z, op, lo, hi,
+                                       traced_cfg)
+    assert len(plain) == 3 and len(traced) == 4
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced[:3]))
+    assert sorted(traced[3]) == sorted(ref)
+    for name, series in traced[3].items():
+        assert series.shape == ref[name].shape and series.dtype == torch.float32, name
+        assert bool(torch.isfinite(series).all()) and bool((series > 0).all()), name

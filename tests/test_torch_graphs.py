@@ -235,3 +235,37 @@ def test_decoders_take_the_eager_switch_through_the_registry():
                                    eager=True)
         b = tdec.get_decoder(name)(torch.Generator().manual_seed(0), z, op, lo, hi, cfg_d)
         assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("decoder", ["clompr", "sketch_shift", "amp"])
+def test_rehearsed_graphs_give_the_eager_traces(rehearsal, decoder):
+    """With tracing on, the graphed decode (rehearsed) gives the eager
+    decode's series bitwise, and the untraced decode's centroids: the amp
+    series are written inside the graphed GAMP body at the step index it
+    reads from its schedule."""
+    rng = np.random.default_rng(3)
+    means = rng.uniform(-4, 4, (3, 2))
+    x = (means[rng.integers(0, 3, 3000)] + 0.5 * rng.standard_normal((3000, 2)))
+    x = torch.from_numpy(x.astype(np.float32))
+    cfg = ckm.CKMConfig(k=3, m=60, decoder=decoder, **_SMALL)
+    z, op, _, (lo, hi) = ckm.compute_sketch(0, x, cfg, device="cpu")
+    traced = dataclasses.replace(cfg, trace_convergence=True)
+    from repro_torch.core import decoders as tdec
+
+    def decode(c, on, eager):
+        rehearsal(on)
+        graphs.REPLAYS = 0
+        out = tdec.get_decoder(decoder)(torch.Generator().manual_seed(1), z, op, lo, hi, c,
+                                        eager=eager)
+        return out, graphs.REPLAYS
+
+    untraced, _ = decode(cfg, False, False)
+    eager, _ = decode(traced, True, True)
+    graphed, replays = decode(traced, True, False)
+    assert all(torch.equal(a, b) for a, b in zip(untraced, eager[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(eager[:3], graphed[:3]))
+    assert sorted(eager[3]) == sorted(graphed[3])
+    for name in eager[3]:
+        assert torch.equal(eager[3][name], graphed[3][name]), name
+        assert bool((eager[3][name] > 0).all()), name
+    assert replays > 0

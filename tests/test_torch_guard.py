@@ -171,7 +171,7 @@ def test_new_entry_points_default_to_the_card():
     import torch
 
     from repro_torch import convert
-    from repro_torch.core import ckm, freq_ops
+    from repro_torch.core import SketchWindow, ckm, freq_ops, ingest_stream
     from repro_torch.core.engine import SketchEngine
 
     if torch.cuda.is_available():
@@ -189,6 +189,11 @@ def test_new_entry_points_default_to_the_card():
         lambda: convert.quantized_state_from_numpy(
             np.zeros(40), np.zeros(40), 0.0, np.zeros(2), np.zeros(2), 0.0),
         lambda: SketchEngine(w, quantizer=convert.quantizer_from_numpy(1, np.zeros(40), "cpu")),
+        lambda: SketchEngine(w, decay=0.9),
+        lambda: ingest_stream(SketchEngine(w), [np.zeros((4, 2), np.float32)]),
+        lambda: SketchWindow(SketchEngine(w, decay=0.9), 4),
+        lambda: ckm.fit_streaming(0, iter([np.zeros((64, 2), np.float32)]),
+                                  ckm.CKMConfig(k=2, m=40, ingest="async", decay=0.9)),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
@@ -241,3 +246,29 @@ def test_flash_attention_takes_the_card_for_cuda_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_kernel(torch.zeros((2, 8, 16), device="meta"),
                                   torch.zeros((2, 8, 16)), torch.zeros((2, 8, 16)), 1, True, 0)
+
+
+def test_ingest_has_no_path_back_to_the_sync_loop():
+    """``core/ingest.py`` folds batches in one place, the consumer loop over
+    ``prefetched``; its only exception handler relays the producer's error
+    to the consumer; and it picks the card's placement from the engine's
+    device alone, with no ``try`` around it.  So a failure of the pinned
+    buffers, the side stream or the copy raises: nothing drops to a sync
+    fold."""
+    import ast
+
+    tree = ast.parse((PORT / "core" / "ingest.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert sorted(ast.unparse(h.type) for h in handlers) == [
+        "BaseException", "StopIteration", "queue.Full", "queue.Full"]
+    relay = next(h for h in handlers if ast.unparse(h.type) == "BaseException")
+    assert "_put_until_stopped(q, e, stop)" in ast.unparse(relay)
+    updates = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+               and ast.unparse(n.func).endswith(".update")]
+    assert [ast.unparse(u) for u in updates] == ["engine.update(state, batch)"]
+    loops = [n for n in ast.walk(tree) if isinstance(n, ast.For)
+             and any(u in ast.walk(n) for u in updates)]
+    assert len(loops) == 1 and ast.unparse(loops[0].iter).startswith("prefetched(")
+    stream_fn = next(n for n in ast.walk(tree)
+                     if isinstance(n, ast.FunctionDef) and n.name == "ingest_stream")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(stream_fn))

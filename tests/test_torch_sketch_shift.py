@@ -339,8 +339,9 @@ def test_config_carries_the_knobs_and_swarm_inits_draw_in_the_box():
     scfg = cfg.sketch_shift_config()
     assert dataclasses.asdict(scfg) == dict(
         k=4, candidates=12, shift_steps=7, step_scale=0.5, nnls_iters=11, polish_steps=9,
-        polish_lr=0.1, init="kpp", dedup_radius_scale=2.0, density_floor=1e-3,
+        polish_lr=0.1, init="kpp", dedup_radius_scale=2.0, density_floor=1e-3, trace=False,
     )
+    assert dataclasses.replace(cfg, trace_convergence=True).sketch_shift_config().trace
     assert tckm.CKMConfig(k=2).sketch_shift_config().shift_steps == 150
     assert tss.SketchShiftConfig(k=2).shift_steps == 75
     gen = torch.Generator().manual_seed(0)
