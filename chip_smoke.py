@@ -38,8 +38,13 @@ as numpy and streamed by fit_streaming in 10 and 100 batches, sync and async
 (pinned buffers and a side stream), float and 1-bit, with the bits compared,
 the walls, the ingest stats and the peak device memory; decayed states and a
 SketchWindow over 100 ticks; telemetry on and off; the decoders' convergence
-traces, graphed and eager; one JSON line of per-kernel numbers, the total
-wall time and, last, the device line.  Any failed check raises and the script exits non-zero
+traces, graphed and eager; async ingest of the batches already on the card
+(``stream_device_phase``: no pinned slot, the sync bits); the fleet
+(``fleet_phases``: 1024 tenants at m = 1000, float, 1-bit and decayed,
+routed requests, a fleet window, four decoded tenants, a structured fleet),
+with the tenant-axis entries of kernels 1 and 3 held bitwise to T single
+launches and to their plain versions; one JSON line of per-kernel numbers,
+the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
 
@@ -178,6 +183,17 @@ HOST_BATCH_ROWS = (1_000_000, 100_000)
 INGEST_PREFETCH = 2
 TICKS, TICK_ROWS, DECAY, WINDOW_BUCKETS = 100, 100_000, 0.99, 24
 HOST_DATA_SEED, DRIFT_SEED = 3, 4
+# The fleet (core/fleet.py) at the paper's width: FLEET_T tenants, each with
+# its own 10-cluster mixture in R^10 and m = 1000 frequencies (the reference
+# benchmark's fleet of 1024 tenants, benchmarks/kernels.py run_fleet), aligned
+# updates of FLEET_B rows a tenant, FLEET_REQUESTS interleaved requests of
+# FLEET_REQUEST_ROWS rows, a W = FLEET_WINDOW window over FLEET_WINDOW_TICKS
+# ticks, FLEET_DECAY_TICKS decayed ticks; FLEET_DECODES tenants decoded; a
+# structured fleet of FLEET_STRUCTURED_T tenants (kernels 4-5 per tenant).
+FLEET_T, FLEET_B, FLEET_UPDATES = 1024, 1000, 4
+FLEET_REQUESTS, FLEET_REQUEST_ROWS = 4096, 256
+FLEET_WINDOW, FLEET_WINDOW_TICKS, FLEET_DECAY_TICKS = 4, 8, 10
+FLEET_DECODES, FLEET_STRUCTURED_T, FLEET_SEED = 4, 64, 5
 # A decoder's convergence series against its returned cost: the polish after
 # the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
 # is at most the last residual norm squared, and CL-AMP's cost per frequency
@@ -988,6 +1004,396 @@ def streaming_phases(dev, run, cfg, path_cfg, x, batches, fits, n_host=N,
     obs.reset()
 
 
+def stream_device_phase(dev, run, cfg, batches, sync=None):
+    """[stream-device sync/async]: fit_streaming over batches already on the
+    card, sync and async, float and 1-bit.  The async passes give the sync
+    sketch's bits, and the async ingest's stager hands every batch through
+    without a pinned slot."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import ckm
+    from repro_torch.core import ingest as ingest_mod
+
+    sync = sync or torch.cuda.synchronize
+    seed0 = device_mod.derive_seed(FIT_SEED, 0)
+    stagers = []
+    made = ingest_mod._PinnedStager
+
+    def recorded(*args):
+        stagers.append(made(*args))
+        return stagers[-1]
+
+    ingest_mod._PinnedStager = recorded
+    try:
+        for quant, kernel in (("none", "fourier_sketch"), ("1bit", "quantized_fourier_sketch")):
+            tag = "stream-device" if quant == "none" else "stream-device-1bit"
+            cfg_s = dataclasses.replace(cfg, sketch_quantization=quant)
+            cfg_a = dataclasses.replace(cfg_s, ingest="async", ingest_prefetch=INGEST_PREFETCH)
+            walls, sketches = {"sync": [], "async": []}, {"sync": [], "async": []}
+            base = _reset_peak(dev)
+            for mode in ("sync", "async", "async", "sync"):
+                t0 = time.perf_counter()
+                z = ckm.compute_sketch_streaming(
+                    seed0, iter(batches), cfg_a if mode == "async" else cfg_s, device=dev)[0]
+                sync(dev)
+                walls[mode].append(time.perf_counter() - t0)
+                sketches[mode].append(z)
+            peak = _peak_since(dev, base)
+            r = run(f"{tag} async fit",
+                    lambda c=cfg_a: ckm.fit_streaming(FIT_SEED, iter(batches), c, device=dev),
+                    kernel)
+            z_s = sketches["sync"][0]
+            same = {"sync pass": torch.equal(sketches["sync"][1], z_s),
+                    "async passes": all(torch.equal(z, z_s) for z in sketches["async"]),
+                    "async fit": torch.equal(r.sketch, z_s)}
+            pinned = sum(b is not None for st in stagers for b in st.buffers)
+            print(f"[{tag} sync/async] {len(batches)} device batches of {batches[0].shape[0]} "
+                  f"rows: sync pass {walls['sync'][0]:.4f}s, {walls['sync'][1]:.4f}s; async pass "
+                  f"{walls['async'][0]:.4f}s, {walls['async'][1]:.4f}s; best async/sync "
+                  f"{min(walls['async']) / min(walls['sync']):.3f}; the sync sketch's bits: "
+                  f"{same}; pinned slots allocated by {len(stagers)} stagers: {pinned}; peak "
+                  f"device memory over the passes {peak / 1e6:.1f} MB (the batches were "
+                  f"resident before)", flush=True)
+            check(all(same.values()), f"{tag}: async differs from sync: {same}")
+            check(stagers and pinned == 0,
+                  f"{tag}: {len(stagers)} stagers, {pinned} pinned slots for device batches")
+            stagers.clear()
+    finally:
+        ingest_mod._PinnedStager = made
+
+
+def _stack_states(states):
+    """Per-tenant states -> one stacked state of their type."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
+
+
+def _same_state(a, b) -> bool:
+    return type(a) is type(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def fleet_code_flips(x, w, dither, got, ref, chunk=4096):
+    """1-bit code sums of a fleet, ``got`` against ``ref`` ((T, m) int32
+    pairs for rows ``x (T, B, n)``, ``w (T, n, m)``, ``dither (T, m)``).
+
+    Each entry may differ only by flips of points on a code boundary: by at
+    most twice the count of its rows whose float64 phase has |cos| (or |sin|)
+    within float32's rounding of that phase, 1e-6 (1 + sum |x_i w_i| + |d|).
+    Fails otherwise.  Returns (differing entries, boundary points among
+    them, max |dq|)."""
+    diff = torch.stack([torch.abs(a.long() - b.long()) for a, b in zip(got, ref)])
+    idx = torch.nonzero(diff)  # (k, 3): (cos/sin, tenant, frequency)
+    n_near = 0
+    for lo in range(0, idx.shape[0], chunk):
+        part = idx[lo:lo + chunk]
+        which, t, j = part.unbind(1)
+        xs = x[t].double()  # (k, B, n)
+        ws = w[t, :, j].double()  # (k, n)
+        ds = dither[t, j].double()
+        theta = torch.einsum("kbn,kn->kb", xs, ws) + ds[:, None]
+        mag = torch.einsum("kbn,kn->kb", xs.abs(), ws.abs()) + ds.abs()[:, None]
+        trig = torch.where(which[:, None] == 0, torch.cos(theta), torch.sin(theta))
+        near = (trig.abs() < 1e-6 * (1 + mag)).sum(1)
+        bad = diff[which, t, j] > 2 * near
+        check(not bool(bad.any()),
+              f"quantized_fourier_sketch_fleet: {int(bad.sum())} entries differ from the plain "
+              f"version by more than their boundary points allow")
+        n_near += int(near.sum())
+    return idx.shape[0], n_near, float(diff.max())
+
+
+def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, rows=FLEET_B,
+                 requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS,
+                 structured_tenants=FLEET_STRUCTURED_T, m=M, k=K, dim=DIM):
+    """[fleet]: the multi-tenant fleet on one card, through the entry points a
+    user calls (fleet_specs, FleetEngine update / merge / finalize /
+    finalize_tenant / ingest / decay_to, a fleet SketchWindow, decode of a
+    tenant's sketch).  Every tenant's rows are held bitwise to its isolated
+    engine's; the tenant-axis entries of kernels 1 and 3 bitwise to T single
+    launches and to their plain versions within the bars; their numbers go
+    to ``results``."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import FleetEngine, SketchWindow, ckm, fleet_quantizers, fleet_specs
+    from repro_torch.core import lloyd
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fourier_sketch as fs
+    from repro_torch.kernels import freq_transform as ft
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    base_mem = _reset_peak(dev)
+    upd_rows = FLEET_UPDATES * rows
+    req_per = requests // tenants
+    per_tenant = upd_rows + req_per * request_rows
+    t0 = time.perf_counter()
+    data = torch.stack([
+        synthetic.gaussian_mixture(device_mod.derive_seed(FLEET_SEED, t), per_tenant, k, dim,
+                                   device=dev)
+        for t in range(tenants)
+    ])  # (T, rows a tenant, n)
+    blocks = [data[:, i * rows:(i + 1) * rows].contiguous() for i in range(FLEET_UPDATES)]
+    sync(dev)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    specs = fleet_specs(FLEET_SEED, tenants, "dense", m, dim, sigma2)
+    engines = {
+        "float": FleetEngine(specs, device=dev),
+        "1bit": FleetEngine(specs, quantizers=fleet_quantizers(FLEET_SEED, tenants, m, "1bit",
+                                                               device=dev), device=dev),
+    }
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    print(f"[fleet data] T={tenants} tenants, each its own {k}-cluster mixture in R^{dim} "
+          f"({per_tenant} rows a tenant, {data.numel() * 4 / 1e6:.0f} MB) made on the card in "
+          f"{make_s:.2f}s; specs and two fleets (float, 1-bit) built in {build_s:.2f}s; "
+          f"m={m}, sigma2={float(sigma2):.4f}", flush=True)
+
+    def timed(fn, reps=5):
+        """Median host seconds of ``fn`` over ``reps`` synchronised calls, and
+        its last result."""
+        times = []
+        for _ in range(reps):
+            sync(dev)
+            t1 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            times.append(time.perf_counter() - t1)
+        return statistics.median(times), out
+
+    # 1. The tenant-axis entries against T single launches and their plain
+    # versions, at an update block's shapes.
+    eng = engines["float"]
+    w_all = eng._stacked_op.leaves[0]
+    ones = torch.ones((tenants, rows), dtype=torch.float32, device=dev)
+    blk = blocks[0]
+    c, s_ = fs.fourier_sketch_sums_fleet(blk, w_all, ones)
+    singles = [fs.fourier_sketch_sums(blk[t], w_all[t], ones[t]) for t in range(tenants)]
+    bitwise = (torch.equal(c, torch.stack([a for a, _ in singles]))
+               and torch.equal(s_, torch.stack([b for _, b in singles])))
+    pc, ps = fs.fourier_sketch_sums_fleet_plain(blk, w_all, ones)
+    # Each (t, j) entry sums the B rows of one tenant: the error is per B.
+    err = max(float(torch.amax(torch.abs(c - pc))), float(torch.amax(torch.abs(s_ - ps))))
+    err /= rows
+    check(bitwise, "fourier_sketch_fleet: differs from T single launches")
+    check(err <= SKETCH_TOL, f"fourier_sketch_fleet: max|d(sums/B)| {err:.3e}")
+    loop_ms = median_ms(lambda: [fs.fourier_sketch_sums(blk[t], w_all[t], ones[t])
+                                 for t in range(tenants)])
+    results["fourier_sketch_fleet"] = _timed(
+        {"max_abs_err": err, "loop_ms": loop_ms, "library_ms": None},
+        lambda: fs.fourier_sketch_sums_fleet(blk, w_all, ones),
+        lambda: fs.fourier_sketch_sums_fleet_plain(blk, w_all, ones),
+        lambda: sketch_bound(tenants * rows, dim, m),
+        f"[fourier_sketch_fleet] T={tenants} B={rows} n={dim} m={m}: bitwise T single "
+        f"launches {bitwise}; max|d(sums/B)|={err:.3e} (tol {SKETCH_TOL}); T single "
+        f"launches {loop_ms:.3f} ms",
+    )
+    qeng = engines["1bit"]
+    dith = qeng.dither
+    q = fs.quantized_fourier_sketch_sums_fleet(blk, w_all, dith, 1)
+    qs = [fs.quantized_fourier_sketch_sums(blk[t], w_all[t], dith[t], 1) for t in range(tenants)]
+    qbit = all(torch.equal(q[i], torch.stack([p[i] for p in qs])) for i in (0, 1))
+    qp = fs.quantized_fourier_sketch_sums_fleet_plain(blk, w_all, dith, 1)
+    # One boundary flip moves an entry's sum by 2 of B = 1000 rows, so the
+    # bar is the boundary rule itself, per entry (fleet_code_flips).
+    n_diff, n_near, qerr = fleet_code_flips(blk, w_all, dith, q, qp)
+    qerr /= rows
+    check(qbit, "quantized_fourier_sketch_fleet: differs from T single launches")
+    qloop_ms = median_ms(lambda: [fs.quantized_fourier_sketch_sums(blk[t], w_all[t], dith[t], 1)
+                                  for t in range(tenants)])
+    results["quantized_fourier_sketch_fleet"] = _timed(
+        {"max_abs_err": qerr, "loop_ms": qloop_ms, "library_ms": None},
+        lambda: fs.quantized_fourier_sketch_sums_fleet(blk, w_all, dith, 1),
+        lambda: fs.quantized_fourier_sketch_sums_fleet_plain(blk, w_all, dith, 1),
+        lambda: qsketch_bound(tenants * rows, dim, m),
+        f"[quantized_fourier_sketch_fleet] T={tenants} B={rows} 1bit: bitwise T single "
+        f"launches {qbit}; differing entries against the plain version {n_diff} of "
+        f"{2 * q[0].numel()}, each within twice its boundary points ({n_near} in all), "
+        f"max|dq|/B={qerr:.3e}; T single launches "
+        f"{qloop_ms:.3f} ms",
+    )
+    del c, s_, singles, pc, ps, q, qs, qp
+
+    # 2. Updates, merge, finalize, finalize_tenant: float and 1-bit, each
+    # tenant's rows bitwise its isolated engine's (the reference's run_fleet
+    # comparison: the Python loop of tenant_engine(t).update).
+    for label, fe in engines.items():
+        kernel = "fourier_sketch_fleet" if label == "float" else "quantized_fourier_sketch_fleet"
+
+        def fold(fe=fe, which=range(FLEET_UPDATES)):
+            st = fe.init_state()
+            for i in which:
+                st = fe.update(st, blocks[i])
+            return st
+
+        half = FLEET_UPDATES // 2
+        sa = run(f"fleet {label} update", lambda: fold(which=range(half)), kernel)
+        sb = fold(which=range(half, FLEET_UPDATES))
+        merged = fe.merge(sa, sb)
+        z, lo, hi = fe.finalize(merged)
+        upd_s, _ = timed(lambda: fe.update(sa, blocks[0]))
+        refs = [fe.tenant_engine(t) for t in range(tenants)]
+        ref_a = [r.init_state() for r in refs]
+        ref_b = [r.init_state() for r in refs]
+        for i in range(FLEET_UPDATES):
+            tgt = ref_a if i < half else ref_b
+            for t, r in enumerate(refs):
+                tgt[t] = r.update(tgt[t], blocks[i][t])
+        loop_s, _ = timed(lambda: [r.update(st, blocks[0][t])
+                                   for t, (r, st) in enumerate(zip(refs, ref_a))], reps=3)
+        ref_m = [r.merge(a, b) for r, a, b in zip(refs, ref_a, ref_b)]
+        fins = [r.finalize(st) for r, st in zip(refs, ref_m)]
+        tenant_fins = [fe.finalize_tenant(merged, t) for t in range(tenants)]
+        ok = {
+            "update": _same_state(sa, _stack_states(ref_a)),
+            "merge": _same_state(merged, _stack_states(ref_m)),
+            "finalize": all(torch.equal(u, torch.stack(v)) for u, v in zip((z, lo, hi),
+                                                                           zip(*fins))),
+            "finalize_tenant": all(torch.equal(u, v) for tf, f in zip(tenant_fins, fins)
+                                   for u, v in zip(tf, f)),
+        }
+        print(f"[fleet {label}] {FLEET_UPDATES} updates of ({tenants}, {rows}, {dim}) "
+              f"({tenants * rows} points each): stacked update {upd_s * 1e3:.3f} ms against the "
+              f"Python loop of tenant_engine(t).update {loop_s * 1e3:.3f} ms "
+              f"({loop_s / upd_s:.1f}x); each tenant's rows bitwise its isolated engine's: {ok}; "
+              f"state_bytes {fe.state_bytes()} B", flush=True)
+        check(all(ok.values()), f"fleet {label}: differs from the isolated engines: {ok}")
+        del refs, ref_a, ref_b, ref_m, fins, tenant_fins
+    del sb
+
+    # 3. Routed requests: unique ids in chunks of T, then all of them at
+    # once in a shuffled order (each tenant appears requests / T times).
+    gen = torch.Generator(device="cpu").manual_seed(FLEET_SEED)
+    perms = [torch.randperm(tenants, generator=gen) for _ in range(req_per)]
+    req = torch.cat([data[p.to(dev), upd_rows + c * request_rows:upd_rows + (c + 1) * request_rows]
+                     for c, p in enumerate(perms)])  # (R, rows, n)
+    ids = torch.cat(perms).numpy()
+    state0 = run("fleet float update before ingest",
+                 lambda: eng.update(eng.init_state(), blocks[0]), "fourier_sketch_fleet")
+    refs = [eng.tenant_engine(t) for t in range(tenants)]
+    ref0 = [r.update(r.init_state(), blocks[0][t]) for t, r in enumerate(refs)]
+
+    def by_chunks():
+        st = state0
+        for c in range(req_per):
+            st = eng.ingest(st, ids[c * tenants:(c + 1) * tenants],
+                            req[c * tenants:(c + 1) * tenants])
+        return st
+
+    order = torch.randperm(requests, generator=gen).numpy()
+    shuffled_ids, shuffled = ids[order], req[torch.from_numpy(order).to(dev)]
+    st_u = run("fleet ingest unique", by_chunks, "fourier_sketch_fleet")
+    st_d = run("fleet ingest duplicates", lambda: eng.ingest(state0, shuffled_ids, shuffled),
+               "fourier_sketch_fleet")
+    uniq_s, _ = timed(by_chunks, reps=3)
+    dup_s, _ = timed(lambda: eng.ingest(state0, shuffled_ids, shuffled), reps=3)
+    want_u, want_d = list(ref0), list(ref0)
+    for r_i, t in enumerate(ids.tolist()):
+        want_u[t] = refs[t].update(want_u[t], req[r_i])
+    for r_i, t in enumerate(shuffled_ids.tolist()):
+        want_d[t] = refs[t].update(want_d[t], shuffled[r_i])
+    ok_u, ok_d = _same_state(st_u, _stack_states(want_u)), _same_state(st_d, _stack_states(want_d))
+    print(f"[fleet ingest] {requests} requests of {request_rows} rows: unique ids in "
+          f"{req_per} calls of {tenants} {uniq_s * 1e3:.2f} ms, duplicates ({req_per} a tenant) "
+          f"in one shuffled call {dup_s * 1e3:.2f} ms; each tenant bitwise its isolated engine "
+          f"folding its requests in arrival order: unique {ok_u}, duplicates {ok_d}", flush=True)
+    check(ok_u and ok_d, f"fleet ingest: unique {ok_u}, duplicates {ok_d}")
+    lifetime = st_u
+    del req, shuffled, want_u, want_d, st_d
+
+    # 4. A decayed float fleet over FLEET_DECAY_TICKS ticks, then decay_to.
+    deng = FleetEngine(specs, decay=DECAY, device=dev)
+
+    def decayed():
+        st = deng.init_state()
+        for tick in range(FLEET_DECAY_TICKS):
+            st = deng.update(st, blocks[tick % FLEET_UPDATES], t=float(tick))
+        return deng.decay_to(st, float(FLEET_DECAY_TICKS + 2))
+
+    dstate = run("fleet decay", decayed, "fourier_sketch_fleet")
+    drefs = [deng.tenant_engine(t) for t in range(tenants)]
+    dwant = [r.init_state() for r in drefs]
+    for tick in range(FLEET_DECAY_TICKS):
+        dwant = [r.update(st, blocks[tick % FLEET_UPDATES][t], t=float(tick))
+                 for t, (r, st) in enumerate(zip(drefs, dwant))]
+    dwant = [r.decay_to(st, float(FLEET_DECAY_TICKS + 2)) for r, st in zip(drefs, dwant)]
+    dz = deng.finalize(dstate)[0]
+    ok_dec = (_same_state(dstate, _stack_states(dwant))
+              and torch.equal(dz, torch.stack([r.finalize(st)[0] for r, st in zip(drefs, dwant)])))
+    print(f"[fleet decay] gamma={DECAY}, {FLEET_DECAY_TICKS} ticks then decay_to: each tenant "
+          f"bitwise its isolated decayed engine (state and z): {ok_dec}", flush=True)
+    check(ok_dec, "fleet decay: differs from the isolated decayed engines")
+    del drefs, dwant, dstate
+
+    # 5. A fleet window: W buckets over the ticks; read at the newest tick
+    # is bitwise the merge of the live buckets' states.
+    fw = SketchWindow(eng, FLEET_WINDOW)
+
+    def windowed():
+        ws = fw.init_state()
+        for tick in range(FLEET_WINDOW_TICKS):
+            ws = fw.update(ws, blocks[tick % FLEET_UPDATES], t=float(tick))
+        return ws
+
+    ws = run("fleet window", windowed, "fourier_sketch_fleet")
+    read = fw.read(ws)
+    want = eng.init_state()
+    for tick in range(FLEET_WINDOW_TICKS - FLEET_WINDOW, FLEET_WINDOW_TICKS):
+        want = eng.merge(want, eng.update(eng.init_state(), blocks[tick % FLEET_UPDATES]))
+    ok_w = _same_state(read, want)
+    print(f"[fleet window] W={FLEET_WINDOW} over {FLEET_WINDOW_TICKS} ticks: the read bitwise "
+          f"the merge of the live buckets' states: {ok_w}; ring {fw.state_bytes(ws)} B",
+          flush=True)
+    check(ok_w, "fleet window: the read differs from the merge of the live buckets")
+    del ws, read, want
+
+    # 6. Decode a few tenants' lifetime sketches (updates and requests).
+    seed1 = device_mod.derive_seed(FIT_SEED, 1)
+    km_cfg = lloyd.LloydConfig(k=k, replicates=KMEANS_REPLICATES)
+    rels = []
+    for t in range(FLEET_DECODES):
+        z_t, lo_t, hi_t = eng.finalize_tenant(lifetime, t)
+        pts = data[t]
+        cents = ckm.decode_sketch(seed1, z_t, eng.operator(t), lo_t, hi_t, cfg, device=dev)[0]
+        km = lloyd.kmeans(KMEANS_SEED, pts, km_cfg, device=dev)
+        rels.append(float(ckm.sse(pts, cents, device=dev)) / float(km.sse))
+    print(f"[fleet decode] {FLEET_DECODES} tenants' sketches ({per_tenant} points each) decoded "
+          f"with {cfg.decoder}: relative SSE against kmeans x{KMEANS_REPLICATES} on each "
+          f"tenant's points {[round(r, 4) for r in rels]} (limit {MAX_RELATIVE_SSE})", flush=True)
+    check(all(r <= MAX_RELATIVE_SSE for r in rels), f"fleet decode: relative SSE {rels}")
+    del lifetime
+
+    # 7. A structured fleet: kernels 4-5 once per tenant.
+    s_t = structured_tenants
+    sspecs = fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2)
+    sblocks = [b[:s_t].contiguous() for b in blocks[:2]]
+    for label, quant, kernel in (("float", None, "structured_sketch"),
+                                 ("1bit", "1bit", "quantized_structured_sketch")):
+        se = FleetEngine(sspecs, quantizers=None if quant is None else fleet_quantizers(
+            FLEET_SEED, s_t, m, quant, device=dev), device=dev)
+        sst = run(f"fleet structured {label}", lambda se=se: se.update(
+            se.update(se.init_state(), sblocks[0]), sblocks[1]), kernel)
+        srefs = [se.tenant_engine(t) for t in range(s_t)]
+        swant = [r.update(r.update(r.init_state(), sblocks[0][t]), sblocks[1][t])
+                 for t, r in enumerate(srefs)]
+        ok_s = (_same_state(sst, _stack_states(swant))
+                and torch.equal(se.finalize(sst)[0],
+                                torch.stack([r.finalize(st)[0] for r, st in zip(srefs, swant)])))
+        upd_s, _ = timed(lambda se=se, sst=sst: se.update(sst, sblocks[0]))
+        print(f"[fleet structured {label}] T={s_t}, d={se.operator(0).d}: one update "
+              f"({s_t} launches of {kernel}) {upd_s * 1e3:.3f} ms; each tenant bitwise its "
+              f"isolated engine: {ok_s}", flush=True)
+        check(ok_s, f"fleet structured {label}: differs from the isolated engines")
+    peak = _peak_since(dev, base_mem)
+    base = _reset_peak(dev)
+    fs.fourier_sketch_sums_fleet(blocks[0], w_all, ones)
+    scratch = _peak_since(dev, base)
+    print(f"[fleet] {time.perf_counter() - t_phase:.1f}s; peak device memory {peak / 1e6:.1f} MB "
+          f"over the phase's start (data {data.numel() * 4 / 1e6:.1f} MB, {FLEET_UPDATES} "
+          f"update blocks {FLEET_UPDATES * blocks[0].numel() * 4 / 1e6:.1f} MB, one stacked "
+          f"float state {eng.state_bytes() / 1e6:.1f} MB, each fleet's stacked operators "
+          f"{w_all.numel() * 4 / 1e6:.1f} MB; one fleet launch of kernel 1 at an update "
+          f"block's shape takes {scratch / 1e6:.1f} MB of scratch and outputs, its double "
+          f"partials 2 x T x groups x m x 8 B)", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1214,6 +1620,8 @@ def main() -> None:
         "sketch_shift": (ks, "LAUNCHES"),
         "amp_denoise": (kd, "LAUNCHES"),
         "flash_attention": (fa, "LAUNCHES"),
+        "fourier_sketch_fleet": (fs, "FLEET_LAUNCHES"),
+        "quantized_fourier_sketch_fleet": (fs, "QUANTIZED_FLEET_LAUNCHES"),
     }
     launches = dict.fromkeys(counters, 0)
     phase_s, phase_counts = {}, {}
@@ -1486,6 +1894,12 @@ def main() -> None:
     streaming_phases(dev, run, cfg, path_cfg, x, batches, fit_res)
     print(f"[streaming] {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # 9d. Async ingest of batches already on the card, and the fleet.
+    t0 = time.perf_counter()
+    stream_device_phase(dev, run, cfg, batches)
+    print(f"[stream-device] {time.perf_counter() - t0:.1f}s", flush=True)
+    fleet_phases(dev, run, cfg, res.sigma2, results)
+
     # 10. Per-kernel numbers.
     meta = {
         "fourier_sketch": ("src/repro_torch/kernels/csrc/fourier_sketch.cu",
@@ -1504,6 +1918,11 @@ def main() -> None:
                         "src/repro/kernels/amp_denoise.py:79"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:83"),
+        "fourier_sketch_fleet": ("src/repro_torch/kernels/csrc/fourier_sketch.cu",
+                                 "src/repro/core/fleet.py:450"),
+        "quantized_fourier_sketch_fleet": (
+            "src/repro_torch/kernels/csrc/quantized_fourier_sketch.cu",
+            "src/repro/core/fleet.py:481"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -15,8 +15,16 @@ import torch
 
 from repro_torch import device as dev_mod
 from repro_torch.core import quantize as qz
-from repro_torch.core.engine import QuantizedSketchEngineState, SketchEngineState
-from repro_torch.core.freq_ops import DenseOperator, StructuredOperator
+from repro_torch.core.engine import (
+    DecayedQuantizedSketchEngineState,
+    DecayedSketchEngineState,
+    QuantizedSketchEngineState,
+    SketchEngineState,
+)
+from repro_torch.core.freq_ops import DenseOperator, StackedOperator, StructuredOperator
+
+_STATE_TYPES = (SketchEngineState, QuantizedSketchEngineState, DecayedSketchEngineState,
+                DecayedQuantizedSketchEngineState)
 
 
 def _f32(a, dev: torch.device) -> torch.Tensor:
@@ -97,3 +105,43 @@ def centroids_from_numpy(c: np.ndarray, device=dev_mod.DEFAULT) -> torch.Tensor:
     if c.ndim != 2:
         raise ValueError(f"expected (K, n) centroids, got shape {c.shape}")
     return _f32(c, dev_mod.resolve(device))
+
+
+def fleet_state_from_numpy(state, device=dev_mod.DEFAULT):
+    """A reference fleet's stacked state (any of its four flavours: a named
+    tuple whose fields are array-likes with a leading tenant axis) -> the
+    port's stacked state of the same flavour (int32 code sums, float32
+    rest)."""
+    fields = tuple(state._fields)
+    cls = next((c for c in _STATE_TYPES if c._fields == fields), None)
+    if cls is None:
+        raise ValueError(f"no port state has the fields {fields}")
+    dev = dev_mod.resolve(device)
+    leaves = [np.asarray(getattr(state, f)) for f in fields]
+    tenants = leaves[0].shape[0] if leaves[0].ndim else None
+    if tenants is None or any(a.ndim < 1 or a.shape[0] != tenants for a in leaves):
+        raise ValueError(
+            "fleet state leaves must share a leading tenant axis: "
+            + ", ".join(f"{f}={a.shape}" for f, a in zip(fields, leaves))
+        )
+    return cls(*(
+        torch.from_numpy(np.array(a, dtype=np.int32 if f.startswith("q") else np.float32,
+                                  copy=True)).to(dev)
+        for f, a in zip(fields, leaves)
+    ))
+
+
+def stacked_operator_from_numpy(
+    name: str, leaves, n: int, m: int, device=dev_mod.DEFAULT
+) -> StackedOperator:
+    """T reference operators, as their stacked numpy leaves -> the port's
+    stacked operator: ``"dense"`` takes ``(w (T, n, m),)``, ``"structured"``
+    ``(diags (T, nblocks, 3, d), radii (T, nblocks, d), rho (T, nblocks,
+    d))``.  ``FleetEngine`` takes it as its operators."""
+    dev = dev_mod.resolve(device)
+    stacked = StackedOperator(name, int(n), int(m), tuple(_f32(a, dev) for a in leaves))
+    if name not in ("dense", "structured") or len(stacked.leaves) != (1 if name == "dense" else 3):
+        raise ValueError(f"expected the leaves of 'dense' or 'structured' operators, got {name!r} "
+                         f"with {len(stacked.leaves)} leaves")
+    stacked.tenant(0)  # the family's own shape checks
+    return stacked

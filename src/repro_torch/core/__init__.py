@@ -9,8 +9,8 @@ The paper's pipeline is sketch -> decode behind one config:
     res = fit(0, x, CKMConfig(k=10, decoder="sketch_shift"))
 
 Submodules (``repro_torch.core.ckm``, ``.engine``, ``.quantize``, ...) stay
-importable for internals.  The reference's fleet, topology, ``FreqOpSpec``
-and ``diagnose`` exports are not ported yet.
+importable for internals.  The reference's topology and ``diagnose`` exports
+are not ported yet.
 """
 
 from repro_torch.core.ckm import (
@@ -37,8 +37,15 @@ from repro_torch.core.engine import (
     DecayedSketchEngineState,
     SketchEngine,
 )
+from repro_torch.core.fleet import (
+    FLEET_BACKENDS,
+    FleetEngine,
+    fleet_quantizers,
+    fleet_specs,
+)
 from repro_torch.core.freq_ops import (
     FREQ_OPS,
+    FreqOpSpec,
     FrequencyOperator,
     as_operator,
     available_freq_ops,
@@ -67,9 +74,14 @@ __all__ = [
     "DecayedQuantizedSketchEngineState",
     "DecayedSketchEngineState",
     "SketchEngine",
+    "FLEET_BACKENDS",
+    "FleetEngine",
+    "fleet_specs",
+    "fleet_quantizers",
     "SketchWindow",
     "WindowState",
     "FREQ_OPS",
+    "FreqOpSpec",
     "FrequencyOperator",
     "as_operator",
     "available_freq_ops",

@@ -141,6 +141,9 @@ class DecayedQuantizedSketchEngineState(NamedTuple):
     gamma: torch.Tensor  # () f32 — decay base per tick
 
 
+DECAYED_STATE_TYPES = (DecayedSketchEngineState, DecayedQuantizedSketchEngineState)
+
+
 class _EngineInstruments(NamedTuple):
     """Per-engine cached metric handles (resolved once per registry
     generation, so the enabled steady state is plain ``float +=``)."""
@@ -169,10 +172,17 @@ def _decay_factor(gamma: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
     """
     positive = dt > 0
     safe = torch.where(positive, dt, torch.zeros_like(dt))
-    return torch.where(positive, torch.pow(gamma, safe), torch.ones_like(dt))
+    # The power in float64, rounded once to float32: on the CPU, float32
+    # pow takes another code path for a vector than for a scalar, and the
+    # two differ in the last bit; in float64 the difference does not reach
+    # the rounding, so a fleet's stacked factors are its isolated engines'.
+    power = torch.pow(gamma.double(), safe.double()).to(dt.dtype)
+    return torch.where(positive, power, torch.ones_like(dt))
 
 
 def _merge_decayed(a, b):
+    # Rank-generic: a single state's stamp is 0-d, a fleet's (T,); each
+    # per-state scalar meets the (..., m) accumulators through [..., None].
     t = torch.maximum(a.stamp, b.stamp)
     fa = _decay_factor(a.gamma, t - a.stamp)
     fb = _decay_factor(b.gamma, t - b.stamp)
@@ -184,6 +194,7 @@ def _merge_decayed(a, b):
         stamp=t,
         gamma=torch.maximum(a.gamma, b.gamma),
     )
+    fa, fb = fa[..., None], fb[..., None]
     if isinstance(a, DecayedSketchEngineState):
         return DecayedSketchEngineState(
             cos_acc=fa * a.cos_acc + fb * b.cos_acc,
@@ -193,7 +204,7 @@ def _merge_decayed(a, b):
     # Segment by stamp: the operand(s) at the new stamp keep their int32
     # codes exact; an older operand folds entirely (ints + side channel)
     # into the float side channel through one gamma**dt multiply.
-    a_new, b_new = a.stamp >= t, b.stamp >= t
+    a_new, b_new = (a.stamp >= t)[..., None], (b.stamp >= t)[..., None]
 
     def ints(new, q):
         return torch.where(new, q, torch.zeros_like(q))
@@ -216,7 +227,7 @@ def _merge_states(a, b):
             f"cannot merge mismatched state flavours: "
             f"{type(a).__name__} vs {type(b).__name__}"
         )
-    if isinstance(a, (DecayedSketchEngineState, DecayedQuantizedSketchEngineState)):
+    if isinstance(a, DECAYED_STATE_TYPES):
         return _merge_decayed(a, b)
     if isinstance(a, QuantizedSketchEngineState):
         return QuantizedSketchEngineState(
@@ -237,18 +248,27 @@ def _merge_states(a, b):
     )
 
 
+def _normalize(cos_acc, sin_acc, weight_sum) -> torch.Tensor:
+    """``z = [cos, -sin] / weight_sum``, rank-generic (``(m,)`` sums with a
+    0-d weight, or a fleet's ``(T, m)`` with ``(T,)``).
+
+    An empty stream (or an all-zero-weight shard) has nothing to average:
+    it gives the zero sketch rather than accumulator/denom garbage.  The
+    tiny denom floor alone is not enough — cos_acc can be exactly 0 while a
+    negative-weight cancellation leaves weight_sum at -0.0 or ~1e-38.
+    """
+    denom = torch.clamp(weight_sum, min=1e-30)[..., None]
+    z = torch.cat([cos_acc, -sin_acc], dim=-1) / denom
+    return torch.where(weight_sum[..., None] > 0, z, torch.zeros_like(z))
+
+
 def _finalize_state(state: SketchEngineState):
-    # An empty stream (or an all-zero-weight shard) has nothing to average:
-    # return the zero sketch rather than accumulator/denom garbage.  The tiny
-    # denom floor alone is not enough — cos_acc can be exactly 0 while a
-    # negative-weight cancellation leaves weight_sum at -0.0 or ~1e-38.
-    denom = torch.clamp(state.weight_sum, min=1e-30)
-    z = torch.cat([state.cos_acc, -state.sin_acc]) / denom
-    z = torch.where(state.weight_sum > 0, z, torch.zeros_like(z))
-    return z, state.lower, state.upper
+    return _normalize(state.cos_acc, state.sin_acc, state.weight_sum), state.lower, state.upper
 
 
 def _finalize_quantized(state, dither: torch.Tensor, bits: int):
+    """Dequantize and normalise a quantized state (single, or stacked with
+    a ``(T, m)`` dither)."""
     qcos, qsin = state.qcos_acc, state.qsin_acc
     if isinstance(state, DecayedQuantizedSketchEngineState):
         # The E[sign] correction is linear in the code sums, so it applies to
@@ -258,12 +278,7 @@ def _finalize_quantized(state, dither: torch.Tensor, bits: int):
         qcos = qcos.to(torch.float32) + state.dcos_acc
         qsin = qsin.to(torch.float32) + state.dsin_acc
     cos_acc, sin_acc = qz.dequantize_sums(qcos, qsin, dither, bits)
-    denom = torch.clamp(state.weight_sum, min=1e-30)
-    z = torch.cat([cos_acc, -sin_acc]) / denom
-    # Same guard as the float path: an empty quantized stream finalizes to
-    # the zero sketch.
-    z = torch.where(state.weight_sum > 0, z, torch.zeros_like(z))
-    return z, state.lower, state.upper
+    return _normalize(cos_acc, sin_acc, state.weight_sum), state.lower, state.upper
 
 
 def _kernel_operator(op: fo.FrequencyOperator) -> fo.FrequencyOperator:

@@ -15,10 +15,11 @@ class DenseOperator(FrequencyOperator):
 
     name = "dense"
 
-    def __init__(self, w: torch.Tensor):
+    def __init__(self, w: torch.Tensor, spec=None):
         if w.ndim != 2:
             raise ValueError(f"dense operator needs an (n, m) matrix, got {tuple(w.shape)}")
         self.w = w
+        self._spec = spec
 
     @property
     def n(self) -> int:
@@ -44,7 +45,7 @@ class DenseOperator(FrequencyOperator):
         return torch.sum(self.w * self.w, dim=0)
 
     def to(self, device: torch.device) -> "DenseOperator":
-        return self if self.w.device == device else DenseOperator(self.w.to(device))
+        return self if self.w.device == device else DenseOperator(self.w.to(device), self._spec)
 
 
 @register_freq_op("dense")

@@ -53,7 +53,7 @@ class StructuredOperator(FrequencyOperator):
     name = "structured"
 
     def __init__(self, diags: torch.Tensor, radii: torch.Tensor, rho: torch.Tensor,
-                 n: int, m: int):
+                 n: int, m: int, spec=None):
         nblocks, three, d = diags.shape
         if three != 3 or tuple(radii.shape) != (nblocks, d) or tuple(rho.shape) != (nblocks, d):
             raise ValueError(
@@ -64,6 +64,7 @@ class StructuredOperator(FrequencyOperator):
             raise ValueError(f"n = {n}, m = {m} do not fit {nblocks} blocks of width {d}")
         self.diags, self.radii, self.rho = diags, radii, rho
         self._n, self._m = int(n), int(m)
+        self._spec = spec
 
     @property
     def n(self) -> int:
@@ -108,7 +109,8 @@ class StructuredOperator(FrequencyOperator):
         if self.diags.device == device:
             return self
         return StructuredOperator(
-            self.diags.to(device), self.radii.to(device), self.rho.to(device), self._n, self._m
+            self.diags.to(device), self.radii.to(device), self.rho.to(device), self._n, self._m,
+            self._spec,
         )
 
 

@@ -15,7 +15,9 @@ pinned host buffers and issues the host-to-device copy on a side
 ``torch.cuda.Stream``, with an event the consumer's stream waits on before
 it sketches the batch: the copy of batch ``i + 1`` runs under the kernel of
 batch ``i``.  A pinned slot is written only after the event of the copy that
-last read it has completed.  On the CPU the producer's placement is
+last read it has completed.  A batch that is already a float32 tensor on the
+card passes straight through, as the reference's ``device_put`` does: no
+pinned slot, no copy, no event.  On the CPU the producer's placement is
 ``torch.as_tensor(batch, float32)``.
 
 Both ingest modes bound the resident batches.  The sync path
@@ -23,8 +25,9 @@ Both ingest modes bound the resident batches.  The sync path
 one batch is alive at a time; the async path waits after every fold too, and
 holds ``prefetch + 2`` batches at most: ``prefetch`` in the queue, one being
 folded and one produced but blocked on a full queue.  The consumer keeps
-each device batch referenced until the wait after its fold, so the side
-stream's allocation is not reused while the kernel reads it.
+each device batch referenced until the wait on its own stream after the
+fold, so the side stream's allocation is not reused while the kernel reads
+it.
 
 The async path folds the same batches in the same order with the same
 kernel as the sync path: the same bits (kernel 1 sums in a fixed order,
@@ -210,6 +213,12 @@ class _PinnedStager:
         self.next = 0
 
     def __call__(self, batch):
+        if isinstance(batch, torch.Tensor) and batch.is_cuda:
+            return self._on_card(batch)
+        return self._pinned(batch)
+
+    def _pinned(self, batch):
+        """Host data through the next pinned slot and a side-stream copy."""
         host = torch.as_tensor(batch)
         slot = self.next
         self.next = (slot + 1) % len(self.buffers)
@@ -228,6 +237,25 @@ class _PinnedStager:
             event = torch.cuda.Event()
             event.record(self.stream)
         self.events[slot] = event
+        return x, event
+
+    def _on_card(self, batch: torch.Tensor):
+        """A batch already on the card passes through: a float32 batch as
+        it is, with no copy and no event (the sync path's cast is a no-op
+        for it); another dtype cast on the producer's stream, with an event
+        the consumer waits on.  A batch on another card raises, as the
+        engine's own device checks do."""
+        if batch.device != self.device:
+            raise ValueError(
+                f"batch is a CUDA tensor on {batch.device}, but the engine runs on "
+                f"{self.device}"
+            )
+        if batch.dtype == torch.float32:
+            return batch, None
+        with torch.cuda.device(self.device):
+            x = batch.to(torch.float32)
+            event = torch.cuda.Event()
+            event.record()
         return x, event
 
 
@@ -282,9 +310,11 @@ def ingest_stream(
             # Wait per batch: a batch is discarded once folded in.  Without
             # the wait, queued launches would keep their batches alive
             # whenever production outruns the device, and the side stream
-            # could reuse a batch's memory under a running kernel.
+            # could reuse a batch's memory under a running kernel.  The wait
+            # is on the consumer's stream alone: the producer's next copy on
+            # the side stream runs on, and compute_s stays the fold's time.
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                torch.cuda.current_stream(dev).synchronize()
             stats.compute_s += time.perf_counter() - t0
             stats.batches += 1
             stats.points += int(batch.shape[0])

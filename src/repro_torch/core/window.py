@@ -14,12 +14,14 @@ expired bucket, the stale state is reset to the monoid identity first, and
 so a reused slot never leaks expired data into a query.
 
 Everything here is monoid algebra over a wrapped
-:class:`~repro_torch.core.engine.SketchEngine`; the bookkeeping is host-side
-numpy.  Combining ``decay`` with a window gives exponential weighting inside
-the window and a hard cutoff at its edge; ``read`` then advances the merged
-state's clock to the query time.  The reference's fleet-engine windows
-(``ingest`` and the tenant-column surgery) wait for the fleet engine's port
-and raise ``NotImplementedError`` here.
+:class:`~repro_torch.core.engine.SketchEngine` **or**
+:class:`~repro_torch.core.fleet.FleetEngine` (the whole fleet windows in the
+same W-slot ring; per-slot states are the stacked ``(T, ...)`` states, so one
+bucket update is still one fleet call); the bookkeeping is host-side numpy.
+Combining ``decay`` with a window gives exponential weighting inside the
+window and a hard cutoff at its edge; ``read`` then advances the merged
+state's clock to the query time.  ``ingest`` and the tenant-column surgery
+need a fleet engine: a single engine's window refuses them.
 """
 
 from __future__ import annotations
@@ -31,11 +33,6 @@ from typing import Any
 import numpy as np
 
 __all__ = ["SketchWindow", "WindowState"]
-
-_NO_FLEET = (
-    "fleet-engine windows need the fleet engine (core.fleet), which is not "
-    "ported yet (ROADMAP Queue 1 item 18)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +55,9 @@ class SketchWindow:
 
     Parameters
     ----------
-    engine : the wrapped :class:`~repro_torch.core.engine.SketchEngine`; the
-        window inherits its device, operator, quantizer and decay.
+    engine : the wrapped :class:`~repro_torch.core.engine.SketchEngine` or
+        :class:`~repro_torch.core.fleet.FleetEngine`; the window inherits its
+        device, operators, quantizers and decay.
     buckets : W, the window length in buckets.  A read at tick ``c`` merges
         buckets ``(c - W, c]``.
     bucket_ticks : width of one bucket on the ``t`` axis (tick
@@ -109,16 +107,31 @@ class SketchWindow:
 
     # -- monoid ops ----------------------------------------------------------
 
-    def update(self, ws: WindowState, batch, weights=None, *, t):
-        """Fold ``batch (B, n)`` at time ``t`` into its bucket; a batch older
-        than the whole ring is dropped."""
+    def _fold(self, ws: WindowState, t, fold_fn):
+        """Claim ``t``'s bucket and fold into it; a fold older than the whole
+        ring is dropped."""
         ws, slot = self._claim(ws, self.tick(t))
         if slot is None:
             return ws
-        kw = {} if self.engine.decay is None else {"t": float(t)}
         bks = list(ws.buckets)
-        bks[slot] = self.engine.update(bks[slot], batch, weights, **kw)
+        bks[slot] = fold_fn(bks[slot])
         return dataclasses.replace(ws, buckets=tuple(bks))
+
+    def _tick_kw(self, t) -> dict:
+        return {} if self.engine.decay is None else {"t": float(t)}
+
+    def update(self, ws: WindowState, batch, weights=None, *, t):
+        """Fold ``batch`` at time ``t`` into its bucket (single engine:
+        ``batch (B, n)``; fleet engine: an aligned block ``(T, B, n)``)."""
+        return self._fold(
+            ws, t, lambda b: self.engine.update(b, batch, weights, **self._tick_kw(t)))
+
+    def ingest(self, ws: WindowState, tenant_ids, batches, weights=None, *, t):
+        """Fleet request routing at time ``t`` (``FleetEngine.ingest``); all
+        requests of one call share ``t`` and land in one bucket."""
+        fleet = self._fleet()
+        return self._fold(
+            ws, t, lambda b: fleet.ingest(b, tenant_ids, batches, weights, **self._tick_kw(t)))
 
     def read(self, ws: WindowState, t=None):
         """Merge-on-read: the engine state of the last W buckets at ``t``.
@@ -150,19 +163,38 @@ class SketchWindow:
         """Resident bytes of the whole ring (W buckets)."""
         return sum(leaf.numel() * leaf.element_size() for b in ws.buckets for leaf in b)
 
-    # -- fleet engines (not ported) ------------------------------------------
+    # -- fleet tenant surgery ------------------------------------------------
 
-    def ingest(self, ws: WindowState, tenant_ids, batches, weights=None, *, t):
-        raise NotImplementedError(_NO_FLEET)
+    def _fleet(self):
+        from repro_torch.core.fleet import FleetEngine
+
+        if not isinstance(self.engine, FleetEngine):
+            raise TypeError(
+                f"this window wraps a {type(self.engine).__name__}; ingest and the "
+                "tenant columns need a fleet engine (core.fleet.FleetEngine)"
+            )
+        return self.engine
 
     def tenant_column(self, ws: WindowState, tenant: int):
-        raise NotImplementedError(_NO_FLEET)
+        """Tenant's per-slot rows (a tuple of W single-engine states) — what
+        an eviction checkpoints beside the lifetime row."""
+        fleet = self._fleet()
+        return tuple(fleet.tenant_state(b, tenant) for b in ws.buckets)
 
     def set_tenant_column(self, ws: WindowState, tenant: int, column):
-        raise NotImplementedError(_NO_FLEET)
+        """Write a tenant's W per-slot rows back (the restore path)."""
+        fleet = self._fleet()
+        if len(column) != self.buckets:
+            raise ValueError(f"column has {len(column)} rows for {self.buckets} buckets")
+        bks = tuple(fleet.set_tenant(b, tenant, row) for b, row in zip(ws.buckets, column))
+        return dataclasses.replace(ws, buckets=bks)
 
     def reset_tenant(self, ws: WindowState, tenant: int):
-        raise NotImplementedError(_NO_FLEET)
+        """Tenant's rows to the identity in every bucket; the slot
+        bookkeeping is fleet-wide and other tenants keep their buckets."""
+        fleet = self._fleet()
+        return dataclasses.replace(
+            ws, buckets=tuple(fleet.reset_tenant(b, tenant) for b in ws.buckets))
 
     def __repr__(self) -> str:
         return (

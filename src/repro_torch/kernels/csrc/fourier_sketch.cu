@@ -48,6 +48,19 @@
 //    pair.
 //  * The ragged edges of N, n and m are masked here; nothing is padded in
 //    device memory.
+//  * The fleet entry (fourier_sketch_sums_fleet) sketches T tenants' batches,
+//    each against its own w and beta, in one launch: the counterpart of the
+//    reference's vmap of the Pallas kernel over the tenant axis
+//    (src/repro/core/fleet.py:_tenant_part).  The tenant rides in the grid's
+//    x axis, blockIdx.x = tenant * groups + group, with groups =
+//    ceil(n_pts / rows_per_group), and each block offsets its pointers by
+//    its tenant's strides, which follow from n_pts, n, m and groups.  Each
+//    tenant gets the grid that an isolated call of B rows gets (the wrapper
+//    asks sketch_grid for B, never for T B, with the single kernel's
+//    occupancy), and the second pass adds its partials in group order, so
+//    every tenant's sums are bitwise those of its own launch.  The offsets sit behind a template
+//    flag (FLEET): a single call runs instances whose signature and code are
+//    those the kernel had before the fleet entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +77,7 @@ constexpr int kChunk = 16;        // and features of w in registers per step
 // Rows [blockIdx.x * rows_per_group, ...) of x against frequencies
 // blockIdx.y * 256 + threadIdx.x + f * T.  N is the width or, when the
 // instance is padded, at least the runtime n (w and x read as 0 past n).
-template <int N, int F>
+template <int N, int F, bool FLEET>
 __global__ void __launch_bounds__(kFreqs / F)
 sketch_partials(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ beta, int64_t n_pts, int n, int m,
@@ -74,6 +87,17 @@ sketch_partials(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int XS = (N + 4) / 4 * 4;  // N values, beta, zero pad to 16 bytes
   __shared__ __align__(16) float xs[kRowsTile * XS];
 
+  int64_t group = blockIdx.x;
+  if constexpr (FLEET) {
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = group / groups;
+    group -= tenant * groups;
+    x += tenant * n_pts * n;
+    w += tenant * n * m;
+    beta += tenant * n_pts;
+    cos_part += tenant * groups * m;
+    sin_part += tenant * groups * m;
+  }
   const int j0 = blockIdx.y * kFreqs + threadIdx.x;
   float wr[F][N];
 #pragma unroll
@@ -86,7 +110,7 @@ sketch_partials(const float* __restrict__ x, const float* __restrict__ w,
   for (int e = threadIdx.x; e < kRowsTile * XS; e += T) xs[e] = 0.0f;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r0 = group * rows_per_group;
   const int64_t r1 = min(n_pts, r0 + rows_per_group);
   double dc[F], ds[F];
 #pragma unroll
@@ -136,8 +160,8 @@ sketch_partials(const float* __restrict__ x, const float* __restrict__ w,
   for (int f = 0; f < F; ++f) {
     const int j = j0 + f * T;
     if (j < m) {
-      cos_part[(int64_t)blockIdx.x * m + j] = dc[f];
-      sin_part[(int64_t)blockIdx.x * m + j] = ds[f];
+      cos_part[group * m + j] = dc[f];
+      sin_part[group * m + j] = ds[f];
     }
   }
 }
@@ -145,6 +169,7 @@ sketch_partials(const float* __restrict__ x, const float* __restrict__ w,
 // Any feature width: x staged in (16 rows, 128 features) blocks, walked in
 // chunks of 16 features whose w entries sit in registers; each row's
 // partial phase is carried across the chunks.
+template <bool FLEET>
 __global__ void __launch_bounds__(kFreqs, 2)
 sketch_partials_chunked(const float* __restrict__ x, const float* __restrict__ w,
                         const float* __restrict__ beta, int64_t n_pts, int n, int m,
@@ -153,9 +178,20 @@ sketch_partials_chunked(const float* __restrict__ x, const float* __restrict__ w
   __shared__ __align__(16) float xs[kChunkRows * kStage];
   __shared__ float bs[kChunkRows];
 
+  int64_t group = blockIdx.x;
+  if constexpr (FLEET) {
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = group / groups;
+    group -= tenant * groups;
+    x += tenant * n_pts * n;
+    w += tenant * n * m;
+    beta += tenant * n_pts;
+    cos_part += tenant * groups * m;
+    sin_part += tenant * groups * m;
+  }
   const int j = blockIdx.y * kFreqs + threadIdx.x;
   const bool active = j < m;
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r0 = group * rows_per_group;
   const int64_t r1 = min(n_pts, r0 + rows_per_group);
   double dc = 0.0, ds = 0.0;
   for (int64_t t0 = r0; t0 < r1; t0 += kChunkRows) {
@@ -206,17 +242,25 @@ sketch_partials_chunked(const float* __restrict__ x, const float* __restrict__ w
     ds += (double)as;
   }
   if (active) {
-    cos_part[(int64_t)blockIdx.x * m + j] = dc;
-    sin_part[(int64_t)blockIdx.x * m + j] = ds;
+    cos_part[group * m + j] = dc;
+    sin_part[group * m + j] = ds;
   }
 }
 
-// Second pass: sum the per-group partials in group order, in double.
+// Second pass: sum the per-group partials in group order, in double; a
+// tenant's (groups, m) partials and (m,) outputs follow the previous
+// tenant's, blockIdx.x = tenant * col_blocks + column block.
 __global__ void reduce_partials(const double* __restrict__ cos_part,
                                 const double* __restrict__ sin_part, int groups, int m,
-                                float* __restrict__ cos_out, float* __restrict__ sin_out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+                                int col_blocks, float* __restrict__ cos_out,
+                                float* __restrict__ sin_out) {
+  const int tenant = blockIdx.x / col_blocks;
+  const int j = (blockIdx.x - tenant * col_blocks) * blockDim.x + threadIdx.x;
   if (j >= m) return;
+  cos_part += (int64_t)tenant * groups * m;
+  sin_part += (int64_t)tenant * groups * m;
+  cos_out += (int64_t)tenant * m;
+  sin_out += (int64_t)tenant * m;
   double c = 0.0, s = 0.0;
 #pragma unroll 8
   for (int g = 0; g < groups; ++g) {
@@ -230,11 +274,13 @@ __global__ void reduce_partials(const double* __restrict__ cos_part,
 using PartialsFn = void (*)(const float*, const float*, const float*, int64_t, int, int,
                             int64_t, double*, double*);
 
-// The instance for width n and its threads per block.
+// The instance for width n (the fleet's or the single call's) and its
+// threads per block.
+template <bool FLEET>
 void pick(int n, PartialsFn* fn, int* threads) {
 #define CASE(NN, FF)                              \
   case NN:                                        \
-    *fn = sketch_partials<NN, FF>;                \
+    *fn = sketch_partials<NN, FF, FLEET>;         \
     *threads = kFreqs / FF;                       \
     return;
   switch (n) {
@@ -246,11 +292,42 @@ void pick(int n, PartialsFn* fn, int* threads) {
   }
 #undef CASE
   *threads = kFreqs;
-  if (n <= 24) *fn = sketch_partials<24, 1>;
-  else if (n <= 32) *fn = sketch_partials<32, 1>;
-  else if (n <= 48) *fn = sketch_partials<48, 1>;
-  else if (n <= 64) *fn = sketch_partials<64, 1>;
-  else *fn = sketch_partials_chunked;
+  if (n <= 24) *fn = sketch_partials<24, 1, FLEET>;
+  else if (n <= 32) *fn = sketch_partials<32, 1, FLEET>;
+  else if (n <= 48) *fn = sketch_partials<48, 1, FLEET>;
+  else if (n <= 64) *fn = sketch_partials<64, 1, FLEET>;
+  else *fn = sketch_partials_chunked<FLEET>;
+}
+
+constexpr int kReduceThreads = 256;
+
+// Both passes over `tenants` tenants of n_pts rows each (see the entry
+// points below).
+int launch(const float* x, const float* w, const float* beta, int tenants, int64_t n_pts,
+           int n, int m, int64_t rows_per_group, int groups, double* cos_part,
+           double* sin_part, float* cos_out, float* sin_out, void* stream_ptr) {
+  if (n < 1 || m < 1 || tenants < 1 || groups < 1 || rows_per_group < 1 ||
+      (int64_t)groups * rows_per_group < n_pts)
+    return (int)cudaErrorInvalidValue;
+  const int col_blocks = (m + kFreqs - 1) / kFreqs;
+  const int reduce_blocks = (m + kReduceThreads - 1) / kReduceThreads;
+  if ((int64_t)tenants * groups > INT32_MAX || (int64_t)tenants * reduce_blocks > INT32_MAX ||
+      col_blocks > 65535 ||
+      (tenants > 1 && groups != (n_pts + rows_per_group - 1) / rows_per_group))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  PartialsFn fn;
+  int threads;
+  if (tenants > 1) pick<true>(n, &fn, &threads);
+  else pick<false>(n, &fn, &threads);
+  const dim3 grid(tenants * groups, col_blocks);
+  fn<<<grid, threads, 0, stream>>>(x, w, beta, n_pts, n, m, rows_per_group, cos_part,
+                                   sin_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials<<<tenants * reduce_blocks, kReduceThreads, 0, stream>>>(
+      cos_part, sin_part, groups, m, reduce_blocks, cos_out, sin_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,7 +340,7 @@ int fourier_sketch_resident(int n, int* out) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   PartialsFn fn;
   int threads;
-  pick(n, &fn, &threads);
+  pick<false>(n, &fn, &threads);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0);
 }
 
@@ -274,21 +351,22 @@ int fourier_sketch_resident(int n, int* out) {
 int fourier_sketch_sums(const float* x, const float* w, const float* beta, int64_t n_pts,
                         int n, int m, int64_t rows_per_group, int groups, double* cos_part,
                         double* sin_part, float* cos_out, float* sin_out, void* stream_ptr) {
-  if (n < 1 || m < 1 || groups < 1 || rows_per_group < 1 ||
-      (int64_t)groups * rows_per_group < n_pts)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  PartialsFn fn;
-  int threads;
-  pick(n, &fn, &threads);
-  const dim3 grid(groups, (m + kFreqs - 1) / kFreqs);
-  fn<<<grid, threads, 0, stream>>>(x, w, beta, n_pts, n, m, rows_per_group, cos_part,
-                                   sin_part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<(m + 255) / 256, 256, 0, stream>>>(cos_part, sin_part, groups, m,
-                                                       cos_out, sin_out);
-  return (int)cudaGetLastError();
+  return launch(x, w, beta, 1, n_pts, n, m, rows_per_group, groups, cos_part, sin_part,
+                cos_out, sin_out, stream_ptr);
+}
+
+// The fleet: x (tenants, n_pts, n), w (tenants, n, m), beta (tenants, n_pts)
+// float32, contiguous, on the device; each tenant's rows against its own w.
+// cos_part / sin_part: (tenants, groups, m) double scratch; cos_out /
+// sin_out: (tenants, m).  rows_per_group and groups are one tenant's, as for
+// an isolated call of n_pts rows (groups = ceil(n_pts / rows_per_group));
+// tenants * groups <= 2^31 - 1.  Returns a cudaError_t code.
+int fourier_sketch_sums_fleet(const float* x, const float* w, const float* beta, int tenants,
+                              int64_t n_pts, int n, int m, int64_t rows_per_group, int groups,
+                              double* cos_part, double* sin_part, float* cos_out,
+                              float* sin_out, void* stream_ptr) {
+  return launch(x, w, beta, tenants, n_pts, n, m, rows_per_group, groups, cos_part, sin_part,
+                cos_out, sin_out, stream_ptr);
 }
 
 const char* fourier_sketch_error_string(int code) {

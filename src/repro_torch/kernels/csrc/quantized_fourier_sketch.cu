@@ -53,6 +53,17 @@
 //    so it stays within accumulator_capacity wherever the total does.
 //  * The ragged edges of N, n and m are masked here; nothing is padded in
 //    device memory.
+//  * The fleet entry (quantized_fourier_sketch_sums_fleet) sketches T
+//    tenants' batches, each against its own w and dither, in one launch: the
+//    counterpart of the reference's vmap of the Pallas kernel over the
+//    tenant axis (src/repro/core/fleet.py:_tenant_qpart).  The tenant rides
+//    in the grid's x axis, blockIdx.x = tenant * groups + group, with
+//    groups = ceil(n_pts / rows_per_group), and each block offsets its
+//    pointers by its tenant's strides, which follow from n_pts, n and m.
+//    Integer sums are exact under any split of the rows, so every tenant's
+//    sums are those of its own launch.  The offsets sit behind a template
+//    flag (FLEET): a single call runs instances whose signature and code are
+//    those the kernel had before the fleet entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,7 +119,7 @@ __device__ __forceinline__ int valid_at(const float* __restrict__ valid, int64_t
 // Rows [blockIdx.x * rows_per_group, ...) of x against frequencies
 // blockIdx.y * 128 F + threadIdx.x + 128 f.  N is the width or, when the
 // instance is padded, at least the runtime n (w and x read as 0 past n).
-template <int N, int F, bool ONE_BIT>
+template <int N, int F, bool ONE_BIT, bool FLEET>
 __global__ void __launch_bounds__(kThreads)
 qsketch(const float* __restrict__ x, const float* __restrict__ w,
         const float* __restrict__ dither, const float* __restrict__ valid, int64_t n_pts,
@@ -118,6 +129,18 @@ qsketch(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int XS = (N + 4) / 4 * 4;  // N values, valid, zero pad to 16 bytes
   __shared__ __align__(16) float xs[kRowsTile * XS];
 
+  int64_t group = blockIdx.x;
+  if constexpr (FLEET) {
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = group / groups;
+    group -= tenant * groups;
+    x += tenant * n_pts * n;
+    w += tenant * n * m;
+    if (valid) valid += tenant * n_pts;
+    dither += tenant * m;
+    qcos += tenant * m;
+    qsin += tenant * m;
+  }
   const int j0 = blockIdx.y * T * F + threadIdx.x;
   float wr[F][N], dth[F];
 #pragma unroll
@@ -131,7 +154,7 @@ qsketch(const float* __restrict__ x, const float* __restrict__ w,
   for (int e = threadIdx.x; e < kRowsTile * XS; e += T) xs[e] = 0.0f;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r0 = group * rows_per_group;
   const int64_t r1 = min(n_pts, r0 + rows_per_group);
   int acc_c[F], acc_s[F], total = 0;
 #pragma unroll
@@ -178,7 +201,7 @@ qsketch(const float* __restrict__ x, const float* __restrict__ w,
 // Any feature width: x staged in (16 rows, 128 features) blocks, walked in
 // chunks of 16 features whose w entries sit in registers; each row's
 // partial phase is carried across the chunks.
-template <bool ONE_BIT>
+template <bool ONE_BIT, bool FLEET>
 __global__ void __launch_bounds__(kFreqs, 2)
 qsketch_chunked(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ dither, const float* __restrict__ valid,
@@ -187,10 +210,22 @@ qsketch_chunked(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ __align__(16) float xs[kChunkRows * kStage];
   __shared__ int vs[kChunkRows];
 
+  int64_t group = blockIdx.x;
+  if constexpr (FLEET) {
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = group / groups;
+    group -= tenant * groups;
+    x += tenant * n_pts * n;
+    w += tenant * n * m;
+    if (valid) valid += tenant * n_pts;
+    dither += tenant * m;
+    qcos += tenant * m;
+    qsin += tenant * m;
+  }
   const int j = blockIdx.y * kFreqs + threadIdx.x;
   const bool active = j < m;
   const float dth = active ? dither[j] : 0.0f;
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r0 = group * rows_per_group;
   const int64_t r1 = min(n_pts, r0 + rows_per_group);
   int acc_c = 0, acc_s = 0, total = 0;
   for (int64_t t0 = r0; t0 < r1; t0 += kChunkRows) {
@@ -244,14 +279,14 @@ using QsketchFn = void (*)(const float*, const float*, const float*, const float
 // The instance for width n and the code, its threads and frequencies per
 // block.  n <= 16: F = 4 frequencies a thread at 1 bit, 2 at b bits (the
 // b-bit pair's trig and rounding need the registers); wider: 1.
-template <bool ONE_BIT>
+template <bool ONE_BIT, bool FLEET>
 void pick(int n, QsketchFn* fn, int* threads, int* freqs) {
   constexpr int F = ONE_BIT ? 4 : 2;
   *threads = kThreads;
   *freqs = kThreads * F;
 #define CASE(NN)                                  \
   case NN:                                        \
-    *fn = qsketch<NN, F, ONE_BIT>;                \
+    *fn = qsketch<NN, F, ONE_BIT, FLEET>;         \
     return;
   switch (n) {
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)
@@ -261,19 +296,45 @@ void pick(int n, QsketchFn* fn, int* threads, int* freqs) {
   }
 #undef CASE
   *freqs = kThreads;
-  if (n <= 24) *fn = qsketch<24, 1, ONE_BIT>;
-  else if (n <= 32) *fn = qsketch<32, 1, ONE_BIT>;
-  else if (n <= 48) *fn = qsketch<48, 1, ONE_BIT>;
-  else if (n <= 64) *fn = qsketch<64, 1, ONE_BIT>;
+  if (n <= 24) *fn = qsketch<24, 1, ONE_BIT, FLEET>;
+  else if (n <= 32) *fn = qsketch<32, 1, ONE_BIT, FLEET>;
+  else if (n <= 48) *fn = qsketch<48, 1, ONE_BIT, FLEET>;
+  else if (n <= 64) *fn = qsketch<64, 1, ONE_BIT, FLEET>;
   else {
-    *fn = qsketch_chunked<ONE_BIT>;
+    *fn = qsketch_chunked<ONE_BIT, FLEET>;
     *threads = *freqs = kFreqs;
   }
 }
 
-void pick_code(int n, int one_bit, QsketchFn* fn, int* threads, int* freqs) {
-  if (one_bit) pick<true>(n, fn, threads, freqs);
-  else pick<false>(n, fn, threads, freqs);
+// The instance for width n, the code and the call (the fleet's or a single
+// one's).
+void pick_code(int n, int one_bit, bool fleet, QsketchFn* fn, int* threads, int* freqs) {
+  if (one_bit) {
+    if (fleet) pick<true, true>(n, fn, threads, freqs);
+    else pick<true, false>(n, fn, threads, freqs);
+  } else {
+    if (fleet) pick<false, true>(n, fn, threads, freqs);
+    else pick<false, false>(n, fn, threads, freqs);
+  }
+}
+
+// One launch over `tenants` tenants of n_pts rows each (see the entry
+// points below).
+int launch(const float* x, const float* w, const float* dither, const float* valid,
+           int tenants, int64_t n_pts, int n, int m, int one_bit, float scale,
+           int64_t rows_per_group, int groups, int* qcos, int* qsin, void* stream_ptr) {
+  if (n < 1 || m < 1 || tenants < 1 || groups < 1 || rows_per_group < 1 ||
+      (int64_t)groups * rows_per_group < n_pts || (int64_t)tenants * groups > INT32_MAX ||
+      (tenants > 1 && groups != (n_pts + rows_per_group - 1) / rows_per_group))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  QsketchFn fn;
+  int threads, freqs;
+  pick_code(n, one_bit, tenants > 1, &fn, &threads, &freqs);
+  const dim3 grid(tenants * groups, (m + freqs - 1) / freqs);
+  fn<<<grid, threads, 0, stream>>>(x, w, dither, valid, n_pts, n, m, scale, rows_per_group,
+                                   qcos, qsin);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -287,7 +348,7 @@ int quantized_fourier_sketch_resident(int n, int one_bit, int* out, int* freqs) 
   if (n < 1) return (int)cudaErrorInvalidValue;
   QsketchFn fn;
   int threads;
-  pick_code(n, one_bit, &fn, &threads, freqs);
+  pick_code(n, one_bit, false, &fn, &threads, freqs);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, 0);
 }
 
@@ -300,17 +361,22 @@ int quantized_fourier_sketch_sums(const float* x, const float* w, const float* d
                                   const float* valid, int64_t n_pts, int n, int m,
                                   int one_bit, float scale, int64_t rows_per_group,
                                   int groups, int* qcos, int* qsin, void* stream_ptr) {
-  if (n < 1 || m < 1 || groups < 1 || rows_per_group < 1 ||
-      (int64_t)groups * rows_per_group < n_pts)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  QsketchFn fn;
-  int threads, freqs;
-  pick_code(n, one_bit, &fn, &threads, &freqs);
-  const dim3 grid(groups, (m + freqs - 1) / freqs);
-  fn<<<grid, threads, 0, stream>>>(x, w, dither, valid, n_pts, n, m, scale, rows_per_group,
-                                   qcos, qsin);
-  return (int)cudaGetLastError();
+  return launch(x, w, dither, valid, 1, n_pts, n, m, one_bit, scale, rows_per_group, groups,
+                qcos, qsin, stream_ptr);
+}
+
+// The fleet: x (tenants, n_pts, n), w (tenants, n, m), dither (tenants, m)
+// float32, contiguous, on the device; each tenant's rows against its own w
+// and dither, every row counted.  qcos / qsin: (tenants, m) int32, zeroed by
+// the caller.  rows_per_group and groups are one tenant's, groups =
+// ceil(n_pts / rows_per_group); tenants * groups <= 2^31 - 1.  Returns a
+// cudaError_t code.
+int quantized_fourier_sketch_sums_fleet(const float* x, const float* w, const float* dither,
+                                        int tenants, int64_t n_pts, int n, int m, int one_bit,
+                                        float scale, int64_t rows_per_group, int groups,
+                                        int* qcos, int* qsin, void* stream_ptr) {
+  return launch(x, w, dither, nullptr, tenants, n_pts, n, m, one_bit, scale, rows_per_group,
+                groups, qcos, qsin, stream_ptr);
 }
 
 const char* quantized_fourier_sketch_error_string(int code) {

@@ -20,6 +20,16 @@ Each launches its kernel on CUDA tensors or raises.  Beside each is its plain
 PyTorch version (``*_plain``), summed over chunks of rows so the ``(chunk, m)``
 projection stays bounded; ``kernels.ops`` picks between them by the tensor's
 device.
+
+The fleet entries :func:`fourier_sketch_sums_fleet` and
+:func:`quantized_fourier_sketch_sums_fleet` take ``x (T, B, n)``,
+``w (T, n, m)`` and ``beta (T, B)`` or ``dither (T, m)``, sketch each
+tenant's rows against its own operator, and return ``(T, m)`` sums in one
+launch for the whole fleet (counted in ``FLEET_LAUNCHES`` and
+``QUANTIZED_FLEET_LAUNCHES``): the counterpart of the reference's ``vmap`` of
+its kernels over the tenant axis.  Each tenant gets the grid of an isolated
+call of B rows, so its sums are bitwise those of ``T`` single launches.
+Their plain versions loop the single plain versions over the tenants.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from repro_torch.kernels._launch import check_cuda, grid_rows, on_device, sm_cou
 # Kernel launches since the counts were last reset (plain calls do not count).
 LAUNCHES = 0
 QUANTIZED_LAUNCHES = 0
+FLEET_LAUNCHES = 0
+QUANTIZED_FLEET_LAUNCHES = 0
 
 # Frequencies per block of the float kernel (the quantized kernel reports
 # its own), and the rows both stage at a time (the least a block is given
@@ -54,6 +66,9 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i64, i32, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
+        lib.fourier_sketch_sums_fleet.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, i64, i32,
+                                                  ptr, ptr, ptr, ptr, ptr]
+        lib.fourier_sketch_sums_fleet.restype = i32
         lib.fourier_sketch_resident.argtypes = [i32, ctypes.POINTER(i32)]
         lib.fourier_sketch_resident.restype = i32
         lib.fourier_sketch_error_string.argtypes = [ctypes.c_int]
@@ -165,6 +180,9 @@ def _qlib() -> ctypes.CDLL:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i64, i32, ptr, ptr, ptr]
         fn.restype = i32
+        lib.quantized_fourier_sketch_sums_fleet.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32,
+                                                            i32, f32, i64, i32, ptr, ptr, ptr]
+        lib.quantized_fourier_sketch_sums_fleet.restype = i32
         lib.quantized_fourier_sketch_resident.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 2
         lib.quantized_fourier_sketch_resident.restype = i32
         lib.quantized_fourier_sketch_error_string.argtypes = [i32]
@@ -249,3 +267,108 @@ def quantized_fourier_sketch_sums_plain(
         qcos += qc.sum(dim=0, dtype=torch.int32)
         qsin += qs.sum(dim=0, dtype=torch.int32)
     return qcos, qsin
+
+
+# -- the fleet entries: a tenant axis, one launch ------------------------------
+
+
+def _check_fleet(x: torch.Tensor, w: torch.Tensor, name: str, v: torch.Tensor) -> None:
+    """``x (T, B, n)``, ``w (T, n, m)`` and ``v``: ``beta (T, B)`` or
+    ``dither (T, m)`` by ``name``; all float32."""
+    ok = x.ndim == 3 and w.ndim == 3 and tuple(w.shape[:2]) == (x.shape[0], x.shape[2])
+    if ok:
+        ok = tuple(v.shape) == (x.shape[0], x.shape[1] if name == "beta" else w.shape[2])
+    if not ok:
+        raise ValueError(
+            f"expected x (T, B, n), w (T, n, m) and beta (T, B) or dither (T, m); got "
+            f"{tuple(x.shape)}, {tuple(w.shape)}, {name} {tuple(v.shape)}"
+        )
+    for label, t in (("x", x), ("w", w), (name, v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{label} must be float32, got {t.dtype}")
+
+
+def fourier_sketch_sums_fleet(
+    x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel over a fleet: ``(cos_sums (T, m), sin_sums (T, m))``
+    for CUDA tensors ``x (T, B, n)``, ``w (T, n, m)``, ``beta (T, B)``, in
+    one launch.  Tenant t's sums are bitwise ``fourier_sketch_sums(x[t],
+    w[t], beta[t])``: each tenant gets that call's grid and reduction order.
+    Raises for anything the kernel does not take."""
+    global FLEET_LAUNCHES
+    _check_fleet(x, w, "beta", beta)
+    dev = check_cuda((("x", x), ("w", w), ("beta", beta)))
+    tenants, n_pts, n = x.shape
+    m = w.shape[2]
+    if m > 65535 * FREQS_PER_BLOCK:
+        raise ValueError(f"m = {m} exceeds the kernel's grid limit")
+    lib = _lib()
+    with on_device(dev):
+        (resident,) = _resident(lib, "fourier_sketch", dev, n)
+        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), resident)
+        part = torch.empty((2, tenants, groups, m), dtype=torch.float64, device=dev)
+        out = torch.empty((2, tenants, m), dtype=torch.float32, device=dev)
+        status = lib.fourier_sketch_sums_fleet(
+            x.data_ptr(), w.data_ptr(), beta.data_ptr(), tenants, n_pts, n, m, rows, groups,
+            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            stream_ptr(dev),
+        )
+    if status != 0:
+        msg = lib.fourier_sketch_error_string(status).decode()
+        raise RuntimeError(f"fourier_sketch fleet kernel launch failed: {msg} ({status})")
+    FLEET_LAUNCHES += 1
+    return out[0], out[1]
+
+
+def fourier_sketch_sums_fleet_plain(
+    x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: :func:`fourier_sketch_sums_plain` per tenant."""
+    _check_fleet(x, w, "beta", beta)
+    sums = [fourier_sketch_sums_plain(x[t], w[t], beta[t]) for t in range(x.shape[0])]
+    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])
+
+
+def quantized_fourier_sketch_sums_fleet(
+    x: torch.Tensor, w: torch.Tensor, dither: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel over a fleet: int32 ``(qcos_sums (T, m), qsin_sums
+    (T, m))`` for CUDA tensors ``x (T, B, n)``, ``w (T, n, m)``,
+    ``dither (T, m)``, in one launch; tenant t's sums are those of
+    ``quantized_fourier_sketch_sums(x[t], w[t], dither[t], bits)``.  Raises
+    for anything the kernel does not take."""
+    global QUANTIZED_FLEET_LAUNCHES
+    _check_fleet(x, w, "dither", dither)
+    dev = check_cuda((("x", x), ("w", w), ("dither", dither)))
+    tenants, n_pts, n = x.shape
+    m = w.shape[2]
+    one_bit = int(bits == 1)
+    lib = _qlib()
+    with on_device(dev):
+        resident, freqs = _resident(lib, "quantized_fourier_sketch", dev, n, one_bit, outs=2)
+        if m > 65535 * freqs:
+            raise ValueError(f"m = {m} exceeds the kernel's grid limit")
+        rows, groups, _ = sketch_grid(n_pts, m, sm_count(dev), resident, freqs)
+        q = torch.zeros((2, tenants, m), dtype=torch.int32, device=dev)
+        status = lib.quantized_fourier_sketch_sums_fleet(
+            x.data_ptr(), w.data_ptr(), dither.data_ptr(), tenants, n_pts, n, m, one_bit,
+            float(qz.quantization_scale(bits)), rows, groups, q[0].data_ptr(), q[1].data_ptr(),
+            stream_ptr(dev),
+        )
+    if status != 0:
+        msg = lib.quantized_fourier_sketch_error_string(status).decode()
+        raise RuntimeError(f"quantized_fourier_sketch fleet kernel launch failed: {msg} ({status})")
+    QUANTIZED_FLEET_LAUNCHES += 1
+    return q[0], q[1]
+
+
+def quantized_fourier_sketch_sums_fleet_plain(
+    x: torch.Tensor, w: torch.Tensor, dither: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: :func:`quantized_fourier_sketch_sums_plain`
+    per tenant."""
+    _check_fleet(x, w, "dither", dither)
+    sums = [quantized_fourier_sketch_sums_plain(x[t], w[t], dither[t], bits)
+            for t in range(x.shape[0])]
+    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])

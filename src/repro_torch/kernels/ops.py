@@ -17,6 +17,13 @@ fallback.  The decoders' entry points (``sketch_shift_scores``,
 the sketch, or the pseudo-data, its variance and the box.
 ``flash_attention`` takes ``(B, S, H, hd)`` q, k and v, as the reference's
 entry point does.
+
+The fleet entry points (``fleet_fourier_sketch_sums``,
+``quantized_fleet_fourier_sketch_sums``) take ``x (T, B, n)`` and a
+``freq_ops.StackedOperator`` of T tenants and return ``(T, m)`` sums.  A
+dense fleet goes to the tenant-axis entries of kernels 1 and 3: one launch
+for the whole fleet.  A structured fleet launches kernel 4 or 5 once per
+tenant, through the single entry points above: T launches.
 """
 
 from __future__ import annotations
@@ -90,6 +97,42 @@ def quantized_fourier_sketch_sums(
         fn = (_sketch.quantized_fourier_sketch_sums if cuda
               else _sketch.quantized_fourier_sketch_sums_plain)
         return fn(x, op.w, dither, bits, valid)
+    raise _no_kernel(op)
+
+
+def _per_tenant(fn, x: torch.Tensor, op: fo.StackedOperator, *rows):
+    """``fn(x[t], tenant t's operator, *(r[t] for r in rows))`` stacked over
+    the tenants: a structured fleet's T launches."""
+    sums = [fn(x[t], op.tenant(t), *(r[t] for r in rows)) for t in range(x.shape[0])]
+    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])
+
+
+def fleet_fourier_sketch_sums(
+    x: torch.Tensor, op: fo.StackedOperator, beta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each tenant's raw fused sums: ``x (T, B, n)`` against tenant t's
+    operator with weights ``beta (T, B)`` -> ``(T, m)``, ``(T, m)``."""
+    if op.name == "structured":
+        return _per_tenant(fourier_sketch_sums, x, op, beta)
+    if op.name == "dense":
+        fn = (_sketch.fourier_sketch_sums_fleet if _on_cuda(x)
+              else _sketch.fourier_sketch_sums_fleet_plain)
+        return fn(x, op.leaves[0], beta)
+    raise _no_kernel(op)
+
+
+def quantized_fleet_fourier_sketch_sums(
+    x: torch.Tensor, op: fo.StackedOperator, dither: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each tenant's int32 code sums: ``x (T, B, n)`` against tenant t's
+    operator and ``dither (T, m)`` -> ``(T, m)``, ``(T, m)``."""
+    if op.name == "structured":
+        return _per_tenant(lambda xt, ot, dt: quantized_fourier_sketch_sums(xt, ot, dt, bits),
+                           x, op, dither)
+    if op.name == "dense":
+        fn = (_sketch.quantized_fourier_sketch_sums_fleet if _on_cuda(x)
+              else _sketch.quantized_fourier_sketch_sums_fleet_plain)
+        return fn(x, op.leaves[0], dither, bits)
     raise _no_kernel(op)
 
 

@@ -150,7 +150,12 @@ def build(name: str, variants: dict, baseline: Path | None = None) -> dict[str, 
                 texts[fname] = texts[fname].replace(old, new)
         sources[label] = texts
     if baseline is not None:
-        sources[BASELINE] = {f"{name}.cu": baseline.read_text()}
+        text = baseline.read_text()
+        # The headers it includes: its own folder's where it has them, else
+        # the package's.
+        sources[BASELINE] = {f"{name}.cu": text, **{
+            h: (baseline.parent / h if (baseline.parent / h).exists() else _build.CSRC / h)
+            .read_text() for h in _build._headers(text.encode())}}
     jobs = {}
     for i, (label, texts) in enumerate(sources.items()):
         folder = OUT / f"{name}_{i}"

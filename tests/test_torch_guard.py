@@ -272,3 +272,95 @@ def test_ingest_has_no_path_back_to_the_sync_loop():
     stream_fn = next(n for n in ast.walk(tree)
                      if isinstance(n, ast.FunctionDef) and n.name == "ingest_stream")
     assert not any(isinstance(n, ast.Try) for n in ast.walk(stream_fn))
+
+
+def test_fleet_entry_points_default_to_the_card():
+    """``fleet_specs`` holds no tensor (a spec is its seed); ``from_spec``,
+    ``fleet_quantizers`` and ``FleetEngine`` ask for the card by default: on
+    a CPU-only host they raise instead of running on the CPU."""
+    import torch
+
+    from repro_torch.core import FleetEngine, fleet_quantizers, fleet_specs
+    from repro_torch.core import freq_ops
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    specs = fleet_specs(0, 2, "dense", 16, 3, 1.0)
+    assert not any(isinstance(v, torch.Tensor) for spec in specs for v in spec)
+    for call in (lambda: freq_ops.from_spec(specs[0]),
+                 lambda: fleet_quantizers(0, 2, 16, "1bit"),
+                 lambda: FleetEngine(specs)):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()
+
+
+def _function_source(path: Path, name: str) -> str:
+    """The code of function ``name`` in ``path``, without its docstring."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name)
+    if ast.get_docstring(fn) is not None:
+        fn.body = fn.body[1:]
+    return ast.unparse(fn)
+
+
+def test_fleet_kernel_entries_launch_once_with_no_fallback():
+    """The tenant-axis entries of kernels 1 and 3 launch their library's
+    fleet function once, and call neither a single-tenant wrapper nor a
+    plain version, nor catch anything; ``kernels.ops`` sends a dense fleet
+    on a CUDA tensor to them."""
+    src = PORT / "kernels" / "fourier_sketch.py"
+    for name, lib_fn in (("fourier_sketch_sums_fleet", "lib.fourier_sketch_sums_fleet("),
+                         ("quantized_fourier_sketch_sums_fleet",
+                          "lib.quantized_fourier_sketch_sums_fleet(")):
+        code = _function_source(src, name)
+        assert code.count(lib_fn) == 1, name
+        assert "_plain" not in code and "try:" not in code and "for " not in code, name
+        assert not re.search(r"\b(quantized_)?fourier_sketch_sums\(", code), name
+    ops = PORT / "kernels" / "ops.py"
+    for name, entry in (("fleet_fourier_sketch_sums", "_sketch.fourier_sketch_sums_fleet "),
+                        ("quantized_fleet_fourier_sketch_sums",
+                         "_sketch.quantized_fourier_sketch_sums_fleet ")):
+        code = _function_source(ops, name)
+        assert f"{entry}if _on_cuda(x) else" in code, name
+        assert "try:" not in code, name
+
+
+def test_ingest_passes_device_batches_and_waits_on_its_own_stream():
+    """The pinned stager hands a float32 batch already on the engine's card
+    straight through (no pinned slot, no copy, no event) and refuses one on
+    another card; the wait after each fold is on the consumer's stream, not
+    device-wide."""
+    import torch
+
+    from repro_torch.core import ingest as ing
+
+    class OnCard(torch.Tensor):
+        """A CPU tensor that reports itself on ``cuda:<index>``: the stager's
+        branch for device batches, without a card."""
+
+        index = 0
+
+        @property
+        def is_cuda(self):
+            return True
+
+        @property
+        def device(self):
+            return torch.device("cuda", self.index)
+
+    stager = object.__new__(ing._PinnedStager)
+    stager.device, stager.buffers, stager.events, stager.next = (
+        torch.device("cuda", 0), [None] * 4, [None] * 4, 0)
+    batch = torch.Tensor._make_subclass(OnCard, torch.zeros((5, 3)))
+    out, event = stager(batch)
+    assert out is batch and event is None
+    assert stager.buffers == [None] * 4 and stager.events == [None] * 4 and stager.next == 0
+    other = torch.Tensor._make_subclass(OnCard, torch.zeros((5, 3)))
+    other.index = 1
+    with pytest.raises(ValueError, match="cuda:1"):
+        stager(other)
+    code = _function_source(PORT / "core" / "ingest.py", "ingest_stream")
+    assert "torch.cuda.current_stream(dev).synchronize()" in code
+    assert "torch.cuda.synchronize" not in code

@@ -18,6 +18,7 @@ from repro.core.window import SketchWindow as JaxWindow
 from repro_torch import convert
 from repro_torch.core import ckm as tckm
 from repro_torch.core import engine as eng_mod
+from repro_torch.core import fleet as fleet_mod
 from repro_torch.core.engine import (
     DecayedQuantizedSketchEngineState,
     DecayedSketchEngineState,
@@ -392,5 +393,83 @@ def test_window_validation_memory_and_fleet_methods():
                  lambda: w2.tenant_column(w2.init_state(), 0),
                  lambda: w2.set_tenant_column(w2.init_state(), 0, ()),
                  lambda: w2.reset_tenant(w2.init_state(), 0)):
-        with pytest.raises(NotImplementedError, match="fleet"):
+        with pytest.raises(TypeError, match="fleet engine"):
             call()
+
+
+# -- the fleet window ---------------------------------------------------------------
+
+
+T_FLEET, B_FLEET, N_FLEET, M_FLEET = 3, 8, 3, 32
+
+
+def _fleet_window(quant="none", decay=GAMMA, buckets=3):
+    specs = fleet_mod.fleet_specs(0, T_FLEET, "dense", M_FLEET, N_FLEET, 1.5)
+    quants = fleet_mod.fleet_quantizers(7, T_FLEET, M_FLEET, quant, device="cpu")
+    fe = fleet_mod.FleetEngine(specs, quantizers=quants, decay=decay, device="cpu")
+    return fe, SketchWindow(fe, buckets)
+
+
+@pytest.mark.parametrize("decay", [None, GAMMA])
+@pytest.mark.parametrize("quant", ["none", "1bit"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fleet_window_bitwise_vs_isolated_tenant_windows(seed, quant, decay):
+    """Seeded timestamped schedules of aligned updates, routed ingests (with
+    duplicate ids) and tenant-column evict/restore on a fleet window ==
+    each tenant's isolated engine window, bitwise, read at the same t."""
+    rng = np.random.default_rng(seed)
+    fe, fw = _fleet_window(quant, decay)
+    refs = [fe.tenant_engine(t) for t in range(T_FLEET)]
+    rws = [SketchWindow(e, fw.buckets) for e in refs]
+    ws, rstates = fw.init_state(), [w.init_state() for w in rws]
+    clock = 0.0
+    for _ in range(8):
+        clock += float(rng.integers(0, 3))
+        action = rng.choice(["update", "ingest", "evict_restore"])
+        if action == "update":
+            blk = torch.from_numpy(rng.normal(size=(T_FLEET, B_FLEET, N_FLEET)).astype(np.float32))
+            ws = fw.update(ws, blk, t=clock)
+            rstates = [w.update(s, blk[t], t=clock) for t, (w, s) in enumerate(zip(rws, rstates))]
+        elif action == "ingest":
+            r = int(rng.integers(1, 5))
+            ids = rng.integers(0, T_FLEET, r)
+            bt = torch.from_numpy(rng.normal(size=(r, B_FLEET, N_FLEET)).astype(np.float32))
+            ws = fw.ingest(ws, ids, bt, t=clock)
+            for j, tid in enumerate(ids):
+                rstates[tid] = rws[tid].update(rstates[tid], bt[j], t=clock)
+        else:
+            tid = int(rng.integers(0, T_FLEET))
+            col = fw.tenant_column(ws, tid)
+            ws = fw.set_tenant_column(fw.reset_tenant(ws, tid), tid, col)
+    merged = fw.read(ws, clock)
+    for t in range(T_FLEET):
+        ref = rws[t].read(rstates[t], clock)
+        assert _states_equal(fe.tenant_state(merged, t), ref), f"tenant {t} diverged"
+        assert all(torch.equal(a, b)
+                   for a, b in zip(fe.finalize_tenant(merged, t), refs[t].finalize(ref)))
+
+
+def test_fleet_window_column_reset_restore_and_rotation():
+    """A reset column reads as the identity in every bucket while the other
+    tenants keep theirs; restoring it gives the state back bitwise; a
+    wrapped ring drops the expired block's data; a column of the wrong
+    length is refused."""
+    fe, fw = _fleet_window("none", decay=None)
+    rng = np.random.default_rng(5)
+    ws = fw.init_state()
+    poison = torch.full((T_FLEET, B_FLEET, N_FLEET), 100.0)
+    ws = fw.update(ws, poison, t=0.0)
+    for t in (1, 2, 3):
+        ws = fw.update(ws, torch.from_numpy(
+            rng.normal(size=(T_FLEET, B_FLEET, N_FLEET)).astype(np.float32)), t=float(t))
+    assert float(fw.read(ws, 3.0).upper.max()) < 50.0
+    col = fw.tenant_column(ws, 1)
+    cleared = fw.reset_tenant(ws, 1)
+    identity = fe.tenant_engine(1).init_state()
+    assert all(_states_equal(fe.tenant_state(b, 1), identity) for b in cleared.buckets)
+    for t in (0, 2):
+        assert _states_equal(fe.tenant_state(fw.read(cleared), t), fe.tenant_state(fw.read(ws), t))
+    back = fw.set_tenant_column(cleared, 1, col)
+    assert all(_states_equal(a, b) for a, b in zip(back.buckets, ws.buckets))
+    with pytest.raises(ValueError, match="buckets"):
+        fw.set_tenant_column(ws, 1, col[:2])
