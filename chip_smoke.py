@@ -43,7 +43,13 @@ traces, graphed and eager; async ingest of the batches already on the card
 (``fleet_phases``: 1024 tenants at m = 1000, float, 1-bit and decayed,
 routed requests, a fleet window, four decoded tenants, a structured fleet),
 with the tenant-axis entries of kernels 1 and 3 held bitwise to T single
-launches and to their plain versions; one JSON line of per-kernel numbers,
+launches and to their plain versions; the fleet's service (``serve_phases``:
+FleetService over the same 1024 tenants, 4096 host requests flushed sync and
+async with the bits compared, decodes on demand against a hand-simulated
+LRU, 64 tenants evicted and restored bitwise, drift maintenance on a decayed
+service, a 1-bit, a windowed and a structured service); ckm.diagnose on the
+default fit (with the sigma sweep on 10^5 rows) and on sketch_shift fits at
+sigma^2 x 10^4 and x 10^-4 (``diagnose_phases``); one JSON line of per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -194,6 +201,15 @@ FLEET_T, FLEET_B, FLEET_UPDATES = 1024, 1000, 4
 FLEET_REQUESTS, FLEET_REQUEST_ROWS = 4096, 256
 FLEET_WINDOW, FLEET_WINDOW_TICKS, FLEET_DECAY_TICKS = 4, 8, 10
 FLEET_DECODES, FLEET_STRUCTURED_T, FLEET_SEED = 4, 64, 5
+# The fleet's service (serve/fleet_service.py) over that fleet: the
+# FLEET_REQUESTS requests arrive as host numpy batches and are flushed sync
+# and async; SERVE_HOT hot tenants get SERVE_HOT_REQUESTS more requests each
+# and are decoded with sketch_shift through an LRU of SERVE_CACHE models;
+# SERVE_EVICT tenants are evicted and restored; on a decayed service tenant 0
+# shifts by SERVE_SHIFT in every coordinate.  ckm.diagnose's sigma sweep
+# re-sketches the first DIAG_SAMPLE rows of the data.
+SERVE_HOT, SERVE_HOT_REQUESTS, SERVE_CACHE, SERVE_EVICT, SERVE_SHIFT = 16, 16, 8, 64, 6.0
+DIAG_SAMPLE = 100_000
 # A decoder's convergence series against its returned cost: the polish after
 # the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
 # is at most the last residual norm squared, and CL-AMP's cost per frequency
@@ -1394,6 +1410,421 @@ def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, row
           f"partials 2 x T x groups x m x 8 B)", flush=True)
 
 
+def _lru_expect(script, versions, capacity):
+    """Hand-simulated decode LRU over ``script`` (tenant ids, versions
+    fixed): per-decode hit flags, and (hits, misses, evictions)."""
+    from collections import OrderedDict
+
+    sim, flags, evictions = OrderedDict(), [], 0
+    for t in script:
+        key = (t, versions[t])
+        flags.append(key in sim)
+        sim[key] = True
+        sim.move_to_end(key)
+        while len(sim) > capacity:
+            sim.popitem(last=False)
+            evictions += 1
+    return flags, (sum(flags), len(flags) - sum(flags), evictions)
+
+
+def serve_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, requests=FLEET_REQUESTS,
+                 request_rows=FLEET_REQUEST_ROWS, hot=SERVE_HOT, hot_requests=SERVE_HOT_REQUESTS,
+                 evict=SERVE_EVICT, structured_tenants=FLEET_STRUCTURED_T, m=M, k=K, dim=DIM,
+                 root=None):
+    """[serve]: FleetService over the fleet, through the calls a user makes
+    (submit, flush sync and async, decode, evict, restore, drift and its
+    maintenance), float, 1-bit, windowed and structured.  Requests arrive as
+    host numpy batches.  Sync and async flushes give the same bits and every
+    row is its isolated engine's; the decode LRU matches a hand simulation;
+    evict/restore is bitwise; a drifting tenant is re-decoded and no
+    stationary one is."""
+    import shutil
+
+    from repro_torch import device as device_mod
+    from repro_torch import obs
+    from repro_torch.core import FleetEngine, SketchWindow, fleet_quantizers, fleet_specs
+    from repro_torch.core import ckm, graphs, lloyd
+    from repro_torch.data import synthetic
+    from repro_torch.obs.diagnose import sketch_drift
+    from repro_torch.serve import FleetService
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    base_mem = _reset_peak(dev)
+    root = Path(root or Path(__file__).resolve().parent / "build" / "serve_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    req_per = requests // tenants
+    shift_cfg = dataclasses.replace(cfg, decoder="sketch_shift")
+
+    # Each tenant's points on the host (a hot tenant also has hot_requests
+    # more requests' worth), drawn from its own mixture on the card.
+    t0 = time.perf_counter()
+    pts = [synthetic.gaussian_mixture(
+        device_mod.derive_seed(FLEET_SEED, t),
+        (req_per + (hot_requests if t < hot else 0)) * request_rows, k, dim, device=dev)
+        for t in range(tenants)]
+    host = [p.cpu().numpy() for p in pts]
+    make_s = time.perf_counter() - t0
+
+    def chunk(t, c):
+        return host[t][c * request_rows:(c + 1) * request_rows]
+
+    gen = torch.Generator(device="cpu").manual_seed(FLEET_SEED + 1)
+    reqs = [(int(t), c) for c in range(req_per) for t in torch.randperm(tenants, generator=gen)]
+    reqs = [reqs[i] for i in torch.randperm(len(reqs), generator=gen).tolist()]
+    hot_reqs = [(t, req_per + c) for c in range(hot_requests) for t in range(hot)]
+    hot_reqs = [hot_reqs[i] for i in torch.randperm(len(hot_reqs), generator=gen).tolist()]
+    specs = fleet_specs(FLEET_SEED, tenants, "dense", m, dim, sigma2)
+    eng = FleetEngine(specs, device=dev)
+    print(f"[serve data] T={tenants} tenants, each its own {k}-cluster mixture in R^{dim}; "
+          f"{len(reqs)} host requests of {request_rows} rows ({req_per} a tenant, shuffled), "
+          f"then {len(hot_reqs)} more for {hot} hot tenants; made in {make_s:.2f}s", flush=True)
+
+    def service(engine=eng, **kw):
+        return FleetService(engine, shift_cfg, checkpoint_dir=root / f"svc{len(made)}", **kw)
+
+    made = []
+
+    def flushed(svc, script, async_ingest):
+        for t, c in script:
+            svc.submit(t, chunk(t, c))
+        sync(dev)
+        t1 = time.perf_counter()
+        svc.flush(async_ingest=async_ingest)
+        sync(dev)
+        made.append(svc)
+        return svc, time.perf_counter() - t1
+
+    # 1. Flushes: sync then async into fresh services, then once more each.
+    walls = {"sync": [], "async": []}
+    states = {}
+    for mode in ("sync", "async", "async", "sync"):
+        a = mode == "async"
+        if not states.get(mode):
+            svc, wall = run(f"serve flush {mode}",
+                            lambda a=a: flushed(service(decode_cache_entries=SERVE_CACHE), reqs, a),
+                            "fourier_sketch_fleet")
+            states[mode] = svc
+        else:
+            svc, wall = flushed(service(), reqs, a)
+        walls[mode].append(wall)
+        check(svc.stats.flushes == 1 and svc.stats.requests == len(reqs),
+              f"serve flush {mode}: {svc.stats}")
+    svc = states["sync"]
+    same = all(_same_state(s.state, svc.state) for s in made[1:4])
+    refs = [eng.tenant_engine(t) for t in range(tenants)]
+    want = [r.init_state() for r in refs]
+    for t, c in reqs:
+        want[t] = refs[t].update(want[t], torch.as_tensor(chunk(t, c)).to(dev))
+    isolated = _same_state(svc.state, _stack_states(want))
+    n_pts = len(reqs) * request_rows
+    best = {mode: min(w) for mode, w in walls.items()}
+    print(f"[serve flush] {len(reqs)} requests of {request_rows} rows, one dispatch: sync "
+          f"{walls['sync'][0] * 1e3:.2f} / {walls['sync'][1] * 1e3:.2f} ms, async "
+          f"{walls['async'][0] * 1e3:.2f} / {walls['async'][1] * 1e3:.2f} ms; best "
+          f"{best['sync'] * 1e6 / len(reqs):.2f} / {best['async'] * 1e6 / len(reqs):.2f} us a "
+          f"request, {n_pts / best['sync']:.3e} / {n_pts / best['async']:.3e} points/s "
+          f"(sync / async); async the sync bits: {same}; each tenant bitwise its isolated "
+          f"engine over its requests in arrival order: {isolated}", flush=True)
+    check(same, "serve flush: async differs from sync")
+    check(isolated, "serve flush: a tenant differs from its isolated engine")
+    del made[1:], want
+
+    # 2. Hot traffic, then decodes on demand against a hand-simulated LRU.
+    flushed(svc, hot_reqs, False)
+    hot_ids = list(range(hot))
+    script = hot_ids + hot_ids[hot // 2:] + hot_ids[:hot // 4]
+    flags, (e_hits, e_misses, e_evict) = _lru_expect(
+        script, {t: svc.version(t) for t in hot_ids}, SERVE_CACHE)
+    before = dataclasses.replace(svc.stats)
+    hit_s, miss_s = [], []
+
+    def decodes():
+        out = []
+        for t in script:
+            sync(dev)
+            t1 = time.perf_counter()
+            out.append(svc.decode(t))
+            sync(dev)
+            (hit_s if out[-1].cached else miss_s).append(time.perf_counter() - t1)
+        return out
+
+    got = run("serve decode", decodes, "sketch_shift")
+    counts = (svc.stats.decode_hits - before.decode_hits,
+              svc.stats.decode_misses - before.decode_misses,
+              svc.stats.decode_cache_evictions - before.decode_cache_evictions)
+    lru_ok = [r.cached for r in got] == flags and counts == (e_hits, e_misses, e_evict)
+    # The same tenant twice without the cache: graph captures and wall each,
+    # and the bits of an eager decode.
+    fresh = []
+    for _ in range(2):
+        graphs.CAPTURES = graphs.REPLAYS = 0
+        sync(dev)
+        t1 = time.perf_counter()
+        r = svc.decode(0, use_cache=False)
+        sync(dev)
+        fresh.append((time.perf_counter() - t1, graphs.CAPTURES, graphs.REPLAYS, r))
+    # The same decode twice on one held operator object: the second call
+    # captures nothing, so the difference is what a fresh operator's
+    # captures cost a decode on demand.
+    z0, lo0, hi0 = eng.finalize_tenant(svc.state, 0)
+    op0, held = eng.operator(0), []
+    for _ in range(2):
+        graphs.CAPTURES = 0
+        sync(dev)
+        t1 = time.perf_counter()
+        ckm.decode_sketch(device_mod.derive_seed(0, 0), z0, op0, lo0, hi0, shift_cfg, device=dev)
+        sync(dev)
+        held.append((time.perf_counter() - t1, graphs.CAPTURES))
+    eager = ckm.decode_sketch(device_mod.derive_seed(0, 0), z0, op0, lo0, hi0,
+                              shift_cfg, device=dev, eager=True)
+    eager_same = all(torch.equal(a, b) for r in fresh for a, b in zip(eager, r[3][:3]))
+    km_cfg = lloyd.LloydConfig(k=k, replicates=KMEANS_REPLICATES)
+    rels = []
+    for t, r in zip(hot_ids, got):  # each hot tenant's first decode
+        c = r.centroids
+        rels.append(float(ckm.sse(pts[t], c, device=dev))
+                    / float(lloyd.kmeans(KMEANS_SEED, pts[t], km_cfg, device=dev).sse))
+    print(f"[serve decode] {len(script)} decodes of {hot} hot tenants ({pts[0].shape[0]} points "
+          f"each) with cache {SERVE_CACHE}: hits/misses/evictions {counts}, hand-simulated "
+          f"LRU {(e_hits, e_misses, e_evict)}, flags match: {lru_ok}; a miss "
+          f"{statistics.median(miss_s) * 1e3:.2f} ms (median of {len(miss_s)}, first "
+          f"{miss_s[0] * 1e3:.2f}), a hit {statistics.median(hit_s) * 1e6:.1f} us; use_cache="
+          f"False twice: {fresh[0][0] * 1e3:.2f} ms ({fresh[0][1]} captures, {fresh[0][2]} "
+          f"replays) then {fresh[1][0] * 1e3:.2f} ms ({fresh[1][1]} captures, {fresh[1][2]} "
+          f"replays); one held operator twice: {held[0][0] * 1e3:.2f} ms ({held[0][1]} "
+          f"captures) then {held[1][0] * 1e3:.2f} ms ({held[1][1]} captures); the eager "
+          f"decode's bits: {eager_same}; relative SSE against kmeans "
+          f"x{KMEANS_REPLICATES} {[round(r, 4) for r in rels]} (limit {MAX_RELATIVE_SSE})",
+          flush=True)
+    check(lru_ok, f"serve decode: LRU {counts} against the simulation "
+                  f"{(e_hits, e_misses, e_evict)}")
+    check(eager_same, "serve decode: graphed decodes differ from the eager decode")
+    check(all(r <= MAX_RELATIVE_SSE for r in rels), f"serve decode: relative SSE {rels}")
+
+    # 3. Evict and restore: rows bitwise, versions rewound, cached decodes
+    # valid again.
+    evicted = list(range(hot // 2, hot // 2 + evict))
+    rows = {t: svc.engine.tenant_state(svc.state, t) for t in evicted}
+    versions = {t: svc.version(t) for t in evicted}
+    served = {t: svc.served_model(t) for t in evicted}
+    ev_s, rs_s = [], []
+    for t in evicted:
+        t1 = time.perf_counter()
+        svc.evict(t)
+        sync(dev)
+        ev_s.append(time.perf_counter() - t1)
+    holes = all(float(svc.engine.tenant_state(svc.state, t).weight_sum) == 0.0 for t in evicted)
+    for t in evicted:
+        t1 = time.perf_counter()
+        svc.restore(t)
+        sync(dev)
+        rs_s.append(time.perf_counter() - t1)
+    bitwise = all(_same_state(svc.engine.tenant_state(svc.state, t), rows[t]) for t in evicted)
+    rewound = all(svc.version(t) == versions[t] for t in evicted)
+    hits = [svc.decode(t).cached for t in evicted if served[t] is not None
+            and served[t].version == versions[t]]
+    print(f"[serve evict] {evict} tenants: evict {statistics.median(ev_s) * 1e3:.3f} ms a tenant "
+          f"(max {max(ev_s) * 1e3:.3f}), restore {statistics.median(rs_s) * 1e3:.3f} ms (max "
+          f"{max(rs_s) * 1e3:.3f}); rows reset: {holes}; restored bitwise: {bitwise}; versions "
+          f"rewound: {rewound}; {len(hits)} cached decodes served again as hits: {all(hits)}",
+          flush=True)
+    check(holes and bitwise and rewound and all(hits), "serve evict/restore")
+
+    # 4. Drift maintenance on a decayed service: calibrate the bound between
+    # the stationary drift and a shifted tenant's, then shift tenant 0.
+    deng = FleetEngine(specs, decay=0.5, device=dev)
+    dsvc = FleetService(deng, shift_cfg)
+    drifting = list(range(min(4, hot)))
+    per_tick = req_per
+
+    def tick_reqs(tick, shift=0.0):
+        out = []
+        for t in drifting:
+            for c in range(tick * per_tick, (tick + 1) * per_tick):
+                out.append((t, chunk(t, c) + (shift if t == 0 else 0.0)))
+        return out
+
+    for t, b in tick_reqs(0):
+        dsvc.submit(t, b, t=0.0)
+    dsvc.flush()
+    for t in drifting:
+        dsvc.decode(t)
+    for t, b in tick_reqs(1):
+        dsvc.submit(t, b, t=1.0)
+    dsvc.flush()
+    stationary = [dsvc.drift(t) for t in drifting]
+    shifted_reqs = tick_reqs(2, SERVE_SHIFT)
+    probe = deng.ingest(dsvc.state, [0] * per_tick,
+                        torch.stack([torch.as_tensor(b).to(dev) for t, b in shifted_reqs
+                                     if t == 0]), t=2.0)
+    shifted = sketch_drift(deng.finalize_tenant(probe, 0)[0], dsvc.served_model(0).centroids,
+                           dsvc.served_model(0).weights, deng.operator(0))
+    check(2.0 * max(stationary) < shifted,
+          f"serve drift: stationary {stationary} not clear of shifted {shifted}")
+    dsvc.drift_threshold = math.sqrt(max(stationary) * shifted)
+    served_before = {t: dsvc.served_model(t).version for t in drifting}
+    for t, b in shifted_reqs:
+        dsvc.submit(t, b, t=2.0)
+    obs.reset()
+    obs.enable()
+    try:
+        run("serve drift", dsvc.flush, "sketch_shift")
+    finally:
+        obs.disable()
+    snap = obs.snapshot()
+    obs.reset()
+    served_after = {t: dsvc.served_model(t).version for t in drifting}
+    redecoded = [t for t in drifting if served_after[t] != served_before[t]]
+    decodes = dsvc.stats.decodes
+    fresh_drift = dsvc.drift(tenants - 1)
+    print(f"[serve drift] decayed service (gamma 0.5), {len(drifting)} tenants decoded at tick 0: "
+          f"stationary drift at tick 1 {[round(s, 4) for s in stationary]}, tenant 0 shifted by "
+          f"{SERVE_SHIFT} {shifted:.4f}; bound {dsvc.drift_threshold:.4f}; the shifted flush "
+          f"re-decoded {redecoded} (stats {dsvc.stats.drift_redecodes}, counter "
+          f"{snap.get('fleet.redecode.drift', 0)}); a fresh tenant's drift {fresh_drift} "
+          f"({dsvc.stats.decodes - decodes} decodes)", flush=True)
+    check(redecoded == [0] and dsvc.stats.drift_redecodes == 1
+          and snap.get("fleet.redecode.drift") == 1,
+          f"serve drift: re-decoded {redecoded}, stats {dsvc.stats.drift_redecodes}, counter "
+          f"{snap.get('fleet.redecode.drift')}")
+    check(fresh_drift == 0.0 and dsvc.stats.decodes == decodes, "serve drift: a fresh tenant")
+    del dsvc, probe
+
+    # 5. A 1-bit service (kernel 3f): sync and async, the engine's bits,
+    # evict/restore, a decode.
+    qeng = FleetEngine(specs, quantizers=fleet_quantizers(FLEET_SEED, tenants, m, "1bit",
+                                                          device=dev), device=dev)
+    qsvc, q_wall = run("serve 1bit flush", lambda: flushed(service(qeng), reqs, False),
+                       "quantized_fourier_sketch_fleet")
+    qsvc_a, qa_wall = flushed(service(qeng), reqs, True)
+    q_want = qeng.ingest(qeng.init_state(), [t for t, _ in reqs],
+                         torch.stack([torch.as_tensor(chunk(t, c)).to(dev) for t, c in reqs]))
+    q_row = qeng.tenant_state(qsvc.state, 3)
+    qsvc.evict(3)
+    qsvc.restore(3)
+    q_ok = {"engine": _same_state(qsvc.state, q_want), "async": _same_state(qsvc_a.state, q_want),
+            "evict/restore": _same_state(qeng.tenant_state(qsvc.state, 3), q_row)}
+    q_dec = run("serve 1bit decode", lambda: qsvc.decode(3), "sketch_shift")
+    print(f"[serve 1bit] flush sync {q_wall * 1e3:.2f} ms, async {qa_wall * 1e3:.2f} ms; the "
+          f"engine's bits {q_ok}; a decode finite: {bool(torch.isfinite(q_dec.centroids).all())}",
+          flush=True)
+    check(all(q_ok.values()), f"serve 1bit: {q_ok}")
+    check(bool(torch.isfinite(q_dec.centroids).all()), "serve 1bit: decode not finite")
+    del qsvc, qsvc_a, q_want
+
+    # 6. A windowed service: W buckets over the ticks, tenant e_t evicted
+    # across them; its lifetime row and window read (and a neighbour's) are
+    # their isolated engine's and window's.
+    e_t, o_t = hot // 2 - 3, hot // 2 - 2
+    wsvc = service(window_buckets=FLEET_WINDOW)
+    out_from, back_at = FLEET_WINDOW_TICKS // 2 - 1, FLEET_WINDOW_TICKS // 2 + 1
+    schedule = [[t for t in range(tenants) if not (t == e_t and out_from < tick < back_at)]
+                for tick in range(FLEET_WINDOW_TICKS)]
+
+    def windowed():
+        w_s = []
+        for tick, ids in enumerate(schedule):
+            if tick == back_at:
+                wsvc.restore(e_t)
+            for t in ids:
+                wsvc.submit(t, chunk(t, tick % req_per), t=float(tick))
+            sync(dev)
+            t1 = time.perf_counter()
+            wsvc.flush()
+            sync(dev)
+            w_s.append(time.perf_counter() - t1)
+            if tick == out_from:
+                wsvc.evict(e_t)
+        return w_s
+
+    w_s = run("serve window", windowed, "fourier_sketch_fleet")
+    last = float(FLEET_WINDOW_TICKS - 1)
+    read = wsvc.window.read(wsvc.window_state, last)
+    w_ok = {}
+    for t in (e_t, o_t):
+        ref = eng.tenant_engine(t)
+        win = SketchWindow(ref, FLEET_WINDOW)
+        st, ws = ref.init_state(), win.init_state()
+        for tick, ids in enumerate(schedule):
+            if t in ids:
+                xb = torch.as_tensor(chunk(t, tick % req_per)).to(dev)
+                st, ws = ref.update(st, xb), win.update(ws, xb, t=float(tick))
+        w_ok[t] = (_same_state(eng.tenant_state(wsvc.state, t), st),
+                   _same_state(eng.tenant_state(read, t), win.read(ws, last)))
+    print(f"[serve window] W={FLEET_WINDOW} over {FLEET_WINDOW_TICKS} ticks of {tenants} "
+          f"requests, tenant {e_t} evicted after tick {out_from} and restored at tick {back_at}: "
+          f"flush {statistics.median(w_s) * 1e3:.2f} ms a tick (median); lifetime row and window "
+          f"read bitwise the isolated engine's and window's: {w_ok}", flush=True)
+    check(all(a and b for a, b in w_ok.values()), f"serve window: {w_ok}")
+    del wsvc, read
+
+    # 7. A structured service (kernel 4 per tenant).
+    s_t = structured_tenants
+    seng = FleetEngine(fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2), device=dev)
+    s_reqs = [(t, c) for t, c in reqs if t < s_t]
+    ssvc, s_wall = run("serve structured flush", lambda: flushed(service(seng), s_reqs, False),
+                       "structured_sketch")
+    s_want = seng.ingest(seng.init_state(), [t for t, _ in s_reqs],
+                         torch.stack([torch.as_tensor(chunk(t, c)).to(dev) for t, c in s_reqs]))
+    s_row = seng.tenant_state(ssvc.state, 1)
+    ssvc.evict(1)
+    ssvc.restore(1)
+    s_ok = {"engine": _same_state(ssvc.state, s_want),
+            "evict/restore": _same_state(seng.tenant_state(ssvc.state, 1), s_row)}
+    s_dec = run("serve structured decode", lambda: ssvc.decode(1), "sketch_shift")
+    print(f"[serve structured] T={s_t}, {len(s_reqs)} requests: flush {s_wall * 1e3:.2f} ms; the "
+          f"engine's bits {s_ok}; a decode finite: {bool(torch.isfinite(s_dec.centroids).all())}",
+          flush=True)
+    check(all(s_ok.values()) and bool(torch.isfinite(s_dec.centroids).all()),
+          f"serve structured: {s_ok}")
+    peak = _peak_since(dev, base_mem)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[serve] {time.perf_counter() - t_phase:.1f}s; peak device memory {peak / 1e6:.1f} MB "
+          f"over the phase's start (one stacked float state {eng.state_bytes() / 1e6:.1f} MB, "
+          f"the stacked requests {len(reqs) * request_rows * dim * 4 / 1e6:.1f} MB)", flush=True)
+
+
+def diagnose_phases(dev, run, cfg, x, res, sample_rows=DIAG_SAMPLE):
+    """[diagnose]: ckm.diagnose on fits at N = 10^7: the default fit (with a
+    sample, so sigma_sweep re-sketches through kernel 1), and sketch_shift
+    fits at sigma^2 x 10^4 and x 10^-4, whose verdict must be
+    frequency_scale (decrease, increase)."""
+    from repro_torch.core import ckm
+
+    t_phase = time.perf_counter()
+    sample = x[:sample_rows]
+
+    def diag(label, r, **kw):
+        t1 = time.perf_counter()
+        d = run(f"diagnose {label}", lambda: ckm.diagnose(r, **kw),
+                ("sketch_shift", "fourier_sketch") if "sample" in kw else "sketch_shift")
+        wall = time.perf_counter() - t1
+        scores = {key: round(v, 4) for key, v in d.scores.items()}
+        print(f"[diagnose {label}] verdict {d.verdict}: {d.recommendation}; scores {scores}; "
+              f"half-sketch residuals {[round(h['rel_residual'], 4) for h in d.details['m_sweep']]}"
+              f"; {wall:.2f}s", flush=True)
+        return d
+
+    d = diag("fit", res, sample=sample)
+    rows = d.details["sigma_sweep"]
+    mods = [r["mean_modulus"] for r in rows]
+    print(f"[diagnose sigma_sweep] {sample_rows} rows at factors "
+          f"{[r['factor'] for r in rows]}: mean moduli {[round(v, 4) for v in mods]}, healthy "
+          f"{[r['healthy'] for r in rows]}", flush=True)
+    check(rows[1]["factor"] == 1.0 and rows[1]["healthy"], f"diagnose: sweep at 1 {rows[1]}")
+    check(mods[0] < mods[1] < mods[2], f"diagnose: moduli {mods} do not rise with the factor")
+    for label, scale, direction, word in (("sigma2 x 1e4", 1e4, "sigma2_too_large", "decrease"),
+                                          ("sigma2 x 1e-4", 1e-4, "sigma2_too_small", "increase")):
+        c = dataclasses.replace(cfg, decoder="sketch_shift", sigma2=float(res.sigma2) * scale)
+        r = run(f"fit-sketch_shift {label}", lambda c=c: ckm.fit(FIT_SEED, x, c, device=dev),
+                "sketch_shift")
+        d = diag(label, r)
+        check(d.verdict == "frequency_scale" and d.details["sigma_profile"]["direction"] == direction
+              and word in d.recommendation, f"diagnose {label}: {d.verdict}, {d.recommendation}")
+    print(f"[diagnose] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1637,7 +2068,8 @@ def main() -> None:
             name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         for name, n_launch in counts.items():
             launches[name] += n_launch
-        check(counts[needs] >= 1, f"{label} did not launch the {needs} kernel")
+        for need in (needs,) if isinstance(needs, str) else needs:
+            check(counts[need] >= 1, f"{label} did not launch the {need} kernel")
         print(f"[{label}] {secs:.2f}s  launches {counts}", flush=True)
         return out
 
@@ -1899,6 +2331,10 @@ def main() -> None:
     stream_device_phase(dev, run, cfg, batches)
     print(f"[stream-device] {time.perf_counter() - t0:.1f}s", flush=True)
     fleet_phases(dev, run, cfg, res.sigma2, results)
+
+    # 9e. The fleet's service, and ckm.diagnose at N = 10^7.
+    serve_phases(dev, run, cfg, res.sigma2)
+    diagnose_phases(dev, run, cfg, x, res)
 
     # 10. Per-kernel numbers.
     meta = {

@@ -9,8 +9,8 @@ The paper's pipeline is sketch -> decode behind one config:
     res = fit(0, x, CKMConfig(k=10, decoder="sketch_shift"))
 
 Submodules (``repro_torch.core.ckm``, ``.engine``, ``.quantize``, ...) stay
-importable for internals.  The reference's topology and ``diagnose`` exports
-are not ported yet.
+importable for internals.  The reference's topology exports are not ported
+yet (ROADMAP Queue 1 item 16).
 """
 
 from repro_torch.core.ckm import (
@@ -19,6 +19,7 @@ from repro_torch.core.ckm import (
     compute_sketch,
     compute_sketch_streaming,
     decode_sketch,
+    diagnose,
     fit,
     fit_streaming,
     predict,
@@ -61,6 +62,7 @@ __all__ = [
     "compute_sketch",
     "compute_sketch_streaming",
     "decode_sketch",
+    "diagnose",
     "fit",
     "fit_streaming",
     "predict",

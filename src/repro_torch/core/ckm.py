@@ -336,6 +336,18 @@ def fit_streaming(
     return CKMResult(cents, alphas, cost, sigma2, op, z, (lo, hi))
 
 
+def diagnose(result: CKMResult, **kwargs):
+    """Attribute a (possibly bad) fit to sketch size m, frequency scale
+    sigma, or the decoder — ``repro_torch.obs.diagnose.diagnose`` at the
+    pipeline API (``ckm.diagnose(ckm.fit(...))``).  Data-free: the probe
+    decodes run on the result's own sketch, on its device; see
+    :mod:`repro_torch.obs.diagnose` for the parameters and the verdicts.
+    """
+    from repro_torch.obs.diagnose import diagnose as obs_diagnose
+
+    return obs_diagnose(result, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Evaluation helpers (need data access — used for experiments only)
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""``repro_torch.obs`` — telemetry for the CKM stack (counterpart of
-``repro.obs``, less its diagnostics).
+"""``repro_torch.obs`` — telemetry and sketch-health diagnostics for the CKM
+stack (counterpart of ``repro.obs``).
 
 - :mod:`repro_torch.obs.runtime` — the master switch.  Everything below is
   inert until :func:`enable` flips the module-level ``runtime.ENABLED``
@@ -9,12 +9,24 @@
   span tracer with JSONL export and ``torch.profiler.record_function``
   pass-through.  The instrumented call sites live in ``core/engine.py``
   (update/merge/finalize), ``core/ingest.py`` (overlap accounting) and
-  ``core/ckm.py::decode_sketch`` (the decoders' convergence series).
+  ``core/ckm.py::decode_sketch`` (the decoders' convergence series) and
+  ``serve/fleet_service.py`` (flushes, the decode cache, drift).
+- :mod:`repro_torch.obs.diagnose` — ``ckm.diagnose(result)``: attribute a
+  bad fit to sketch size m, frequency scale sigma, or the decoder; plus the
+  O(m) :func:`sketch_drift` score ``FleetService.drift`` emits as a gauge.
 """
 
 from __future__ import annotations
 
 from repro_torch.obs import metrics, runtime, trace
+from repro_torch.obs.diagnose import (
+    Diagnosis,
+    diagnose,
+    matched_distance,
+    model_sketch,
+    sigma_sweep,
+    sketch_drift,
+)
 from repro_torch.obs.metrics import (
     REGISTRY,
     MetricsRegistry,
@@ -46,6 +58,13 @@ __all__ = [
     "series",
     "point",
     "export_jsonl",
+    # diagnostics
+    "Diagnosis",
+    "diagnose",
+    "sketch_drift",
+    "model_sketch",
+    "matched_distance",
+    "sigma_sweep",
     # submodules
     "metrics",
     "runtime",

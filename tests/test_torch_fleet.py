@@ -339,8 +339,8 @@ def test_operators_without_a_spec_raise():
 
 def test_core_exports_the_reference_fleet_names():
     """``repro_torch.core`` exports the reference's ``__all__`` except the
-    names of modules not ported yet (topologies, diagnose)."""
-    unported = {"diagnose", "TOPOLOGIES", "Topology", "StragglerMerger", "available_topologies",
+    names of modules not ported yet (topologies)."""
+    unported = {"TOPOLOGIES", "Topology", "StragglerMerger", "available_topologies",
                 "axis_reduce", "reduce_states", "register_topology", "wire_cost_model"}
     assert set(tcore.__all__) == set(jcore.__all__) - unported
     for name in ("FLEET_BACKENDS", "FleetEngine", "fleet_specs", "fleet_quantizers",
