@@ -49,7 +49,15 @@ async with the bits compared, decodes on demand against a hand-simulated
 LRU, 64 tenants evicted and restored bitwise, drift maintenance on a decayed
 service, a 1-bit, a windowed and a structured service); ckm.diagnose on the
 default fit (with the sigma sweep on 10^5 rows) and on sketch_shift fits at
-sigma^2 x 10^4 and x 10^-4 (``diagnose_phases``); one JSON line of per-kernel numbers,
+sigma^2 x 10^4 and x 10^-4 (``diagnose_phases``); the sharded backend
+(``sharded_phases``): at p = 1, an NCCL group of one rank, where float, 1-bit
+and decayed sharded engines under every topology, a structured one and
+ckm.fit with sketch_backend="sharded" give the "kernel" backend's and [fit]'s
+bits, with one update timed against the kernel backend's; at p = 4, four
+gloo rank processes on the one card (``_sharded_rank``), each sketching its
+block of the N points over a (4,) "data" and a (2, 2) ("pod", "data") mesh,
+held to the single card's sketch (float within the sketch bar, 1-bit
+bitwise, every rank bitwise rank 0), their launches counted in; one JSON line of per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
@@ -210,6 +218,13 @@ FLEET_DECODES, FLEET_STRUCTURED_T, FLEET_SEED = 4, 64, 5
 # re-sketches the first DIAG_SAMPLE rows of the data.
 SERVE_HOT, SERVE_HOT_REQUESTS, SERVE_CACHE, SERVE_EVICT, SERVE_SHIFT = 16, 16, 8, 64, 6.0
 DIAG_SAMPLE = 100_000
+# The sharded backend (core/engine.py "sharded", core/topology.py): at p = 1
+# an NCCL group of one rank over the fit's device batches (SHARDED_TICKS
+# decayed ticks), then SHARDED_RANKS gloo ranks on the one card, each
+# sketching its block of the N points; each rank process and its
+# collectives give up after SHARDED_TIMEOUT_S.
+SHARDED_TOPOLOGIES = ("allreduce", "tree", "ring")
+SHARDED_RANKS, SHARDED_TICKS, SHARDED_DECAY, SHARDED_TIMEOUT_S = 4, 10, 0.99, 300
 # A decoder's convergence series against its returned cost: the polish after
 # the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
 # is at most the last residual norm squared, and CL-AMP's cost per frequency
@@ -1825,6 +1840,227 @@ def diagnose_phases(dev, run, cfg, x, res, sample_rows=DIAG_SAMPLE):
     print(f"[diagnose] {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+def _same(a, b) -> bool:
+    """Two states (or tuples of tensors) bitwise equal, field by field."""
+    return type(a) is type(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def sharded_phases(dev, run, launches, cfg, x, batches, fit_res, sync=None, p1_backend="nccl"):
+    """[sharded p=1] and [sharded p=4]: the "sharded" SketchEngine and a
+    sharded fit.  p = 1: an NCCL group of one rank on a (1,) "data" mesh;
+    float (kernel 1), 1-bit (kernel 3) and decayed engines over the fit's
+    device batches under every topology, and a structured one (kernel 4),
+    each bitwise the "kernel" backend's (every collective is the identity);
+    one update timed against the kernel backend's; ckm.fit through the
+    sharded backend, bitwise [fit]'s centroids.  p = 4: SHARDED_RANKS gloo
+    processes on the one card (``_sharded_rank``), each sketching its block
+    of the N points; the states they save are checked here against the
+    single-card kernel backend, and their launch counts join ``launches``.
+    ``p1_backend="gloo"`` and ``sync`` let a CPU box rehearse the phases.
+    Neither is an interconnect measurement: one card, NCCL at one rank,
+    gloo through host memory."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import device as device_mod
+    from repro_torch.core import ckm
+    from repro_torch.core.engine import SketchEngine
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "sharded"
+    root.mkdir(parents=True, exist_ok=True)
+    for f in root.glob("*"):
+        f.unlink()
+    op, op_s = fit_res["fit"].freq_op, fit_res["fit-structured"].freq_op
+    quantizer = ckm.make_quantizer(device_mod.derive_seed(FIT_SEED, 0),
+                                   dataclasses.replace(cfg, sketch_quantization="1bit"), op.m, dev)
+
+    def fold(eng, ticks=False):
+        state = eng.init_state()
+        for t, b in enumerate(batches[:SHARDED_TICKS] if ticks else batches):
+            state = eng.update(state, b, **({"t": t} if ticks else {}))
+        return state
+
+    dist.init_process_group(p1_backend, init_method=f"file://{root}/init1", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+        variants = {"float": {}, "1bit": {"quantizer": quantizer},
+                    "decayed": {"decay": SHARDED_DECAY}}
+        for name in SHARDED_TOPOLOGIES:
+            pairs = {label: (SketchEngine(op, device=dev, **kw),
+                             SketchEngine(op, "sharded", device=dev, mesh=mesh,
+                                          reduce_topology=name, **kw))
+                     for label, kw in variants.items()}
+            want = {label: fold(k, label == "decayed") for label, (k, _) in pairs.items()}
+            got = run(f"sharded p=1 {name}",
+                      lambda: {label: fold(sh, label == "decayed") for label, (_, sh) in pairs.items()},
+                      ("fourier_sketch", "quantized_fourier_sketch"))
+            for label in variants:
+                check(_same(got[label], want[label]),
+                      f"sharded p=1 {name} {label}: not bitwise the kernel backend's state")
+            k_eng, sh_eng = pairs["float"]
+            s0 = k_eng.init_state()
+            k_ms = median_ms(lambda: k_eng.update(s0, batches[0]))
+            sh_ms = median_ms(lambda: sh_eng.update(s0, batches[0]))
+            print(f"[sharded p=1 {name}] float, 1-bit and decayed ({SHARDED_TICKS} ticks) states "
+                  f"over {len(batches)} batches of {batches[0].shape[0]} rows bitwise the kernel "
+                  f"backend's; one update {sh_ms:.3f} ms against {k_ms:.3f} ms "
+                  f"(collectives at p=1: {sh_ms - k_ms:+.3f} ms; {p1_backend}, one rank)",
+                  flush=True)
+        k_s = SketchEngine(op_s, device=dev)
+        sh_s = SketchEngine(op_s, "sharded", device=dev, mesh=mesh, reduce_topology="tree")
+        want = fold(k_s)
+        got = run("sharded p=1 structured", lambda: fold(sh_s), "structured_sketch")
+        check(_same(got, want), "sharded p=1 structured: not bitwise the kernel backend's state")
+        cfg_sh = dataclasses.replace(cfg, sketch_backend="sharded", reduce_topology="ring")
+        t0 = time.perf_counter()
+        r = run("sharded p=1 fit",
+                lambda: ckm.fit(FIT_SEED, x, cfg_sh, device=dev, mesh=mesh), "fourier_sketch")
+        wall = time.perf_counter() - t0
+        ref = fit_res["fit"]
+        for f in ("centroids", "weights", "cost", "sigma2", "sketch"):
+            check(torch.equal(getattr(r, f), getattr(ref, f)),
+                  f"sharded p=1 fit: {f} not bitwise [fit]'s")
+        print(f"[sharded p=1 fit] ckm.fit with sketch_backend='sharded' (ring) at N={x.shape[0]}: "
+              f"{wall:.2f}s; centroids, weights, cost, sigma2 and sketch bitwise [fit]'s",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # p = 4: the rank processes build their own data from DATA_SEED and
+    # load the kernels built above (no nvcc runs in them).
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ranks = SHARDED_RANKS
+    args = (str(root), dev.type, x.shape[0], op.w.cpu(), quantizer.dither.cpu())
+    ctx = mp.start_processes(_sharded_rank, args=args, nprocs=ranks, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"sharded p={ranks}: ranks still running after "
+                                               f"{SHARDED_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    spawn_s = time.perf_counter() - t0
+    saved = [torch.load(root / f"rank{r}.pt") for r in range(ranks)]
+    k_f = SketchEngine(op, device=dev)
+    k_q = SketchEngine(op, device=dev, quantizer=quantizer)
+    want_f = k_f.update(k_f.init_state(), x)
+    want_q = k_q.update(k_q.init_state(), x)
+    z_want, lo_want, hi_want = (t.cpu() for t in k_f.finalize(want_f))
+    sync(dev)
+    local = [s["ms"]["local"] for s in saved]
+    print(f"[sharded p={ranks} local] the kernel backend on each rank's block, every rank at once "
+          f"(no collective; the {ranks} processes' kernels share the card), host wall median of "
+          f"{TIMED_LAUNCHES}: rank 0 {local[0][0]:.3f} / {local[0][1]:.3f} ms, slowest rank "
+          f"{max(m[0] for m in local):.3f} / {max(m[1] for m in local):.3f} ms", flush=True)
+    for label, states in saved[0]["states"].items():
+        for r, other in enumerate(saved[1:], 1):
+            check(all(_same(a, b) for a, b in zip(states, other["states"][label])),
+                  f"sharded p={ranks} {label}: rank {r}'s states are not rank 0's")
+        f_state, q_state = states
+        z, lo, hi = k_f.finalize(type(want_f)(*(t.to(dev) for t in f_state)))
+        dz = float(torch.amax(torch.abs(z.cpu() - z_want)))
+        check(dz <= SKETCH_TOL, f"sharded p={ranks} {label}: |z - z_single| {dz:.2e} > {SKETCH_TOL}")
+        check(torch.equal(lo.cpu(), lo_want) and torch.equal(hi.cpu(), hi_want),
+              f"sharded p={ranks} {label}: bounds differ from the single card's")
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(q_state, want_q)),
+              f"sharded p={ranks} {label}: 1-bit state not bitwise the single card's kernel 3 sums")
+        ms = [s["ms"][label] for s in saved]
+        print(f"[sharded p={ranks} {label}] {saved[0]['rows']} rows a rank: float |z - z_single| "
+              f"{dz:.2e} (tol {SKETCH_TOL}), bounds equal, 1-bit sums bitwise the single card's, "
+              f"every rank bitwise rank 0; one update (float / 1-bit), gloo through the host on "
+              f"one card, host wall median of {TIMED_LAUNCHES}: rank 0 {ms[0][0]:.3f} / "
+              f"{ms[0][1]:.3f} ms, slowest rank {max(m[0] for m in ms):.3f} / "
+              f"{max(m[1] for m in ms):.3f} ms", flush=True)
+    counts = {name: sum(s["launches"][name] for s in saved) for name in saved[0]["launches"]}
+    for name, n_launch in counts.items():
+        check(all(s["launches"][name] >= 1 for s in saved),
+              f"sharded p={ranks}: a rank did not launch the {name} kernel")
+        launches[name] += n_launch
+    print(f"[sharded p={ranks}] {ranks} gloo ranks on one {dev.type} device, spawned and joined in "
+          f"{spawn_s:.1f}s; their launches {counts}; gloo stages all_reduce and broadcast "
+          f"through the host itself, and the tree's and ring's sends and receives go through "
+          f"host copies (core/topology.py _exchange)", flush=True)
+    for f in root.glob("*"):
+        f.unlink()
+    print(f"[sharded] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def _sharded_rank(rank, root, dev_type, n_rows, w, dither) -> None:
+    """One rank of [sharded p=4]: a gloo process on the card that builds the
+    smoke's data from DATA_SEED, takes its block through ``shard_points``,
+    folds it through a float and a 1-bit sharded engine under every
+    topology over a (4,) "data" mesh and once over a (2, 2) ("pod", "data")
+    mesh, and saves the states (on the host), its launch counts of kernels 1
+    and 3, and one update's host wall time for each engine and for the
+    kernel backend on the same block."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import device as device_mod
+    from repro_torch.core import quantize
+    from repro_torch.core.engine import SketchEngine
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fourier_sketch as fs
+
+    dev = device_mod.resolve(dev_type)
+    ranks = SHARDED_RANKS
+    dist.init_process_group("gloo", init_method=f"file://{root}/init{ranks}", rank=rank,
+                            world_size=ranks,
+                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        x = synthetic.gaussian_mixture(DATA_SEED, n_rows, K, DIM, device=dev)
+        w, q = w.to(dev), quantize.SketchQuantizer(1, dither.to(dev))
+        flat = init_device_mesh(dev.type, (ranks,), mesh_dim_names=("data",))
+        pod = init_device_mesh(dev.type, (2, ranks // 2), mesh_dim_names=("pod", "data"))
+        runs = [(name, flat, ("data",), name) for name in SHARDED_TOPOLOGIES]
+        runs.append(("(2,2) pod,data allreduce", pod, ("pod", "data"), "allreduce"))
+        fs.LAUNCHES = fs.QUANTIZED_LAUNCHES = 0
+        states, engs = {}, {}
+        for label, mesh, axes, name in runs:
+            pair = tuple(SketchEngine(w, "sharded", device=dev, mesh=mesh, data_axes=axes,
+                                      quantizer=quant, reduce_topology=name)
+                         for quant in (None, q))
+            xs = pair[0].shard_points(x)
+            states[label] = tuple(tuple(t.cpu() for t in e.update(e.init_state(), xs))
+                                  for e in pair)
+            engs[label] = (pair, xs)
+        launches = {"fourier_sketch": fs.LAUNCHES, "quantized_fourier_sketch": fs.QUANTIZED_LAUNCHES}
+
+        def update_ms(e, xs):
+            """Host wall median of one update, every rank timing at once."""
+            s0 = e.init_state()
+            dist.barrier()
+            times = []
+            for _ in range(TIMED_LAUNCHES + 1):
+                t0 = time.perf_counter()
+                e.update(s0, xs)
+                device_mod.sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times[1:])
+
+        ms = {label: [update_ms(e, xs) for e in pair] for label, (pair, xs) in engs.items()}
+        # The kernel backend on the same block: the sketch alone, no
+        # collective, with the other ranks' kernels sharing the card.
+        xs = engs[SHARDED_TOPOLOGIES[0]][1]
+        ms["local"] = [update_ms(SketchEngine(w, device=dev, quantizer=quant), xs)
+                       for quant in (None, q)]
+        torch.save({"states": states, "launches": launches, "ms": ms, "rows": xs.shape[0]},
+                   f"{root}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2335,6 +2571,9 @@ def main() -> None:
     # 9e. The fleet's service, and ckm.diagnose at N = 10^7.
     serve_phases(dev, run, cfg, res.sigma2)
     diagnose_phases(dev, run, cfg, x, res)
+
+    # 9f. The sharded backend: NCCL at one rank, then gloo ranks on the card.
+    sharded_phases(dev, run, launches, cfg, x, batches, fit_res)
 
     # 10. Per-kernel numbers.
     meta = {

@@ -8,9 +8,8 @@ The paper's pipeline is sketch -> decode behind one config:
 
     res = fit(0, x, CKMConfig(k=10, decoder="sketch_shift"))
 
-Submodules (``repro_torch.core.ckm``, ``.engine``, ``.quantize``, ...) stay
-importable for internals.  The reference's topology exports are not ported
-yet (ROADMAP Queue 1 item 16).
+Submodules (``repro_torch.core.ckm``, ``.engine``, ``.quantize``,
+``.topology``, ``.distributed_sketch``, ...) stay importable for internals.
 """
 
 from repro_torch.core.ckm import (
@@ -54,6 +53,16 @@ from repro_torch.core.freq_ops import (
     register_freq_op,
 )
 from repro_torch.core.ingest import BatchSource, IngestStats, ingest_stream, prefetched
+from repro_torch.core.topology import (
+    TOPOLOGIES,
+    StragglerMerger,
+    Topology,
+    available_topologies,
+    axis_reduce,
+    reduce_states,
+    register_topology,
+    wire_cost_model,
+)
 from repro_torch.core.window import SketchWindow, WindowState
 
 __all__ = [
@@ -93,4 +102,12 @@ __all__ = [
     "IngestStats",
     "ingest_stream",
     "prefetched",
+    "TOPOLOGIES",
+    "StragglerMerger",
+    "Topology",
+    "available_topologies",
+    "axis_reduce",
+    "reduce_states",
+    "register_topology",
+    "wire_cost_model",
 ]

@@ -17,6 +17,15 @@ The pipeline is the paper's four steps:
 Replicates run one after another and the one with the lowest sketch-domain
 cost (4) wins — the SSE is not available once the data is discarded.
 
+Sharded fits (``sketch_backend="sharded"``, ``mesh=`` a ``DeviceMesh``): SPMD,
+one process per device, each passing its own rows (or batches).  The sigma^2
+sample is the first ``min(sigma2_sample, rows)`` rows of the mesh's rank 0
+(the global first rows, which lie in its block), broadcast to every rank, so
+every rank draws the same sigma^2 and operator; the sketch reduces over the
+mesh's data axes; the decode runs once, on rank 0, and its centroids,
+weights and cost are broadcast.  Every rank returns the same ``CKMResult``.
+The ``"sample"``/``"kpp"`` inits draw from rank 0's own rows.
+
 Randomness: a fit takes an integer ``seed``.  :func:`stream_keys` fans it out
 into the sketch pass's three generators ``(sigma2, frequencies, dither)`` —
 so turning quantization on does not move sigma^2 or the frequencies —
@@ -36,6 +45,7 @@ from repro_torch.core import decoders as dec_mod
 from repro_torch.core import freq_ops as fo
 from repro_torch.core import frequencies as freq_mod
 from repro_torch.core import quantize as qz
+from repro_torch.core import topology as topo
 from repro_torch.core.decoders import AMPConfig, CLOMPRConfig, SketchShiftConfig
 from repro_torch.core.engine import SketchEngine
 from repro_torch.kernels import ops as kops
@@ -66,8 +76,16 @@ class CKMConfig:
     final_steps: int = 1000
     merge_radius_scale: float = 2.5
     # Sketch-computation backend (core.engine.BACKENDS): "kernel", the fused
-    # CUDA kernel (plain PyTorch version on the CPU).
+    # CUDA kernel (plain PyTorch version on the CPU), or "sharded", the same
+    # kernels on each rank's rows and a reduction over a DeviceMesh passed to
+    # fit()/compute_sketch() as mesh=.
     sketch_backend: str = "kernel"
+    # Cross-device merge schedule of the sharded backend (and of host-level
+    # reduce_partials): any name registered in core.topology — "allreduce"
+    # (native all_reduce), "tree" (butterfly, log2 p hops), "ring" (token
+    # passing).  Every topology produces the same sketch (bitwise when
+    # quantized); the choice trades wire bytes vs hop count.
+    reduce_topology: str = "allreduce"
     # Streaming ingest mode for fit_streaming: "sync" feeds the engine batch
     # by batch; "async" overlaps batch production and the host-to-device copy
     # with the sketch through core.ingest (a producer thread, pinned buffers
@@ -187,10 +205,41 @@ def make_quantizer(seed: int, cfg: CKMConfig, m: int, device=dev_mod.DEFAULT):
     return qz.make_quantizer(g_dither, m, cfg.sketch_quantization)
 
 
-def make_engine(w, cfg: CKMConfig, device=dev_mod.DEFAULT, quantizer=None) -> SketchEngine:
-    """The SketchEngine for ``cfg`` on ``device``."""
-    return SketchEngine(w, cfg.sketch_backend, device=device, quantizer=quantizer,
+def make_engine(w, cfg: CKMConfig, device=dev_mod.DEFAULT, quantizer=None,
+                mesh=None) -> SketchEngine:
+    """The SketchEngine for ``cfg`` on ``device`` — backend, quantization,
+    decay and the merge topology are config flags; ``mesh`` is the sharded
+    backend's."""
+    return SketchEngine(w, cfg.sketch_backend, device=device, mesh=mesh,
+                        quantizer=quantizer, reduce_topology=cfg.reduce_topology,
                         decay=cfg.decay)
+
+
+def _from_root(t: torch.Tensor | None, mesh, dtype, tail: tuple[int, ...], dev) -> torch.Tensor:
+    """Rank 0's ``t`` (leading length, then ``tail``) on every rank of
+    ``mesh``, as ``dtype``; other ranks pass ``None``.  The length travels
+    first."""
+    root = t is not None
+    size = torch.tensor([t.shape[0] if root else 0], dtype=torch.int64, device=dev)
+    size = topo.axis_broadcast(size, mesh, mesh.mesh_dim_names)
+    buf = (t.to(dtype).contiguous() if root
+           else torch.empty((int(size[0]), *tail), dtype=dtype, device=dev))
+    return topo.axis_broadcast(buf, mesh, mesh.mesh_dim_names)
+
+
+def _is_root(mesh) -> bool:
+    return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
+
+
+def _sigma2_sample(x: torch.Tensor, cfg: CKMConfig, mesh, dev) -> torch.Tensor:
+    """The rows sigma^2 is estimated from: ``x`` itself on one device; on a
+    mesh, rank 0's first ``min(sigma2_sample, rows)`` rows, on every rank."""
+    if cfg.sketch_backend != "sharded" or cfg.sigma2 is not None:
+        return x
+    if mesh is None:
+        raise ValueError("sketch_backend='sharded' requires a mesh")
+    rows = x[: cfg.sigma2_sample] if _is_root(mesh) else None
+    return _from_root(rows, mesh, torch.float32, (x.shape[1],), dev)
 
 
 def _draw_freqs(seed: int, sample: torch.Tensor, n: int, cfg: CKMConfig, dev):
@@ -213,18 +262,21 @@ def _f32_on(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
 
 
-def compute_sketch(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DEFAULT):
-    """Steps 1–3 -> ``(z, op, sigma2, (lower, upper))``."""
+def compute_sketch(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DEFAULT,
+                   mesh=None):
+    """Steps 1–3 -> ``(z, op, sigma2, (lower, upper))``.  Sharded: ``x`` is
+    this rank's rows, and the result is the whole mesh's, on every rank."""
     dev = dev_mod.resolve(device)
     x = _f32_on(x, dev)
-    op, sigma2 = _draw_freqs(seed, x, x.shape[1], cfg, dev)
+    op, sigma2 = _draw_freqs(seed, _sigma2_sample(x, cfg, mesh, dev), x.shape[1], cfg, dev)
     quantizer = make_quantizer(seed, cfg, op.m, dev)
-    z, lo, hi = make_engine(op, cfg, dev, quantizer).sketch(x)
+    z, lo, hi = make_engine(op, cfg, dev, quantizer, mesh).sketch(x)
     return z, op, sigma2, (lo, hi)
 
 
 def compute_sketch_streaming(
-    seed: int, batches: Iterable[torch.Tensor], cfg: CKMConfig, device=dev_mod.DEFAULT
+    seed: int, batches: Iterable[torch.Tensor], cfg: CKMConfig, device=dev_mod.DEFAULT,
+    mesh=None,
 ):
     """One-pass sketch of a batch iterator.
 
@@ -234,7 +286,9 @@ def compute_sketch_streaming(
     (the O(m)-memory contract).  ``cfg.ingest="async"`` folds the batches
     after the first through ``core.ingest.ingest_stream`` (same batches,
     same order, the same bits).  Returns ``(z, op, sigma2, (lower, upper),
-    first_batch)``.
+    first_batch)``.  Sharded: the batches are this rank's, sigma^2 comes
+    from rank 0's first batch, and every rank must fold the same number of
+    batches (an empty one where it has no rows).
     """
     if cfg.ingest not in ("sync", "async"):
         raise ValueError(f"CKMConfig.ingest must be 'sync' or 'async', got {cfg.ingest!r}")
@@ -244,8 +298,9 @@ def compute_sketch_streaming(
         first = _f32_on(next(it), dev)
     except StopIteration:
         raise ValueError("compute_sketch_streaming needs at least one batch") from None
-    op, sigma2 = _draw_freqs(seed, first, first.shape[1], cfg, dev)
-    eng = make_engine(op, cfg, dev, make_quantizer(seed, cfg, op.m, dev))
+    op, sigma2 = _draw_freqs(seed, _sigma2_sample(first, cfg, mesh, dev), first.shape[1],
+                             cfg, dev)
+    eng = make_engine(op, cfg, dev, make_quantizer(seed, cfg, op.m, dev), mesh)
     state = eng.update(eng.init_state(), first)
     if cfg.ingest == "async":
         from repro_torch.core import ingest as ingest_mod
@@ -308,30 +363,50 @@ def decode_sketch(
     return best[:3]
 
 
-def fit(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DEFAULT) -> CKMResult:
-    """End-to-end compressive K-means on an in-memory dataset."""
+def _decode_once(seed, z, op, lo, hi, cfg: CKMConfig, x_init, dev, mesh):
+    """Step 4 of a fit: on one device, ``decode_sketch``; sharded, the decode
+    runs on the mesh's rank 0 and its ``(centroids, weights, cost)`` are
+    broadcast, so every rank returns the same bits."""
+    if cfg.sketch_backend != "sharded":
+        return decode_sketch(seed, z, op, lo, hi, cfg, x_init, dev)
+    packed = None
+    if _is_root(mesh):
+        cents, alphas, cost = decode_sketch(seed, z, op, lo, hi, cfg, x_init, dev)
+        packed = torch.cat([cents.reshape(-1), alphas, cost.reshape(1)])
+    packed = _from_root(packed, mesh, torch.float32, (), dev)
+    n = lo.shape[0]
+    k = (packed.shape[0] - 1) // (n + 1)
+    return packed[: k * n].reshape(k, n), packed[k * n : k * n + k], packed[-1]
+
+
+def fit(seed: int, x: torch.Tensor, cfg: CKMConfig, device=dev_mod.DEFAULT,
+        mesh=None) -> CKMResult:
+    """End-to-end compressive K-means on an in-memory dataset (sharded: this
+    rank's rows; see the module doc)."""
     dev = dev_mod.resolve(device)
     x = _f32_on(x, dev)
-    z, op, sigma2, (lo, hi) = compute_sketch(dev_mod.derive_seed(seed, 0), x, cfg, dev)
+    z, op, sigma2, (lo, hi) = compute_sketch(dev_mod.derive_seed(seed, 0), x, cfg, dev, mesh)
     x_init = x if cfg.init in ("sample", "kpp") else None
-    cents, alphas, cost = decode_sketch(
-        dev_mod.derive_seed(seed, 1), z, op, lo, hi, cfg, x_init, dev
+    cents, alphas, cost = _decode_once(
+        dev_mod.derive_seed(seed, 1), z, op, lo, hi, cfg, x_init, dev, mesh
     )
     return CKMResult(cents, alphas, cost, sigma2, op, z, (lo, hi))
 
 
 def fit_streaming(
-    seed: int, batches: Iterable[torch.Tensor], cfg: CKMConfig, device=dev_mod.DEFAULT
+    seed: int, batches: Iterable[torch.Tensor], cfg: CKMConfig, device=dev_mod.DEFAULT,
+    mesh=None,
 ) -> CKMResult:
     """End-to-end CKM over an iterator of ``(B_i, n)`` batches: one pass, O(m)
-    memory.  The "sample"/"kpp" inits draw from the first batch only."""
+    memory.  The "sample"/"kpp" inits draw from the first batch only (rank
+    0's, sharded)."""
     dev = dev_mod.resolve(device)
     z, op, sigma2, (lo, hi), first = compute_sketch_streaming(
-        dev_mod.derive_seed(seed, 0), batches, cfg, dev
+        dev_mod.derive_seed(seed, 0), batches, cfg, dev, mesh
     )
     x_init = first if cfg.init in ("sample", "kpp") else None
-    cents, alphas, cost = decode_sketch(
-        dev_mod.derive_seed(seed, 1), z, op, lo, hi, cfg, x_init, dev
+    cents, alphas, cost = _decode_once(
+        dev_mod.derive_seed(seed, 1), z, op, lo, hi, cfg, x_init, dev, mesh
     )
     return CKMResult(cents, alphas, cost, sigma2, op, z, (lo, hi))
 

@@ -27,8 +27,19 @@ Backend: ``"kernel"`` — the batch sums go through ``kernels.ops``, which runs
 the fused CUDA kernel of the operator's family (dense or structured, float or
 quantized) on a CUDA tensor and its plain PyTorch version on a CPU tensor.
 It is the counterpart of the reference's ``"pallas"`` backend.  An operator
-family with no kernel is refused when the engine is built.  The reference's
-``"sharded"`` backend and topology schedules are not ported yet.
+family with no kernel is refused when the engine is built.
+
+Backend ``"sharded"`` (``mesh=``, a ``torch.distributed`` ``DeviceMesh``):
+SPMD, one process per device.  Each rank passes its own rows to ``update``
+(``shard_points`` cuts this rank's block out of a global batch), sketches
+them through the same kernels, and the partial's sums, weight, count and
+bounds are reduced over ``data_axes`` with ``core.topology.axis_reduce``
+under ``reduce_topology``: the engine's ``merge`` as a collective.  The
+reduced partial is the same on every rank (the counterpart of the
+reference's replicated ``out_specs=P()``), and a quantized partial reduces
+its int32 code sums as integers.  A rank may hold no rows: it contributes
+the identity and still joins every collective.  There is no padding: the
+reference pads ragged batches for ``shard_map``, the port splits them.
 
 Decayed states: ``SketchEngine(decay=gamma)`` (0 < gamma <= 1) swaps the
 state for its time-decayed twin.  Each state carries ``stamp``, the tick of
@@ -52,12 +63,15 @@ from __future__ import annotations
 from typing import Iterable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as dev_mod
 from repro_torch.core import freq_ops as fo
 from repro_torch.core import quantize as qz
+from repro_torch.core import topology as topo
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import runtime as obs_rt
+from repro_torch.parallel.sharding import axis_extent
 
 __all__ = [
     "SketchEngineState",
@@ -68,7 +82,7 @@ __all__ = [
     "BACKENDS",
 ]
 
-BACKENDS = ("kernel",)
+BACKENDS = ("kernel", "sharded")
 
 
 class SketchEngineState(NamedTuple):
@@ -297,6 +311,38 @@ def _kernel_operator(op: fo.FrequencyOperator) -> fo.FrequencyOperator:
     )
 
 
+def _check_mesh(mesh, data_axes: tuple[str, ...], device: torch.device) -> None:
+    """Refuse a sharded engine that could not reduce: no process group, a
+    mesh on another device type, or a data axis the mesh lacks."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "backend='sharded' needs an initialised torch.distributed process "
+            "group (dist.init_process_group, then init_device_mesh)"
+        )
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"the mesh's device type {mesh.device_type!r} is not the engine's "
+            f"device {str(device)!r}"
+        )
+    missing = [a for a in data_axes if a not in (mesh.mesh_dim_names or ())]
+    if missing:
+        raise ValueError(
+            f"data axes {missing} are not axes of the mesh {mesh.mesh_dim_names}"
+        )
+
+
+def rank_block(x: torch.Tensor, mesh, data_axes) -> torch.Tensor:
+    """This rank's block of ``x``'s leading axis, split by ``torch.tensor_split``
+    over the extent of ``data_axes``; the block index is the rank's
+    coordinates on those axes, the first axis major (the reference's
+    ``P(data_axes)`` placement).  Ranks that differ only on other axes get
+    the same block."""
+    idx = 0
+    for a in data_axes:
+        idx = idx * axis_extent(mesh, (a,)) + mesh.get_local_rank(a)
+    return torch.tensor_split(x, axis_extent(mesh, data_axes))[idx]
+
+
 class SketchEngine:
     """Streaming/mergeable sketch computation.
 
@@ -313,6 +359,16 @@ class SketchEngine:
         time-decayed state: ``update`` takes a keyword ``t``, merging scales
         the older operand by ``gamma**dt`` first (see the module doc).
         ``decay=1.0`` keeps timestamps and decays nothing.
+    mesh : the ``DeviceMesh`` of the ``"sharded"`` backend (required there);
+        its device type must be the engine's, and the process group must be
+        initialised.
+    data_axes : the mesh axes the rows are split over; any other axis holds
+        replicas.
+    reduce_topology : the merge schedule of the sharded backend's collective
+        and of :meth:`reduce_partials` — any name registered in
+        ``core.topology`` (``"allreduce"`` | ``"tree"`` | ``"ring"``).  Every
+        schedule gives the same sketch (bitwise on the quantized path); the
+        choice trades wire bytes against hops (``topology.wire_cost_model``).
     """
 
     def __init__(
@@ -321,14 +377,25 @@ class SketchEngine:
         backend: str = "kernel",
         *,
         device=dev_mod.DEFAULT,
+        mesh=None,
+        data_axes=("data",),
         quantizer: qz.SketchQuantizer | None = None,
+        reduce_topology: str = "allreduce",
         decay: float | None = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if backend == "sharded" and mesh is None:
+            raise ValueError("backend='sharded' requires a mesh")
         if decay is not None and not 0.0 < float(decay) <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {decay!r}")
+        topo.get_topology(reduce_topology)  # fail fast on unknown names
         self.device = dev_mod.resolve(device)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.reduce_topology = reduce_topology
+        if backend == "sharded":
+            _check_mesh(mesh, self.data_axes, self.device)
         op = fo.as_operator(w).to(self.device)
         self.freq_op = op
         self.n, self.m = op.n, op.m
@@ -508,6 +575,14 @@ class SketchEngine:
         h.merge_calls.inc()
         return out
 
+    def reduce_partials(self, states, topology: str | None = None):
+        """Reduce many partial states through a named merge schedule — the
+        host-level counterpart of the sharded backend's collective: partials
+        built anywhere are folded with ``merge`` following the engine's
+        ``reduce_topology`` (or ``topology``).  Any schedule and any arrival
+        order give the same state — bitwise for quantized int32 partials."""
+        return topo.reduce_states(self.merge, states, topology or self.reduce_topology)
+
     def finalize(self, state):
         """-> ``(z stacked-real (2m,), lower (n,), upper (n,))``.
 
@@ -565,7 +640,64 @@ class SketchEngine:
             state = self.update(state, batch)
         return self.finalize(state)
 
+    def shard_points(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous block of a global ``(N, n)`` batch that every
+        rank holds: the blocks of ``torch.tensor_split`` over the data-axis
+        extent (ragged N is fine; a block may be empty), in the order of the
+        rank's coordinates on ``data_axes``."""
+        if self.mesh is None:
+            raise ValueError("shard_points needs the 'sharded' backend's mesh")
+        return rank_block(x, self.mesh, self.data_axes)
+
+    def _reduce(self, v: torch.Tensor, op: str) -> torch.Tensor:
+        return topo.axis_reduce(v, self.mesh, self.data_axes, self.reduce_topology, op)
+
+    def _sharded_bounds(self, x: torch.Tensor):
+        """``(lower, upper)`` over every rank's rows in one collective: the min
+        of ``[lower, -upper]`` (negation is exact); an empty shard gives
+        ``+inf`` for both halves, the identity."""
+        n = self.n
+        if x.shape[0]:
+            local = torch.cat([torch.amin(x, dim=0), -torch.amax(x, dim=0)])
+        else:
+            local = torch.full((2 * n,), float("inf"), dtype=torch.float32, device=self.device)
+        b = self._reduce(local, "min")
+        return b[:n], -b[n:]
+
+    def _sharded_batch_state(self, x: torch.Tensor, weights: torch.Tensor) -> SketchEngineState:
+        """Sketch this rank's rows (kernel 1 or 4 on the card), then reduce the
+        trig sums, the weight sum and the count in one sum collective and the
+        bounds in one min collective over the data axes."""
+        m = self.m
+        if x.shape[0]:
+            cos_s, sin_s = kops.fourier_sketch_sums(x, self._kop, weights)
+            rows = torch.tensor([float(x.shape[0])], dtype=torch.float32, device=self.device)
+            local = torch.cat([cos_s, sin_s, torch.sum(weights)[None], rows])
+        else:  # no rows here: the identity, and still every collective
+            local = torch.zeros((2 * m + 2,), dtype=torch.float32, device=self.device)
+        sums = self._reduce(local, "sum")
+        lo, hi = self._sharded_bounds(x)
+        return SketchEngineState(sums[:m], sums[m : 2 * m], sums[2 * m], lo, hi, sums[2 * m + 1])
+
+    def _sharded_quantized_batch_state(self, x: torch.Tensor) -> QuantizedSketchEngineState:
+        """The bandwidth-aware twin: the int32 code sums and the row count
+        reduce as integers (bitwise under every topology), the bounds as
+        above.  ``finalize`` checks the reduced, global count."""
+        q, m = self.quantizer, self.m
+        if x.shape[0]:
+            qcos, qsin = kops.quantized_fourier_sketch_sums(x, self._kop, q.dither, q.bits)
+            rows = torch.tensor([x.shape[0]], dtype=torch.int32, device=self.device)
+            local = torch.cat([qcos, qsin, rows])
+        else:
+            local = torch.zeros((2 * m + 1,), dtype=torch.int32, device=self.device)
+        ints = self._reduce(local, "sum")
+        lo, hi = self._sharded_bounds(x)
+        n_pts = ints[2 * m].to(torch.float32)
+        return QuantizedSketchEngineState(ints[:m], ints[m : 2 * m], n_pts, lo, hi, n_pts)
+
     def _batch_state(self, x: torch.Tensor, weights: torch.Tensor) -> SketchEngineState:
+        if self.backend == "sharded":
+            return self._sharded_batch_state(x, weights)
         cos_s, sin_s = kops.fourier_sketch_sums(x, self._kop, weights)
         return SketchEngineState(
             cos_acc=cos_s,
@@ -577,6 +709,8 @@ class SketchEngine:
         )
 
     def _quantized_batch_state(self, x: torch.Tensor) -> QuantizedSketchEngineState:
+        if self.backend == "sharded":
+            return self._sharded_quantized_batch_state(x)
         q = self.quantizer
         qcos, qsin = kops.quantized_fourier_sketch_sums(x, self._kop, q.dither, q.bits)
         n_pts = torch.tensor(float(x.shape[0]), dtype=torch.float32, device=self.device)

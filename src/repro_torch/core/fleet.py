@@ -32,7 +32,7 @@ order, so each tenant's partials combine in exactly its isolated engine's
 order.
 
 Sharding: ``sharding="none"`` only; the reference's tenant mesh waits for
-the port's topologies and sharded backend (ROADMAP Queue 1 item 16).
+its own design over the port's process groups (ROADMAP Queue 1 item 16(c)).
 The reference's fleet has no telemetry hooks, and neither has this one.
 """
 
@@ -66,8 +66,10 @@ __all__ = [
     "stack_operators",
 ]
 
-# The per-tenant trace the fleet batches: the engine's one backend.
-FLEET_BACKENDS = eng_mod.BACKENDS
+# The per-tenant trace the fleet batches: the engine's single-device
+# backend (the reference's fleet takes "xla" and "pallas", never "sharded":
+# a fleet shards tenants, not rows).
+FLEET_BACKENDS = ("kernel",)
 
 # How the stacked state is placed: "none" keeps every tenant row on one
 # device; "mesh" (the reference's tenant mesh) is not ported yet.
@@ -161,8 +163,8 @@ class FleetEngine:
         each, one bit width) — switches to the int32 state twin.
     decay : optional per-tick decay base gamma in (0, 1], shared by every
         tenant — switches to the timestamped decayed twin (stamps ``(T,)``).
-    sharding : ``"none"``; ``"mesh"`` raises until the sharded backend is
-        ported.
+    sharding : ``"none"``; ``"mesh"`` raises until the fleet's own mesh
+        design is ported (ROADMAP Queue 1 item 16(c)).
     device : where the stacked state, operators and dither live (default
         the CUDA card; raises without one unless ``device="cpu"``).
     """
@@ -183,8 +185,9 @@ class FleetEngine:
             raise ValueError(f"fleet sharding must be one of {FLEET_SHARDINGS}, got {sharding!r}")
         if sharding == "mesh":
             raise NotImplementedError(
-                "FleetEngine(sharding='mesh') needs the port's topologies and sharded "
-                "backend (ROADMAP Queue 1 item 16); use sharding='none'"
+                "FleetEngine(sharding='mesh') is not ported: the tenant mesh needs its "
+                "own design over process groups (ROADMAP Queue 1 item 16(c)); use "
+                "sharding='none'"
             )
         if decay is not None and not 0.0 < float(decay) <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {decay!r}")

@@ -39,7 +39,7 @@ re-enter the ring.
 
 Sharding: the port's fleet runs on one device (``tenant_shards == 1``), so a
 flush needs no shard partition; :func:`shard_partition` is here for the
-mesh-sharded fleet (ROADMAP Queue 1 item 16).
+mesh-sharded fleet (ROADMAP Queue 1 item 16(c)).
 """
 
 from __future__ import annotations

@@ -338,11 +338,9 @@ def test_operators_without_a_spec_raise():
 
 
 def test_core_exports_the_reference_fleet_names():
-    """``repro_torch.core`` exports the reference's ``__all__`` except the
-    names of modules not ported yet (topologies)."""
-    unported = {"TOPOLOGIES", "Topology", "StragglerMerger", "available_topologies",
-                "axis_reduce", "reduce_states", "register_topology", "wire_cost_model"}
-    assert set(tcore.__all__) == set(jcore.__all__) - unported
+    """``repro_torch.core`` exports the reference's ``__all__``, the
+    topology names included."""
+    assert set(tcore.__all__) == set(jcore.__all__)
     for name in ("FLEET_BACKENDS", "FleetEngine", "fleet_specs", "fleet_quantizers",
                  "FreqOpSpec"):
         assert hasattr(tcore, name)
