@@ -57,7 +57,15 @@ bits, with one update timed against the kernel backend's; at p = 4, four
 gloo rank processes on the one card (``_sharded_rank``), each sketching its
 block of the N points over a (4,) "data" and a (2, 2) ("pod", "data") mesh,
 held to the single card's sketch (float within the sketch bar, 1-bit
-bitwise, every rank bitwise rank 0), their launches counted in; one JSON line of per-kernel numbers,
+bitwise, every rank bitwise rank 0), their launches counted in; the tenant
+mesh (``fleet_mesh_phases``: FleetEngine(sharding="mesh") at the fleet's
+width, 4 blocks on the one card and the default one-card mesh, float, 1-bit
+and decayed, every row bitwise the unsharded fleet's, kernel 1's (3's) fleet
+entry launched once a block, no peer copy and no torch.distributed call, a
+structured mesh fleet) and its service (``serve_mesh_phases``: 4096 host
+requests shard-routed sync and async, decodes, evict/restore, bitwise the
+unsharded service); the three examples of ``repro_torch.examples`` at their
+default sizes (``examples_phase``); one JSON line of per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
@@ -223,6 +231,10 @@ DIAG_SAMPLE = 100_000
 # decayed ticks), then SHARDED_RANKS gloo ranks on the one card, each
 # sketching its block of the N points; each rank process and its
 # collectives give up after SHARDED_TIMEOUT_S.
+# The tenant mesh (core/fleet.py sharding="mesh"): MESH_SHARDS blocks of the
+# [fleet] width's tenants, all on the one card (placement and routing, not
+# concurrency), beside the default one-card mesh.
+MESH_SHARDS = 4
 SHARDED_TOPOLOGIES = ("allreduce", "tree", "ring")
 SHARDED_RANKS, SHARDED_TICKS, SHARDED_DECAY, SHARDED_TIMEOUT_S = 4, 10, 0.99, 300
 # A decoder's convergence series against its returned cost: the polish after
@@ -2061,6 +2073,344 @@ def _sharded_rank(rank, root, dev_type, n_rows, w, dither) -> None:
         dist.destroy_process_group()
 
 
+def _refusing_collectives():
+    """``torch.distributed``'s collectives and group calls replaced by ones
+    that raise; returns a function that puts them back."""
+    import torch.distributed as dist
+
+    def refuse(*a, **k):
+        raise RuntimeError("check failed: the tenant mesh's hot path called torch.distributed")
+
+    saved = {}
+    for name in ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+                 "reduce_scatter_tensor", "broadcast", "reduce", "gather", "scatter",
+                 "all_to_all", "all_to_all_single", "send", "recv", "isend", "irecv", "barrier",
+                 "init_process_group", "new_group"):
+        if hasattr(dist, name):
+            saved[name] = getattr(dist, name)
+            setattr(dist, name, refuse)
+    return lambda: [setattr(dist, name, fn) for name, fn in saved.items()]
+
+
+def _copy_events(prof) -> dict:
+    """Device copy and collective events of a profile, by name."""
+    out = {}
+    for e in prof.key_averages():
+        if "Memcpy" in e.key or "nccl" in e.key.lower():
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def fleet_mesh_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, rows=FLEET_B,
+                      requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS,
+                      structured_tenants=FLEET_STRUCTURED_T, shards=MESH_SHARDS, m=M, k=K,
+                      dim=DIM, default_mesh=True):
+    """[fleet-mesh]: FleetEngine(sharding="mesh") at [fleet]'s width: float,
+    1-bit and decayed fleets at p = ``shards`` (blocks on ``[dev] * p``,
+    explicitly) and at p = 1 (``tenant_mesh(1)``, the default path); update,
+    merge, finalize and the routed ingest of ``requests`` shuffled requests,
+    every row bitwise the ``sharding="none"`` fleet's; the fleet entry of
+    kernel 1 (3) launched exactly p times an update and once a block an
+    ingest, with no peer copy and no ``torch.distributed`` call (its
+    collectives raise, and a profiler window counts copies and NCCL kernels);
+    a structured mesh fleet; the update timed against the unsharded one's.
+    Returns what [serve-mesh] reuses.  ``default_mesh=False`` (a CPU
+    rehearsal) gives p = 1 an explicit one-device mesh."""
+    import numpy as np
+
+    from repro_torch import device as device_mod
+    from repro_torch.core import FleetEngine, fleet_quantizers, fleet_specs
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fourier_sketch as fs
+    from repro_torch.kernels import freq_transform as ft
+    from repro_torch.parallel import tenant_mesh
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    req_per = requests // tenants
+    per_tenant = 2 * rows + req_per * request_rows
+    data = torch.stack([
+        synthetic.gaussian_mixture(device_mod.derive_seed(FLEET_SEED, t), per_tenant, k, dim,
+                                   device=dev)
+        for t in range(tenants)
+    ])
+    blocks = [data[:, i * rows:(i + 1) * rows].contiguous() for i in range(2)]
+    gen = torch.Generator(device="cpu").manual_seed(FLEET_SEED + 2)
+    reqs = [(int(t), c) for c in range(req_per) for t in torch.randperm(tenants, generator=gen)]
+    reqs = [reqs[i] for i in torch.randperm(len(reqs), generator=gen).tolist()]
+    ids = np.asarray([t for t, _ in reqs])
+    req = torch.stack([data[t, 2 * rows + c * request_rows:2 * rows + (c + 1) * request_rows]
+                       for t, c in reqs])
+    specs = fleet_specs(FLEET_SEED, tenants, "dense", m, dim, sigma2)
+    meshes = {shards: tenant_mesh(shards, devices=[dev] * shards),
+              1: None if default_mesh else tenant_mesh(1, devices=[dev])}
+    quants = fleet_quantizers(FLEET_SEED, tenants, m, "1bit", device=dev)
+    variants = {
+        "float": ({}, "fourier_sketch_fleet", "FLEET_LAUNCHES", {}),
+        "1bit": ({"quantizers": quants}, "quantized_fourier_sketch_fleet",
+                 "QUANTIZED_FLEET_LAUNCHES", {}),
+        "decay": ({"decay": DECAY}, "fourier_sketch_fleet", "FLEET_LAUNCHES", {"t": 1.0}),
+    }
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    times, kept = {}, {}
+    for label, (kw, kernel, counter, tick) in variants.items():
+        plain = FleetEngine(specs, device=dev, **kw)
+        p_a = plain.update(plain.init_state(), blocks[0], **tick)
+        p_m = plain.merge(p_a, plain.update(plain.init_state(), blocks[1]))
+        p_fin = plain.finalize(p_m)
+        p_in = plain.ingest(p_m, ids, req, **tick)
+        timed = {"none": lambda: plain.update(p_a, blocks[0], **tick)}
+        timed_in = {"none": lambda: plain.ingest(p_m, ids, req, **tick)}
+        for p, mesh in meshes.items():
+            eng = FleetEngine(specs, sharding="mesh", mesh=mesh, tenant_shards=p, **kw)
+            check(eng.devices == tuple(device_mod.resolve(dev) for _ in range(p)),
+                  f"fleet-mesh: blocks on {eng.devices}")
+            counts = {}
+
+            def counted(what, fn, expect):
+                out = run(f"fleet-mesh {label} p={p} {what}", fn, kernel)
+                counts[what] = getattr(fs, counter)
+                check(counts[what] == expect,
+                      f"fleet-mesh {label} p={p} {what}: {counts[what]} launches of {kernel}, "
+                      f"not {expect}")
+                return out
+
+            restore = _refusing_collectives()
+            try:
+                with torch.profiler.profile(activities=activities) as prof:
+                    s_a = counted("update", lambda: eng.update(eng.init_state(), blocks[0],
+                                                               **tick), p)
+                    s_b = eng.update(eng.init_state(), blocks[1])
+                    s_m = eng.merge(s_a, s_b)
+                    fin = eng.finalize(s_m)
+                    s_in = counted("ingest", lambda: eng.ingest(s_m, ids, req, **tick), p)
+                    sync(dev)
+            finally:
+                restore()
+            copies = _copy_events(prof)
+            bad = {key: n for key, n in copies.items() if "PtoP" in key or "nccl" in key.lower()}
+            placed = all(v.device == d for st in (s_a, s_m, s_in)
+                         for blk, d in zip(st.blocks, eng.devices) for v in blk)
+            ok = {
+                "update": _same_state(fleet_mod.gather_rows(s_a, dev), p_a),
+                "merge": _same_state(fleet_mod.gather_rows(s_m, dev), p_m),
+                "finalize": all(torch.equal(u, v) for u, v in
+                                zip(fleet_mod.gather_rows(fin, dev), p_fin)),
+                "ingest": _same_state(fleet_mod.gather_rows(s_in, dev), p_in),
+                "blocks on their devices": placed,
+            }
+            timed[p] = lambda eng=eng, s_a=s_a: eng.update(s_a, blocks[0], **tick)
+            timed_in[p] = lambda eng=eng, s_m=s_m: eng.ingest(s_m, ids, req, **tick)
+            print(f"[fleet-mesh {label} p={p}] T={tenants} B={rows} m={m}: {p} blocks of "
+                  f"{eng.shard_rows} rows on {[str(d) for d in eng.devices]}; update, merge, "
+                  f"finalize and ingest of {requests} shuffled requests bitwise the unsharded "
+                  f"fleet: {ok}; {kernel} launches: {counts} (p an update, one a block an "
+                  f"ingest); copies and collectives in the window: {copies} (peer or NCCL: "
+                  f"{bad or 'none'}); no torch.distributed call", flush=True)
+            check(all(ok.values()), f"fleet-mesh {label} p={p}: {ok}")
+            check(not bad, f"fleet-mesh {label} p={p}: peer copies or collectives {bad}")
+            if label == "float" and p == shards:
+                kept = {"engine": eng, "plain": plain}
+            del s_b, fin, s_in
+        # One update and one ingest, CUDA-event median of 10 a turn, in the
+        # order unsharded, p, 1, 1, p, unsharded.
+        for key in ("none", shards, 1, 1, shards, "none"):
+            times.setdefault((label, key), []).append(median_ms(timed[key]))
+            times.setdefault((label, key, "ingest"), []).append(median_ms(timed_in[key]))
+        del timed, timed_in, p_a, p_m, p_fin, p_in
+
+    # A structured mesh fleet: kernel 4 once per tenant, in its block.
+    s_t = structured_tenants
+    sspecs = fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2)
+    splain = FleetEngine(sspecs, device=dev)
+    seng = FleetEngine(sspecs, sharding="mesh", mesh=tenant_mesh(shards, devices=[dev] * shards))
+    sblocks = [b[:s_t].contiguous() for b in blocks]
+    sst = run(f"fleet-mesh structured p={shards}", lambda: seng.update(
+        seng.update(seng.init_state(), sblocks[0]), sblocks[1]), "structured_sketch")
+    launches = ft.STRUCTURED_LAUNCHES
+    want = splain.update(splain.update(splain.init_state(), sblocks[0]), sblocks[1])
+    s_ok = (_same_state(fleet_mod.gather_rows(sst, dev), want)
+            and torch.equal(fleet_mod.gather_rows(seng.finalize(sst)[0], dev),
+                            splain.finalize(want)[0]))
+    s_ms = [median_ms(lambda: (splain.update(want, sblocks[0]) if turn in (0, 3)
+                               else seng.update(sst, sblocks[0]))) for turn in range(4)]
+    print(f"[fleet-mesh structured p={shards}] T={s_t}: two updates, {launches} launches of "
+          f"structured_sketch (one a tenant an update); bitwise the unsharded fleet (state and "
+          f"z): {s_ok}; one update (unsharded, mesh, mesh, unsharded) "
+          f"{[round(t, 3) for t in s_ms]} ms", flush=True)
+    check(s_ok and launches == 2 * s_t, f"fleet-mesh structured: bits {s_ok}, launches {launches}")
+    print(f"[fleet-mesh] {time.perf_counter() - t_phase:.1f}s; one update (ms, CUDA-event median "
+          f"of {TIMED_LAUNCHES}, two turns each, in the order unsharded, p={shards}, p=1, p=1, "
+          f"p={shards}, unsharded): " + "; ".join(
+              f"{label} unsharded {times[(label, 'none')][0]:.3f} / "
+              f"{times[(label, 'none')][1]:.3f}, p={shards} {times[(label, shards)][0]:.3f} / "
+              f"{times[(label, shards)][1]:.3f}, p=1 {times[(label, 1)][0]:.3f} / "
+              f"{times[(label, 1)][1]:.3f}" for label in variants)
+          + f"; one ingest of {requests} shuffled requests, the same turns: " + "; ".join(
+              f"{label} " + ", ".join(
+                  f"{key if key == 'none' else f'p={key}'} "
+                  f"{times[(label, key, 'ingest')][0]:.3f} / {times[(label, key, 'ingest')][1]:.3f}"
+                  for key in ("none", shards, 1)) for label in variants), flush=True)
+    del data, blocks, req
+    return kept
+
+
+def serve_mesh_phases(dev, run, cfg, sigma2, kept, sync=None, tenants=FLEET_T,
+                      requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS, k=K, dim=DIM,
+                      root=None):
+    """[serve-mesh]: FleetService over the p-block float fleet of
+    [fleet-mesh]: ``requests`` shuffled host requests flushed sync and async,
+    the state bitwise the unsharded service's, one dispatch a block, the
+    per-shard request counter adding up; decodes of tenants in different
+    blocks bitwise the unsharded service's, on the owner's device; one
+    tenant a block evicted and restored bitwise."""
+    import shutil
+
+    from repro_torch import device as device_mod
+    from repro_torch import obs
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.data import synthetic
+    from repro_torch.serve import FleetService
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    root = Path(root or Path(__file__).resolve().parent / "build" / "serve_mesh_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    eng, plain = kept["engine"], kept["plain"]
+    p, rows = eng.tenant_shards, eng.shard_rows
+    shift_cfg = dataclasses.replace(cfg, decoder="sketch_shift")
+    req_per = requests // tenants
+    host = [synthetic.gaussian_mixture(device_mod.derive_seed(FLEET_SEED, t), req_per * request_rows,
+                                       k, dim, device=dev).cpu().numpy() for t in range(tenants)]
+    gen = torch.Generator(device="cpu").manual_seed(FLEET_SEED + 3)
+    reqs = [(int(t), c) for c in range(req_per) for t in torch.randperm(tenants, generator=gen)]
+    reqs = [reqs[i] for i in torch.randperm(len(reqs), generator=gen).tolist()]
+
+    def flushed(engine, async_ingest, name):
+        svc = FleetService(engine, shift_cfg, checkpoint_dir=root / name)
+        for t, c in reqs:
+            svc.submit(t, host[t][c * request_rows:(c + 1) * request_rows])
+        sync(dev)
+        t1 = time.perf_counter()
+        svc.flush(async_ingest=async_ingest)
+        sync(dev)
+        return svc, time.perf_counter() - t1
+
+    svc, sync_s = run(f"serve-mesh flush sync p={p}", lambda: flushed(eng, False, "sync"),
+                      "fourier_sketch_fleet")
+    from repro_torch.kernels import fourier_sketch as fs
+
+    flush_launches = fs.FLEET_LAUNCHES
+    asvc, async_s = flushed(eng, True, "async")
+    ref, ref_s = flushed(plain, False, "plain")
+    obs.reset()
+    obs.enable()
+    try:
+        osvc, _ = flushed(eng, False, "obs")
+    finally:
+        obs.disable()
+    snap = obs.snapshot()
+    obs.reset()
+    per_shard = [snap.get(f"fleet.flush.shard_requests{{shard={s}}}", 0) for s in range(p)]
+    want_shard = [sum(1 for t, _ in reqs if t // rows == s) for s in range(p)]
+    ok = {
+        "sync": _same_state(fleet_mod.gather_rows(svc.state, dev), ref.state),
+        "async": _same_state(fleet_mod.gather_rows(asvc.state, dev), ref.state),
+        "one dispatch a block": svc.stats.flushes == asvc.stats.flushes == p
+        and flush_launches == p,
+        "per-shard counts": per_shard == want_shard and sum(per_shard) == len(reqs),
+    }
+    print(f"[serve-mesh flush] {len(reqs)} host requests of {request_rows} rows over {p} blocks: "
+          f"sync {sync_s * 1e3:.2f} ms, async {async_s * 1e3:.2f} ms, the unsharded service "
+          f"sync {ref_s * 1e3:.2f} ms ({sync_s * 1e6 / len(reqs):.2f} / "
+          f"{async_s * 1e6 / len(reqs):.2f} / {ref_s * 1e6 / len(reqs):.2f} us a request); "
+          f"{svc.stats.flushes} dispatches, {flush_launches} launches of fourier_sketch_fleet; "
+          f"fleet.flush.shard_requests {per_shard}; checks {ok}", flush=True)
+    check(all(ok.values()), f"serve-mesh flush: {ok}")
+    del asvc, osvc
+
+    # Decode one tenant in each block, then evict and restore it.
+    picks = [s * rows + s for s in range(p)]
+    got = run("serve-mesh decode", lambda: [svc.decode(t) for t in picks], "sketch_shift")
+    want = [ref.decode(t) for t in picks]
+    dec_ok = all(torch.equal(a.centroids, b.centroids) and torch.equal(a.weights, b.weights)
+                 and a.centroids.device == eng.device_of(t)
+                 for a, b, t in zip(got, want, picks))
+    before = {t: eng.tenant_state(svc.state, t) for t in picks}
+    ev_s = []
+    for t in picks:
+        t1 = time.perf_counter()
+        svc.evict(t)
+        svc.restore(t)
+        sync(dev)
+        ev_s.append(time.perf_counter() - t1)
+    back = all(_same_state(eng.tenant_state(svc.state, t), before[t]) for t in picks)
+    hits = all(svc.decode(t).cached for t in picks)
+    print(f"[serve-mesh decode] tenants {picks} (one a block): decodes bitwise the unsharded "
+          f"service's, on the owner's device: {dec_ok}; evict + restore "
+          f"{statistics.median(ev_s) * 1e3:.3f} ms a tenant, rows bitwise: {back}, cached "
+          f"decodes served again: {hits}", flush=True)
+    check(dec_ok and back and hits, f"serve-mesh decode/evict: {dec_ok}, {back}, {hits}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[serve-mesh] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def examples_phase(dev, run, argv=None):
+    """[examples]: the port's three sketch examples on the card at their
+    default sizes (``full_pipeline`` with its default sharded backend: a
+    one-rank NCCL group it makes and destroys), and ``serve_fleet`` again
+    over a 4-block tenant mesh on one card; each one's relative SSE or
+    bitwise line is asserted."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.examples import full_pipeline, quickstart, serve_fleet
+
+    t_phase = time.perf_counter()
+    argv = argv or {}
+    cases = [
+        ("quickstart", quickstart, [], ("fourier_sketch", "assign_argmin")),
+        ("full_pipeline", full_pipeline, [], ("fourier_sketch", "assign_argmin")),
+        ("serve_fleet", serve_fleet, [], ("fourier_sketch_fleet", "sketch_shift")),
+        ("serve_fleet --shards 4 --devices 1", serve_fleet, ["--shards", "4", "--devices", "1"],
+         ("fourier_sketch_fleet", "sketch_shift")),
+    ]
+
+    def captured(module, args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            module.main(args)
+        return buf.getvalue()
+
+    for name, module, args, needs in cases:
+        args = [*args, *argv.get(module.__name__.rsplit(".", 1)[-1], []), "--device", str(dev)]
+        text = run(f"examples {name}", lambda: captured(module, args), needs)
+        for line in text.splitlines():
+            print(f"[examples {name}] {line}", flush=True)
+        if module is quickstart:
+            ckm_sse = float(re.search(r"CKM +SSE/N = ([\d.]+)", text).group(1))
+            lloyd_sse = float(re.search(r"Lloyd5 SSE/N = ([\d.]+)", text).group(1))
+            rel = ckm_sse / lloyd_sse
+        elif module is full_pipeline:
+            check("[0] launched alone: made a one-rank" in text, "full_pipeline: no group line")
+            rel = float(re.search(r"\[4\] relative SSE ([\d.]+);", text).group(1))
+        else:
+            rel = None
+            check("restored bitwise=True" in text, f"examples {name}: no bitwise restore")
+            if "--shards" in args:
+                check(text.startswith("placement: shard 0 -> ") and "shards=4x" in text,
+                      f"examples {name}: no mesh placement")
+        if rel is not None:
+            print(f"[examples {name}] relative SSE {rel:.4f} (limit {MAX_RELATIVE_SSE})",
+                  flush=True)
+            check(rel <= MAX_RELATIVE_SSE, f"examples {name}: relative SSE {rel}")
+    print(f"[examples] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2567,13 +2917,20 @@ def main() -> None:
     stream_device_phase(dev, run, cfg, batches)
     print(f"[stream-device] {time.perf_counter() - t0:.1f}s", flush=True)
     fleet_phases(dev, run, cfg, res.sigma2, results)
+    mesh_fleet = fleet_mesh_phases(dev, run, cfg, res.sigma2)
 
-    # 9e. The fleet's service, and ckm.diagnose at N = 10^7.
+    # 9e. The fleet's service (also over the tenant mesh), and ckm.diagnose
+    # at N = 10^7.
     serve_phases(dev, run, cfg, res.sigma2)
+    serve_mesh_phases(dev, run, cfg, res.sigma2, mesh_fleet)
+    del mesh_fleet
     diagnose_phases(dev, run, cfg, x, res)
 
     # 9f. The sharded backend: NCCL at one rank, then gloo ranks on the card.
     sharded_phases(dev, run, launches, cfg, x, batches, fit_res)
+
+    # 9g. The port's three sketch examples at their default sizes.
+    examples_phase(dev, run)
 
     # 10. Per-kernel numbers.
     meta = {

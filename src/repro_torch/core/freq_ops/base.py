@@ -107,6 +107,11 @@ class FrequencyOperator:
         """The same operator with its tensors on ``device``."""
         raise NotImplementedError
 
+    def state_bytes(self) -> int:
+        """Bytes of the operator's tensors (what shipping it by value costs)."""
+        return sum(v.numel() * v.element_size() for v in vars(self).values()
+                   if isinstance(v, torch.Tensor))
+
     def spec(self) -> FreqOpSpec:
         """The O(1) rebuild recipe; raises for an operator not built from a
         seed (:func:`seeded_operator`, :func:`from_spec`)."""

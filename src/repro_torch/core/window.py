@@ -17,7 +17,9 @@ Everything here is monoid algebra over a wrapped
 :class:`~repro_torch.core.engine.SketchEngine` **or**
 :class:`~repro_torch.core.fleet.FleetEngine` (the whole fleet windows in the
 same W-slot ring; per-slot states are the stacked ``(T, ...)`` states, so one
-bucket update is still one fleet call); the bookkeeping is host-side numpy.
+bucket update is still one fleet call; over a tenant-mesh fleet a bucket is
+the engine's ``FleetShards`` and every fold routes through the engine, block
+by block); the bookkeeping is host-side numpy.
 Combining ``decay`` with a window gives exponential weighting inside the
 window and a hard cutoff at its edge; ``read`` then advances the merged
 state's clock to the query time.  ``ingest`` and the tenant-column surgery
@@ -160,8 +162,13 @@ class SketchWindow:
         return self.engine.finalize(self.read(ws, t))
 
     def state_bytes(self, ws: WindowState) -> int:
-        """Resident bytes of the whole ring (W buckets)."""
-        return sum(leaf.numel() * leaf.element_size() for b in ws.buckets for leaf in b)
+        """Resident bytes of the whole ring (W buckets; a tenant-mesh fleet's
+        buckets hold one stacked state a block)."""
+        from repro_torch.core.fleet import FleetShards
+
+        states = [s for b in ws.buckets
+                  for s in (b.blocks if isinstance(b, FleetShards) else (b,))]
+        return sum(leaf.numel() * leaf.element_size() for st in states for leaf in st)
 
     # -- fleet tenant surgery ------------------------------------------------
 

@@ -1,7 +1,11 @@
 """Mesh helpers (counterpart of ``repro.parallel``).
 
-Only ``sharding.axis_extent`` is ported: the sharded SketchEngine needs it.
-``sharding.tenant_mesh`` waits for the fleet's ``sharding="mesh"`` (ROADMAP
-Queue 1 item 16(c)); the parameter and cache sharding rules and
-``parallel/pipeline.py`` belong to the LM substrate (item 22).
+``sharding.axis_extent`` (the sharded SketchEngine's) and
+``sharding.tenant_mesh`` (the fleet's ``sharding="mesh"``) are ported; the
+parameter and cache sharding rules and ``parallel/pipeline.py`` belong to
+the LM substrate (ROADMAP Queue 1 item 22).
 """
+
+from repro_torch.parallel.sharding import TenantMesh, axis_extent, tenant_mesh
+
+__all__ = ["TenantMesh", "axis_extent", "tenant_mesh"]

@@ -1,5 +1,5 @@
 """Tenant-sharded sketch serving: ingest, decode-on-demand, evict/restore
-(counterpart of ``repro.serve.fleet_service``, on one device).
+(counterpart of ``repro.serve.fleet_service``).
 
 ``FleetService`` is the request-facing wrapper around
 :class:`repro_torch.core.fleet.FleetEngine`: it buffers interleaved
@@ -37,9 +37,17 @@ lifetime row — bucket count/ticks are validated against the manifest meta,
 and on restore only columns whose slot still holds the checkpointed tick
 re-enter the ring.
 
-Sharding: the port's fleet runs on one device (``tenant_shards == 1``), so a
-flush needs no shard partition; :func:`shard_partition` is here for the
-mesh-sharded fleet (ROADMAP Queue 1 item 16(c)).
+Shard-aware routing: over a tenant-mesh fleet
+(``FleetEngine(sharding="mesh")``, one controller, a block of tenant rows a
+device), :meth:`FleetService.flush` partitions the pending requests
+host-side by owning shard (:func:`shard_partition`) before grouping, and a
+dispatch never spans two blocks, so each fleet ``ingest`` touches one
+block's rows.  Each tenant's arrival order is kept (its shard is fixed):
+the bitwise isolation contract holds; only the interleaving across shards,
+which no tenant can observe, changes.  Each request is staged straight onto
+its owner's device (async: one pinned ring and one consumer stream per
+device); decodes, drift, evictions and restores run on the owner's device,
+and a checkpoint's row moves between the host and its owner only.
 """
 
 from __future__ import annotations
@@ -115,7 +123,7 @@ class FleetService:
     Parameters
     ----------
     engine : the :class:`~repro_torch.core.fleet.FleetEngine` holding the
-        fleet; the service runs on its device.
+        fleet; the service runs each tenant on its owner's device.
     decode_config : ``CKMConfig`` used for every decode (``decoder`` defaults
         to ``"sketch_shift"`` when the caller leaves the CKMConfig default
         ``"clompr"`` untouched).
@@ -243,23 +251,26 @@ class FleetService:
         self._pending.append((tid, batch, None if t is None else float(t)))
 
     def _placed(self, pending, async_ingest: bool, prefetch: int):
-        """``(tenant, float32 batch on the engine's device, tick)`` per
-        request, in arrival order; async through a producer thread (and on
-        the card the pinned ring and side stream of ``core.ingest``)."""
-        dev = self.engine.device
+        """``(tenant, float32 batch on its owner's device, tick)`` per
+        request, in order; async through a producer thread (and on the card
+        one pinned ring, side stream and consumer stream of ``core.ingest``
+        per device)."""
+        devs, rows = self.engine.devices, self.engine.shard_rows
         if not async_ingest:
             for t, b, ts in pending:
-                yield t, torch.as_tensor(b, dtype=torch.float32).to(dev), ts
+                yield t, torch.as_tensor(b, dtype=torch.float32).to(devs[t // rows]), ts
             return
-        stage = (ingest_mod._PinnedStager(dev, prefetch + 2) if dev.type == "cuda"
-                 else ingest_mod._place_cpu)
-        consumer = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        stagers = {d: ingest_mod._PinnedStager(d, prefetch + 2) if d.type == "cuda"
+                   else ingest_mod._place_cpu for d in dict.fromkeys(devs)}
+        consumers = {d: torch.cuda.current_stream(d) for d in stagers if d.type == "cuda"}
         for t, (x, copied), ts in ingest_mod.prefetched(
-            iter(pending), prefetch, place=lambda req: (req[0], stage(req[1]), req[2])
+            iter(pending), prefetch,
+            place=lambda req: (req[0], stagers[devs[req[0] // rows]](req[1]), req[2]),
         ):
             if copied is not None:
                 # The stack reads x on the consumer's stream: wait for its
                 # copy, and keep its side-stream memory until that read.
+                consumer = consumers[x.device]
                 consumer.wait_event(copied)
                 x.record_stream(consumer)
             yield t, x, ts
@@ -269,10 +280,12 @@ class FleetService:
         number of requests folded.
 
         Requests are folded in arrival order (the bitwise tenant-isolation
-        contract).  Consecutive requests sharing a batch shape and a tick
-        are routed as ONE ``FleetEngine.ingest`` dispatch;
+        contract).  Consecutive requests sharing a batch shape, a tick and
+        an owning shard are routed as ONE ``FleetEngine.ingest`` dispatch;
         ``async_ingest=True`` stages the next requests' copies under the
-        current work (same bits).  A windowed service additionally folds
+        current work (same bits).  With a tenant-mesh engine the flush is
+        first partitioned by owning shard (:func:`shard_partition`); each
+        tenant's order is untouched.  A windowed service additionally folds
         every dispatch into its tick's bucket.
         """
         pending, self._pending = self._pending, []
@@ -282,6 +295,19 @@ class FleetService:
         for t, _, _ in pending:
             if t in self._evicted:
                 self.restore(t)
+        rows = self.engine.shard_rows
+        if self.engine.tenant_shards > 1:
+            pending, by_shard = shard_partition(
+                pending, self.engine.owner_shard, self.engine.tenant_shards
+            )
+            if obs_rt.ENABLED:
+                from repro_torch.obs import metrics as obs_metrics
+
+                for s, bucket in enumerate(by_shard):
+                    if bucket:
+                        obs_metrics.counter(
+                            "fleet.flush.shard_requests", shard=s
+                        ).inc(len(bucket))
 
         group_ids: list[int] = []
         group_batches: list[torch.Tensor] = []
@@ -312,8 +338,9 @@ class FleetService:
             for t, b, ts in self._placed(pending, async_ingest, prefetch):
                 if group_batches and (
                     b.shape != group_batches[0].shape or ts != group_t[0]
+                    or t // rows != group_ids[0] // rows
                 ):
-                    dispatch()  # ragged boundary: keep arrival order intact
+                    dispatch()  # ragged or block boundary: order kept
                 group_ids.append(t)
                 group_batches.append(b)
                 group_t[0] = ts
@@ -323,7 +350,8 @@ class FleetService:
             if obs_rt.ENABLED:
                 # Sync so the flush span/histogram measure the fold, not its
                 # launch; the untelemetered path keeps dispatching.
-                dev_mod.sync(self.engine.device)
+                for dev in dict.fromkeys(self.engine.devices):
+                    dev_mod.sync(dev)
         self._touch(t for t, _, _ in pending)
         if obs_rt.ENABLED:
             from repro_torch.obs import metrics as obs_metrics
@@ -388,7 +416,7 @@ class FleetService:
                 lo,
                 hi,
                 self.decode_config,
-                device=self.engine.device,
+                device=self.engine.device_of(t),
             )
         result = DecodeResult(cents, alphas, cost, key[1], cached=False)
         if use_cache and self.decode_cache_entries > 0:

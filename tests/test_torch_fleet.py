@@ -26,6 +26,7 @@ from repro_torch.core.engine import (
     SketchEngineState,
 )
 from repro_torch.kernels import fourier_sketch as fs
+from repro_torch.parallel import tenant_mesh
 
 pytestmark = pytest.mark.torch_port
 
@@ -240,8 +241,9 @@ def test_stack_operators_rejects_mismatched_tenants():
 
 def test_constructor_refusals():
     specs = fl.fleet_specs(0, T, "dense", M, N, 1.0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fl.FleetEngine(specs, sharding="mesh", device="cpu")
+    # sharding="mesh" builds (tests/test_torch_fleet_shard.py holds it).
+    mesh = fl.FleetEngine(specs, sharding="mesh", mesh=tenant_mesh(2, devices=["cpu"] * 2))
+    assert (mesh.sharding, mesh.tenant_shards, mesh.shard_rows) == ("mesh", 2, T // 2)
     with pytest.raises(ValueError, match="sharding"):
         fl.FleetEngine(specs, sharding="ring", device="cpu")
     with pytest.raises(ValueError, match="backend"):

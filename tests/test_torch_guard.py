@@ -364,3 +364,67 @@ def test_ingest_passes_device_batches_and_waits_on_its_own_stream():
     code = _function_source(PORT / "core" / "ingest.py", "ingest_stream")
     assert "torch.cuda.current_stream(dev).synchronize()" in code
     assert "torch.cuda.synchronize" not in code
+
+
+_LAUNCH_PROBE = r"""
+import importlib, sys
+sys.path.insert(0, {src!r})
+for name in ("repro_torch.launch", "repro_torch.launch.specs", "repro_torch.examples",
+             "repro_torch.examples.quickstart", "repro_torch.examples.full_pipeline",
+             "repro_torch.examples.serve_fleet", "repro_torch.parallel",
+             "repro_torch.core.clompr"):
+    importlib.import_module(name)
+from repro_torch.launch import SketchJobSpec
+SketchJobSpec(n_tenants=4, tenant_shards=2).validate().fleet_kwargs()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")
+)
+print(bad)
+"""
+
+
+def test_launch_and_examples_import_neither_jax_nor_the_reference():
+    """``launch/``, ``examples/``, ``parallel/`` and ``core/clompr.py``, and a
+    validated ``SketchJobSpec`` (which reads the registries), load neither
+    ``jax`` nor any ``repro`` module, and no source line there imports
+    them."""
+    out = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_PROBE.format(src=str(ROOT / "src"))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    files = [*sorted((PORT / "launch").glob("*.py")), *sorted((PORT / "examples").glob("*.py")),
+             *sorted((PORT / "parallel").glob("*.py")), PORT / "core" / "clompr.py"]
+    assert len(files) >= 9
+    offenders = [f.name for f in files if _FORBIDDEN_IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_mesh_launch_and_example_entry_points_default_to_the_card():
+    """The tenant mesh takes the cards by default and refuses without them
+    (no CPU fallback), and each example runs on the card unless asked for
+    ``--device cpu``: on a CPU-only host they raise."""
+    import torch
+
+    from repro_torch.core import FleetEngine, fleet_specs
+    from repro_torch.examples import full_pipeline, quickstart, serve_fleet
+    from repro_torch.parallel import tenant_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    specs = fleet_specs(0, 4, "dense", 16, 3, 1.0)
+    for call in (lambda: tenant_mesh(1), lambda: tenant_mesh(2),
+                 lambda: FleetEngine(specs, sharding="mesh"),
+                 lambda: FleetEngine(specs, sharding="mesh", tenant_shards=2)):
+        with pytest.raises(ValueError, match="only 0 available"):
+            call()
+    for call in (lambda: quickstart.main(["--n", "100"]),
+                 lambda: full_pipeline.main(["--n", "100", "--backend", "kernel"]),
+                 lambda: full_pipeline.main(["--n", "100"]),
+                 lambda: serve_fleet.main(["--tenants", "4", "--requests", "1"]),
+                 lambda: serve_fleet.main(["--tenants", "4", "--shards", "2"]),
+                 lambda: serve_fleet.placement(2, 0, "cuda")):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()
