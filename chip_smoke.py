@@ -15,9 +15,12 @@ wide shape, with the plain version's time beside the wide one, and at
 n = 3, 40, 64 and 100; amp_denoise at the decoder's shape, a wide one, the
 deep tail and open boxes); the sweep of the sketch kernels' widths at
 N = 20,001 (kernels 1-3 at n = 3 to 100, kernel 1 also at phases of
-10^3-10^4 radians, kernels 4-5 at d = 64 to 1024), and kernels 3-5 at
+10^3-10^4 radians, kernels 4-5 at d = 64 to 1024); kernels 1 and 2 at the
+CKM-compressed KV cache's shapes (8129 keys at head_dim 256; K = 64 and 16,
+m = 81,920), and kernels 3-5 at
 phases of 10^3-10^5 radians on 1,000,003 rows; kernel 3's 1- and 4-bit
-times at the fit shape beside kernel 1's; flash
+times at the fit shape beside kernel 1's (a timed call over 50 ms, such as
+a plain version at N >= 10^6, is timed 3 times, not 10); flash
 attention (kernel 8) at its edge cases and at the llama3.2-1B, gemma3-1B
 local-layer and 32k-prefill shapes, beside SDPA's time; ckm.fit,
 ckm.fit_streaming and lloyd.kmeans, then the slice-2 fits (dense 1-bit QCKM,
@@ -26,8 +29,9 @@ decoder="sketch_shift", fit_streaming with decoder="amp"), each with the
 launch counts it caused; the SSE of each CKM fit against k-means with 5
 replicates, beside the values before kernels 3 and 6 were redesigned
 (the fits off those kernels are compared to the digit); each decoder's
-full decode again with its loops eager, against
-the fits' graphed decodes (bits, launch counts, seconds); where fit's time
+decode again with its loops eager, against a graphed decode of the same
+depth (sketch_shift and CL-AMP the fits' own; CLOMPR's two at a fifth of
+the default steps): bits, launch counts, seconds; where fit's time
 goes (the sketch pass alone, and short decodes, eager then graphed, each
 timed alone and under torch.profiler: CLOMPR dense and structured,
 sketch_shift, amp, with kernels 6 and 7's device time per launch inside the
@@ -38,7 +42,7 @@ as numpy and streamed by fit_streaming in 10 and 100 batches, sync and async
 (pinned buffers and a side stream), float and 1-bit, with the bits compared,
 the walls, the ingest stats and the peak device memory; decayed states and a
 SketchWindow over 100 ticks; telemetry on and off; the decoders' convergence
-traces, graphed and eager; async ingest of the batches already on the card
+traces, graphed and eager (CLOMPR's at a fifth of the default steps); async ingest of the batches already on the card
 (``stream_device_phase``: no pinned slot, the sync bits); the fleet
 (``fleet_phases``: 1024 tenants at m = 1000, float, 1-bit and decayed,
 routed requests, a fleet window, four decoded tenants, a structured fleet),
@@ -65,13 +69,23 @@ entry launched once a block, no peer copy and no torch.distributed call, a
 structured mesh fleet) and its service (``serve_mesh_phases``: 4096 host
 requests shard-routed sync and async, decodes, evict/restore, bitwise the
 unsharded service); the three examples of ``repro_torch.examples`` at their
-default sizes (``examples_phase``); one JSON line of per-kernel numbers,
+default sizes (``examples_phase``); the LM serving path
+(``lm_serve_phase``: llama3.2-1B and gemma3-1B at their published widths
+and depths, bf16 weights built on the card, a float32 prefill -> decode
+check against forward, a timed prefill of 4 x 4096 and 1 x 8192 tokens and
+32 greedy decode steps through the serve layer's steps, the peak memory)
+and the CKM-compressed KV cache on gemma3-1B's global layers
+(``kv_ckm_phase``: Lloyd and CKM compression through kernels 1 and 2,
+decodes through the compressed layers, the clustered regime at head_dim
+256, Lloyd there over 20 seeds through kernel 2 and its plain version); one
+JSON line of per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,6 +96,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -92,6 +107,11 @@ KMEANS_REPLICATES = 5
 RAGGED_N = 1_000_003
 DATA_SEED, FIT_SEED, KMEANS_SEED = 0, 1, 2
 TIMED_LAUNCHES = 10
+# A timed call whose warm-up takes over SLOW_CALL_MS (the plain versions at
+# N = 10^7 and 10^6, the loops of T single launches) is timed
+# SLOW_TIMED_LAUNCHES times: their medians are reported beside kernel times
+# 8x-100x shorter, and ten runs of each cost ~50 s of the smoke's time.
+SLOW_CALL_MS, SLOW_TIMED_LAUNCHES = 50.0, 3
 # The structured kernels' generic d > 32 path, at the width of the
 # reference's frequency-operator benchmark (n = 2048), with a ragged last
 # frequency block and a ragged N.
@@ -125,6 +145,11 @@ LARGE_PHASE_STRUCTURED_SCALE = 100.0
 # n = 3, 40 and 64 (a tiny swarm and sketch, a ragged one, the widest), and
 # the two-phase wide kernel at a ragged n > 64; (P, n, m).
 SHIFT_SWEEP = ((1, 3, 5), (17, 40, 300), (80, 64, 1000), (33, 100, 777))
+# CLOMPR's eager re-decodes (fit, fit-structured) and [trace clompr]'s eager
+# decode run at a fifth of the default Adam steps (300 / 200 / 1000), beside
+# a graphed decode of the same depth: every one of the 2K rounds, NNLS and
+# merge still runs.
+RE_DECODE_STEPS = {"atom_steps": 60, "joint_steps": 40, "final_steps": 200}
 # The fits' relative SSEs as this script printed them on commit 227003f
 # (NVIDIA H100 80GB HBM3, 700 W), before the streaming layer: with
 # telemetry off, every fit should give them to the digit.
@@ -237,6 +262,37 @@ DIAG_SAMPLE = 100_000
 MESH_SHARDS = 4
 SHARDED_TOPOLOGIES = ("allreduce", "tree", "ring")
 SHARDED_RANKS, SHARDED_TICKS, SHARDED_DECAY, SHARDED_TIMEOUT_S = 4, 10, 0.99, 300
+# The LM serving path (models/, launch/serve.py) at the published widths and
+# depths of src/repro_torch/configs: (batch, prompt, float32-check prompt)
+# per architecture.  llama3.2-1B prefills 4 requests of 4096 tokens (kernel
+# 8's shape); gemma3-1B one of 8192 (16 windows of 512), its float32 check
+# past the window so that the rings wrap.  LM_DECODE_STEPS greedy tokens
+# after the prefill; LM_CHECK_STEPS decode steps checked against forward to
+# tests/test_archs.py's bar; a warm-up prefill of LM_WARM_PROMPT tokens.
+LM_SERVE = {"llama3.2-1b": (4, 4096, 128), "gemma3-1b": (1, 8192, 600)}
+LM_DECODE_STEPS, LM_CHECK_STEPS, LM_WARM_PROMPT, LM_SEED = 32, 8, 256, 6
+LM_ATOL, LM_RTOL = 2e-2, 1e-2
+# The CKM-compressed KV cache (serve/kv_clustering.py) on gemma3-1B's global
+# layers, at examples/serve_kv_ckm.py's sizes (K = 64 centroids a head, a
+# ring of 64); KV_DECODE_STEPS tokens decoded.  Section 4 holds kernels 1 and
+# 2 against their plain versions at this phase's shapes: one head's S - ring
+# + 1 keys of the gemma3-1B prompt at head_dim 256, kernel 2 at each K of
+# KV_SHAPE_KS (K = 64 takes two centroid tiles of its generic path), kernel 1
+# at CKM's m = 5 K head_dim (serve/kv_clustering.py compress_kv).  The
+# clustered regime at head_dim 256 (planted centres x4, key noise 0.1):
+# (keys, planted centres = centroids, ring) at the example's sizes and at
+# tests/test_kv_clustering.py's.  At the test's both methods are held to its
+# bar.  At the example's the reference's CKM recipe misses it (ROADMAP Queue
+# 3), so CKM is printed without a bar, and Lloyd runs on KV_LLOYD_SEEDS data
+# seeds twice, through kernel 2 and through its plain version (same draws):
+# each seed's error must agree within KV_LLOYD_PLAIN_TOL, and the seeds under
+# the bar are printed (a k-means++ draw that seeds two centroids in one
+# cluster misses it when the query attends to that cluster, in both).
+KV_CENTROIDS, KV_RING, KV_DECODE_STEPS, KV_SEED = 64, 64, 8, 7
+KV_SHAPE_KS = (64, 16)
+KV_CLUSTERED_EXAMPLE, KV_CLUSTERED_TEST = (1024, 64, 64), (512, 16, 32)
+KV_CLUSTERED_BAR = 0.15
+KV_LLOYD_SEEDS, KV_LLOYD_PLAIN_TOL = 20, 1e-4
 # A decoder's convergence series against its returned cost: the polish after
 # the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
 # is at most the last residual norm squared, and CL-AMP's cost per frequency
@@ -249,20 +305,24 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def median_ms(fn) -> float:
-    """Median of TIMED_LAUNCHES CUDA-event timings, after one warm-up call."""
+def event_ms(fn) -> float:
+    """One call of ``fn`` timed by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def median_ms(fn) -> float:
+    """Median of TIMED_LAUNCHES CUDA-event timings after one warm-up call
+    (itself timed); of SLOW_TIMED_LAUNCHES when the warm-up took over
+    SLOW_CALL_MS."""
     torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMED_LAUNCHES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    reps = SLOW_TIMED_LAUNCHES if event_ms(fn) > SLOW_CALL_MS else TIMED_LAUNCHES
+    return statistics.median(event_ms(fn) for _ in range(reps))
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -1022,26 +1082,39 @@ def streaming_phases(dev, run, cfg, path_cfg, x, batches, fits, n_host=N,
         else:
             r_t = run(f"trace {decoder}", lambda c=tcfg: ckm.fit(FIT_SEED, x, c, device=dev),
                       kernel)
-        graphed = {e["name"]: e["values"] for e in obs.TRACER.events if e["kind"] == "series"}
-        obs.TRACER.reset()
+        def traced():
+            out = {e["name"]: e["values"] for e in obs.TRACER.events if e["kind"] == "series"}
+            obs.TRACER.reset()
+            return out
+
+        graphed = traced()
+        # The eager decode against a graphed one of the same depth: the fit's
+        # own for sketch_shift and CL-AMP; CLOMPR's at RE_DECODE_STEPS.
+        dcfg, out_g, series_g, depth = tcfg, (r_t.centroids, r_t.weights, r_t.cost), graphed, ""
+        if decoder == "clompr":
+            dcfg = dataclasses.replace(tcfg, **RE_DECODE_STEPS)
+            out_g = ckm.decode_sketch(seed1, r_t.sketch, r_t.freq_op, *r_t.bounds, dcfg,
+                                      device=dev)
+            series_g = traced()
+            depth = " at {atom_steps}/{joint_steps}/{final_steps} steps".format(**RE_DECODE_STEPS)
         t0 = time.perf_counter()
-        out_e = ckm.decode_sketch(seed1, r_t.sketch, r_t.freq_op, *r_t.bounds, tcfg, device=dev,
+        out_e = ckm.decode_sketch(seed1, r_t.sketch, r_t.freq_op, *r_t.bounds, dcfg, device=dev,
                                   eager=True)
         torch.cuda.synchronize(dev)
         eager_s = time.perf_counter() - t0
-        eager = {e["name"]: e["values"] for e in obs.TRACER.events if e["kind"] == "series"}
+        eager = traced()
         same_c = all(torch.equal(getattr(r_t, f), getattr(r0, f))
                      for f in ("centroids", "weights", "cost"))
-        same_e = all(torch.equal(a, b) for a, b in zip(out_e, (r_t.centroids, r_t.weights,
-                                                               r_t.cost)))
+        same_e = all(torch.equal(a, b) for a, b in zip(out_e, out_g))
         ok, numbers = trace_consistent(decoder, graphed, float(r_t.cost), op.m)
         print(f"[trace {decoder}] series { {k: len(v) for k, v in graphed.items()} }; centroids "
               f"bitwise the untraced fit's: {same_c}; graphed series bitwise the eager "
-              f"decode's ({eager_s:.2f}s): {graphed == eager} (eager centroids the same: "
+              f"decode's{depth} ({eager_s:.2f}s): {series_g == eager} (eager centroids the same: "
               f"{same_e}); first/last {[(v[0], v[-1]) for v in graphed.values()]}; {numbers}",
               flush=True)
         check(same_c, f"trace {decoder}: tracing changed the fit's bits")
-        check(bool(graphed) and graphed == eager, f"trace {decoder}: graphed and eager series differ")
+        check(bool(series_g) and series_g == eager,
+              f"trace {decoder}: graphed and eager series differ")
         check(ok, f"trace {decoder}: the last traced point is inconsistent with the cost ({numbers})")
     obs.disable()
     obs.reset()
@@ -2411,12 +2484,305 @@ def examples_phase(dev, run, argv=None):
     print(f"[examples] {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+def _clone(tree):
+    return tree_map(torch.Tensor.clone, tree)
+
+
+def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, sync=None,
+                   steps=LM_DECODE_STEPS, check_steps=LM_CHECK_STEPS, keep=False):
+    """[lm-serve <arch>]: the published config at full width and depth, built
+    by ``init_lm`` on the card.  In float32: prefill -> decode against
+    ``forward`` at ``check_prompt`` tokens, to ``tests/test_archs.py``'s bar.
+    Then the serving (bf16) model: ``batch`` prompts of ``prompt`` tokens
+    through the serve layer's prefill step and ``steps`` greedy tokens
+    through its serve step, timed, the logits finite, the peak memory against
+    the bf16 parameters plus the KV cache.  No kernel launches (the model's
+    attention is plain PyTorch).  With ``keep``, returns what
+    ``kv_ckm_phase`` needs: the serving model, the cache of one more
+    (untimed) prefill, the prompt's length and the first request's first
+    decoded token."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import specs as lspecs
+    from repro_torch.models import transformer as tfm
+
+    sync = sync or torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    tag = f"lm-serve {arch}"
+    cfg = get_config(arch)
+
+    def gen(i):
+        return device_mod.generator(device_mod.derive_seed(LM_SEED, i), dev)
+
+    # 1. Float32: prefill -> decode against forward.
+    params = tfm.init_lm(LM_SEED, cfg, device=dev)
+    f32 = torch.float32
+    tok = torch.randint(0, cfg.vocab_size, (2, check_prompt + check_steps), generator=gen(1),
+                        device=dev)
+
+    def consistency():
+        worst = -float("inf")
+        with torch.inference_mode():
+            x, _ = tfm.forward(params, cfg, {"tokens": tok}, dtype=f32)
+            ref = tfm.logits_fn(params, cfg, x[:, check_prompt - 1:])
+            del x
+            logits, cache, index = tfm.prefill(params, cfg, {"tokens": tok[:, :check_prompt]},
+                                               check_prompt + check_steps, dtype=f32)
+            for t in range(check_steps + 1):
+                if t:
+                    logits, cache = tfm.decode_step(params, cfg,
+                                                    tok[:, check_prompt + t - 1:][:, :1],
+                                                    cache, index + t - 1, dtype=f32)
+                want = ref[:, t]
+                excess = torch.abs(logits[:, 0] - want) - (LM_ATOL + LM_RTOL * torch.abs(want))
+                worst = max(worst, float(torch.amax(excess)))
+        return worst, float(torch.amax(torch.abs(ref)))
+
+    worst, ref_max = run(f"{tag} f32 check", consistency, ())
+    print(f"[{tag} f32 check] prefill of {check_prompt} tokens then {check_steps} decode "
+          f"steps against forward (B=2): max(|d| - (atol + rtol |ref|)) = {worst:.3e} "
+          f"(atol {LM_ATOL}, rtol {LM_RTOL}; max |logit| {ref_max:.3f})", flush=True)
+    check(worst <= 0.0, f"{tag}: prefill -> decode differs from forward by {worst:.3e} over "
+                        "the bar")
+
+    # 2. The serving model.
+    params = lserve.serving_params(params)
+    sync(dev)
+    base = _reset_peak(dev)
+    param_bytes = _nbytes(tree_leaves(params))
+    # The cache holds the prompt and the decode steps after it.
+    shape = ShapeConfig(tag, prompt + steps, batch, "prefill")
+    prefill, _ = lserve.make_prefill(cfg, shape)
+    serve_step, _ = lserve.make_serve_step(cfg, shape)
+    tokens = lspecs.make_batch(cfg, shape, gen(2))["tokens"][:, :prompt].contiguous()
+    warm_prefill, _ = lserve.make_prefill(
+        cfg, ShapeConfig(tag, LM_WARM_PROMPT + 1, batch, "prefill"))
+    logits, cache, index = warm_prefill(params, {"tokens": tokens[:, :LM_WARM_PROMPT]})
+    serve_step(params, torch.argmax(logits[:, -1], -1, keepdim=True), cache, index)
+    del logits, cache
+
+    def serve():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache, index = prefill(params, {"tokens": tokens})
+        sync(dev)
+        t1 = time.perf_counter()
+        finite = torch.isfinite(logits).all()
+        for t in range(steps):
+            nxt = torch.argmax(logits[:, -1], -1, keepdim=True)
+            logits, cache = serve_step(params, nxt, cache, index + t)
+            finite &= torch.isfinite(logits).all()
+        sync(dev)
+        return t1 - t0, time.perf_counter() - t1, bool(finite), cache
+
+    prefill_s, decode_s, finite, cache = run(tag, serve, ())
+    kv_bytes = _nbytes(tree_leaves(cache))
+    del cache
+    peak = _peak_since(dev, base) + param_bytes
+    check(finite, f"{tag}: non-finite logits")
+    check(phase_counts[tag]["flash_attention"] == 0, f"{tag}: the model launched kernel 8")
+    budget = cfg.param_count() * 2 + kv_bytes
+    print(f"[{tag}] {cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16: prefill of "
+          f"B={batch} x S={prompt} {prefill_s * 1e3:.1f} ms ({batch * prompt / prefill_s:.0f} "
+          f"tokens/s); {steps} greedy decode steps {decode_s / steps * 1e3:.2f} ms a token "
+          f"({batch * steps / decode_s:.1f} tokens/s over the batch); logits finite; peak "
+          f"device memory {peak / 1e9:.3f} GB against params {cfg.param_count() * 2 / 1e9:.3f} "
+          f"GB (param_count x 2 B) + KV cache {kv_bytes / 1e9:.3f} GB = {budget / 1e9:.3f} GB "
+          f"({peak / budget:.3f}x); phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    if not keep:
+        return None
+    # The cache right after the prefill, and the first token (the timed run's
+    # decode wrote its cache in place).
+    logits, cache, index = prefill(params, {"tokens": tokens})
+    return {"cfg": cfg, "params": params, "cache": cache, "index": index,
+            "first": torch.argmax(logits[:1, -1], -1, keepdim=True)}
+
+
+def kv_ckm_phase(dev, run, served, centroids=KV_CENTROIDS, ring=KV_RING,
+                 steps=KV_DECODE_STEPS):
+    """[kv-ckm]: gemma3-1B's global layers (``long_context="ckm"``)
+    compressed from the prefill's KV with ``build_compressed_cache``: Lloyd
+    on every global layer, CKM on the first (kernels 1 and 2, counted); then
+    ``steps`` tokens decoded through ``decode_step`` with those layers in
+    the ``"ck"`` form, the logits' relative error against the full cache
+    printed (random weights: the worst case, no bar).  Then the example's
+    clustered-KV regime at head_dim 256 (centres x4, noise 0.1): both
+    methods held to ``tests/test_kv_clustering.py``'s bar at its size
+    (KV_CLUSTERED_TEST); at the example's (KV_CLUSTERED_EXAMPLE) CKM
+    printed, and Lloyd over KV_LLOYD_SEEDS seeds through kernel 2 held to
+    the same run through its plain version."""
+    from repro_torch import device as device_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import kv_clustering as kvc
+
+    t_phase = time.perf_counter()
+    cfg, params, cache0, index = (served[k] for k in ("cfg", "params", "cache", "index"))
+    layers = [(li, where, g, key) for li, where, g, key in tfm._walk(cfg)
+              if tfm._kind(cfg, li)[0] == "attn"]
+    check(bool(layers), "kv-ckm: no global layer")
+
+    def compress(method, which):
+        out = {}
+        for li, where, g, key in which:
+            c = tfm._at(cache0, where, g, key)
+            out[li] = kvc.build_compressed_cache(device_mod.derive_seed(KV_SEED, li),
+                                                 c["k"][:, :index], c["v"][:, :index],
+                                                 centroids, ring, method)
+        return out
+
+    lloyd_c = run("kv-ckm lloyd", lambda: compress("lloyd", layers), "assign_argmin")
+    ckm_c = run("kv-ckm ckm", lambda: compress("ckm", layers[:1]),
+                ("fourier_sketch", "assign_argmin"))
+
+    def decode(compressed, tokens=None):
+        cache = _clone(cache0)
+        for li, where, g, key in layers:
+            if li in compressed:
+                tfm._put(cache, where, g, key, _clone(compressed[li]))
+        out, nxt = [], served["first"]
+        with torch.inference_mode():
+            for t in range(steps):
+                tok = nxt if tokens is None else tokens[t]
+                logits, cache = tfm.decode_step(params, cfg, tok, cache, index + t)
+                out.append((tok, logits[:, 0].float()))
+                nxt = torch.argmax(logits[:, -1], -1, keepdim=True)
+        return out
+
+    full = decode({})
+    tokens = [tok for tok, _ in full]
+    rel = {}
+    for method, comp in (("lloyd", lloyd_c), ("ckm", {**lloyd_c, **ckm_c})):
+        got = decode(comp, tokens)
+        rel[method] = [float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                       for (_, a), (_, b) in zip(got, full)]
+    print(f"[kv-ckm decode] {len(layers)} global layers of {cfg.n_layers} (layers "
+          f"{[li for li, *_ in layers]}) compressed from S={index} to K={centroids} + ring "
+          f"{ring} ({index / (centroids + ring):.1f}x smaller); {steps} tokens decoded: "
+          f"relative error of the logits against the full cache, Lloyd on every global layer "
+          f"max {max(rel['lloyd']):.4f} mean {statistics.mean(rel['lloyd']):.4f}; CKM on "
+          f"layer {layers[0][0]} (Lloyd on the rest) max {max(rel['ckm']):.4f} mean "
+          f"{statistics.mean(rel['ckm']):.4f} (random weights: the worst case, no bar)",
+          flush=True)
+    check(all(math.isfinite(r) for v in rel.values() for r in v), "kv-ckm: non-finite logits")
+
+    # The clustered-KV regime at the model's head_dim.
+    li, where, g, key = layers[0]
+    mixer = {k: v.float() for k, v in tfm._at(params, where, g, key)["mixer"].items()}
+    dims = tfm.attn_dims(cfg, "attn")
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim_
+    pad = (0, 0, 0, 0, 0, 1)
+
+    def clustered(n_keys, n_cent, *tag):
+        """Planted keys and values, a query, and the full-cache output."""
+        gens = [device_mod.generator(device_mod.derive_seed(KV_SEED, 100, n_cent, *tag, i), dev)
+                for i in range(4)]
+        centers = torch.randn((n_cent, kvh, hd), generator=gens[0], device=dev) * 4
+        assign = torch.randint(0, n_cent, (n_keys,), generator=gens[1], device=dev)
+        kcl = centers[assign][None] + 0.1 * torch.randn((1, n_keys, kvh, hd),
+                                                        generator=gens[2], device=dev)
+        vcl = centers[assign][None] * 0.5
+        x = torch.randn((1, 1, cfg.d_model), generator=gens[3], device=dev)
+        out_full, _, _ = L.attention_decode(mixer, dims, x, torch.nn.functional.pad(kcl, pad),
+                                            torch.nn.functional.pad(vcl, pad), n_keys)
+        return {"k": kcl, "v": vcl, "x": x, "full": out_full, "centers": centers}
+
+    def rel_err(case, cache):
+        out_c, _ = kvc.attention_decode_compressed(mixer, dims, case["x"], cache,
+                                                   case["k"].shape[1])
+        return float(torch.linalg.norm(out_c - case["full"]) / torch.linalg.norm(case["full"]))
+
+    def matched(case, cache):
+        """Planted centres that are some live centroid's nearest (all of
+        them unless two centroids share a cluster)."""
+        live = cache["clogw"][0, :, 0] > -1e29
+        ck = cache["ck"][0][live].float().reshape(int(live.sum()), -1)
+        d2 = torch.cdist(ck, case["centers"].reshape(case["centers"].shape[0], -1))
+        return int(torch.unique(torch.argmin(d2, 1)).numel())
+
+    def build(case, seed, n_cent, n_ring, method):
+        return kvc.build_compressed_cache(seed, case["k"], case["v"], n_cent, n_ring, method)
+
+    # The test's size: both methods held to the bar.
+    n_keys, n_cent, n_ring = KV_CLUSTERED_TEST
+    case = clustered(n_keys, n_cent)
+    errs = {}
+    for method, needs in (("lloyd", "assign_argmin"),
+                          ("ckm", ("fourier_sketch", "assign_argmin"))):
+        cache = run(f"kv-ckm clustered K={n_cent} {method}",
+                    lambda m=method: build(case, device_mod.derive_seed(KV_SEED, 101), n_cent,
+                                           n_ring, m), needs)
+        errs[method] = rel_err(case, cache)
+    print(f"[kv-ckm clustered K={n_cent}] head_dim {hd}, S={n_keys}, {n_cent} planted centres "
+          f"x4, noise 0.1, ring {n_ring}: attention-output relative error Lloyd "
+          f"{errs['lloyd']:.4f}, CKM {errs['ckm']:.4f} (bar {KV_CLUSTERED_BAR})", flush=True)
+    for method, err in errs.items():
+        check(err < KV_CLUSTERED_BAR, f"kv-ckm clustered K={n_cent} {method}: relative error "
+                                      f"{err:.4f}")
+
+    # The example's size: CKM printed without a bar; Lloyd over
+    # KV_LLOYD_SEEDS data seeds through kernel 2 and through its plain version.
+    n_keys, n_cent, n_ring = KV_CLUSTERED_EXAMPLE
+    case = clustered(n_keys, n_cent)
+    cache = run(f"kv-ckm clustered K={n_cent} ckm",
+                lambda: build(case, device_mod.derive_seed(KV_SEED, 101), n_cent, n_ring, "ckm"),
+                ("fourier_sketch", "assign_argmin"))
+    ckm_err, ckm_found = rel_err(case, cache), matched(case, cache)
+    cases = [clustered(n_keys, n_cent, s) for s in range(KV_LLOYD_SEEDS)]
+
+    def lloyd_sweep():
+        return [build(c, device_mod.derive_seed(KV_SEED, 101, s), n_cent, n_ring, "lloyd")
+                for s, c in enumerate(cases)]
+
+    kernel_caches = run(f"kv-ckm clustered K={n_cent} lloyd x{KV_LLOYD_SEEDS}", lloyd_sweep,
+                        "assign_argmin")
+    with plain_assign():
+        plain_caches = lloyd_sweep()
+    errs = [(rel_err(c, a), rel_err(c, b), matched(c, a), matched(c, b))
+            for c, a, b in zip(cases, kernel_caches, plain_caches)]
+    gap = max(abs(e_k - e_p) for e_k, e_p, _, _ in errs)
+    under = [sum(e[j] < KV_CLUSTERED_BAR for e in errs) for j in (0, 1)]
+    merged = [s for s, e in enumerate(errs) if e[2] < n_cent]
+    missed = {s: round(e[0], 4) for s, e in enumerate(errs) if e[0] >= KV_CLUSTERED_BAR}
+    print(f"[kv-ckm clustered K={n_cent}] head_dim {hd}, S={n_keys}, {n_cent} planted centres "
+          f"x4, noise 0.1, ring {n_ring}: CKM {ckm_err:.4f} ({ckm_found} of {n_cent} centres "
+          f"matched; no bar: the reference's recipe misses it here); Lloyd over "
+          f"{KV_LLOYD_SEEDS} seeds: under the bar {KV_CLUSTERED_BAR} on {under[0]} (kernel 2) "
+          f"and {under[1]} (plain), errors {min(e[0] for e in errs):.4f}-"
+          f"{max(e[0] for e in errs):.4f}, max |kernel - plain| {gap:.2e} (tol "
+          f"{KV_LLOYD_PLAIN_TOL}), seeds with two centroids in one cluster {merged}, over the "
+          f"bar {missed}", flush=True)
+    check(gap <= KV_LLOYD_PLAIN_TOL,
+          f"kv-ckm clustered K={n_cent} lloyd: kernel 2 and its plain version differ by {gap:.2e}")
+    check(all(e[2] == e[3] for e in errs),
+          f"kv-ckm clustered K={n_cent} lloyd: kernel 2 and its plain version match different "
+          "centres")
+    print(f"[kv-ckm] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+@contextlib.contextmanager
+def plain_assign():
+    """Kernel 2's wrapper replaced by its plain version: the same draws and
+    the same arithmetic around it, so only the kernel differs."""
+    from repro_torch.kernels import assign_argmin as aa
+
+    kernel = aa.assign_argmin
+    aa.assign_argmin = aa.assign_argmin_plain
+    try:
+        yield
+    finally:
+        aa.assign_argmin = kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
 
     from repro_torch import device as device_mod
+    from repro_torch.configs import get_config
     from repro_torch.core import ckm, freq_ops, frequencies, lloyd, quantize
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
@@ -2428,6 +2794,7 @@ def main() -> None:
     from repro_torch.kernels import freq_transform as ft
     from repro_torch.kernels import ops
     from repro_torch.kernels import sketch_shift as ks
+    from repro_torch.serve import kv_clustering as kvc
 
     smoke_t0 = time.perf_counter()
 
@@ -2486,6 +2853,26 @@ def main() -> None:
         xs = torch.randn((20_001, n_small), generator=gen, device=dev) * 3
         cs = torch.randn((7, n_small), generator=gen, device=dev) * 3
         check_assign(aa, xs, cs, f"n={n_small}")
+
+    # Kernels 1 and 2 at [kv-ckm]'s shapes: clustered keys of one gemma3-1B
+    # global head, CKM's sigma^2 (boosted) and m.  Drawn from a generator of
+    # their own, so that the checks after them keep their inputs.
+    g_kv = device_mod.generator(device_mod.derive_seed(KV_SEED, 200), dev)
+    hd = get_config("gemma3-1b").head_dim_
+    n_keys = LM_SERVE["gemma3-1b"][1] - KV_RING + 1
+    planted = torch.randn((KV_CENTROIDS, hd), generator=g_kv, device=dev) * 4
+    keys = (planted[torch.randint(0, KV_CENTROIDS, (n_keys,), generator=g_kv, device=dev)]
+            + 0.1 * torch.randn((n_keys, hd), generator=g_kv, device=dev))
+    for k_s in KV_SHAPE_KS:
+        check_assign(aa, keys, keys[torch.randperm(n_keys, generator=g_kv, device=dev)[:k_s]],
+                     f"kv-ckm shape K={k_s}")
+    s2_kv = float(frequencies.estimate_sigma2(g_kv, keys[:kvc.SIGMA2_SAMPLE], device=dev))
+    w_kv = frequencies.draw_frequencies(g_kv, 5 * KV_CENTROIDS * hd, hd,
+                                        s2_kv * kvc.SIGMA2_BOOST, device=dev)
+    check_sketch(fs, keys, w_kv, ones[:n_keys], "kv-ckm shape")
+    print(f"[fourier_sketch phases] kv-ckm shape: max|x w| = {max_phase(keys, w_kv):.3f} rad",
+          flush=True)
+    del keys, w_kv
 
     # 4b. The slice-2 kernels (quantized dense, structured float and
     # quantized) at the main path's shapes: the fit's operator and dither.
@@ -2750,10 +3137,11 @@ def main() -> None:
             for label in EARLIER_RELATIVE_SSE}
     print(f"[quality as on 227003f] the same 4 digits as before: {kept}", flush=True)
 
-    # 8c. Each decoder's full decode with its loops eager, against the fit's
-    # graphed decode of the same sketch: the same bits (or, where they
-    # differ, the same relative SSE to 4 digits), the same launches of the
-    # decoder kernels, and both decode times.
+    # 8c. Each decoder's decode with its loops eager, against a graphed
+    # decode of the same sketch and depth (sketch_shift and CL-AMP at full
+    # depth, against the fit's own decode; CLOMPR at RE_DECODE_STEPS): the
+    # same bits (or, where they differ, the same relative SSE to 4 digits),
+    # the same launches of the decoder kernels, and both decode times.
     t0 = time.perf_counter()
     ckm.compute_sketch(FIT_SEED, x, cfg, device=dev)
     torch.cuda.synchronize()
@@ -2765,35 +3153,47 @@ def main() -> None:
         f"{phase_s['kmeans']:.2f}s: fit is {phase_s['kmeans'] / phase_s['fit']:.2f}x faster",
         flush=True,
     )
-    for label in ("fit", "fit-structured", "fit-sketch_shift", "fit-amp"):
-        r = fit_res[label]
+    def counted_decode(r, dcfg, eager):
+        """A decode of ``r``'s sketch: (out, seconds, launch counts)."""
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         t0 = time.perf_counter()
         out = ckm.decode_sketch(device_mod.derive_seed(FIT_SEED, 1), r.sketch, r.freq_op,
-                                *r.bounds, path_cfg[label], device=dev, eager=True)
+                                *r.bounds, dcfg, device=dev, eager=eager)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-        same = all(torch.equal(a, b) for a, b in zip(out, (r.centroids, r.weights, r.cost)))
+        return out, secs, {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    for label in ("fit", "fit-structured", "fit-sketch_shift", "fit-amp"):
+        r, dcfg = fit_res[label], path_cfg[label]
+        if dcfg.decoder == "clompr":
+            # CLOMPR's eager decode is the slow one (tens of seconds at full
+            # depth): both sides run at RE_DECODE_STEPS, every round of the
+            # decode kept.
+            dcfg = dataclasses.replace(dcfg, **RE_DECODE_STEPS)
+            graphed, g_secs, g_counts = counted_decode(r, dcfg, False)
+            rel_g = float(ckm.sse(x, graphed[0], device=dev)) / N / sse_km
+            depth = "at {atom_steps}/{joint_steps}/{final_steps} steps, ".format(**RE_DECODE_STEPS)
+        else:
+            graphed, g_counts = (r.centroids, r.weights, r.cost), phase_counts[label]
+            g_secs, rel_g, depth = phase_s[label] - pass_of[label], rel_of[label], "full depth, "
+        out, secs, counts = counted_decode(r, dcfg, True)
+        same = all(torch.equal(a, b) for a, b in zip(out, graphed))
         rel_e = float(ckm.sse(x, out[0], device=dev)) / N / sse_km
         print(
-            f"[{label} eager decode] {secs:.2f}s against the graphed "
-            f"{phase_s[label] - pass_of[label]:.2f}s ({(phase_s[label] - pass_of[label]) / secs:.3f} "
-            f"of it); bitwise equal to the graphed decode: {same}; relative SSE eager "
-            f"{rel_e:.4f}, graphed {rel_of[label]:.4f}; decoder-kernel launches eager "
-            f"{counts['sketch_shift']}/{counts['amp_denoise']}, graphed "
-            f"{phase_counts[label]['sketch_shift']}/{phase_counts[label]['amp_denoise']} "
-            "(sketch_shift/amp_denoise)",
+            f"[{label} eager decode] {depth}{secs:.2f}s against the graphed {g_secs:.2f}s "
+            f"({g_secs / secs:.3f} of it); bitwise equal to the graphed decode: {same}; "
+            f"relative SSE eager {rel_e:.4f}, graphed {rel_g:.4f}; decoder-kernel launches "
+            f"eager {counts['sketch_shift']}/{counts['amp_denoise']}, graphed "
+            f"{g_counts['sketch_shift']}/{g_counts['amp_denoise']} (sketch_shift/amp_denoise)",
             flush=True,
         )
-        check(same or f"{rel_e:.4f}" == f"{rel_of[label]:.4f}",
+        check(same or f"{rel_e:.4f}" == f"{rel_g:.4f}",
               f"{label}: the eager decode's relative SSE {rel_e:.4f} differs from the graphed "
-              f"{rel_of[label]:.4f}")
+              f"{rel_g:.4f}")
         for name in ("sketch_shift", "amp_denoise"):
-            check(counts[name] == phase_counts[label][name],
-                  f"{label}: {name} launched {counts[name]} times eager, "
-                  f"{phase_counts[label][name]} graphed")
+            check(counts[name] == g_counts[name],
+                  f"{label}: {name} launched {counts[name]} times eager, {g_counts[name]} graphed")
 
     # 9. Where a decode's time goes: short decodes, eager then graphed, each
     # timed alone and then once more under the profiler for its device time
@@ -2931,6 +3331,14 @@ def main() -> None:
 
     # 9g. The port's three sketch examples at their default sizes.
     examples_phase(dev, run)
+
+    # 9h. The LM serving path at llama3.2-1B and gemma3-1B width, and the
+    # CKM-compressed KV cache on gemma3-1B's global layers.
+    for arch, (lm_batch, prompt, check_prompt) in LM_SERVE.items():
+        served = lm_serve_phase(dev, run, phase_counts, arch, lm_batch, prompt, check_prompt,
+                                keep=arch == "gemma3-1b")
+    kv_ckm_phase(dev, run, served)
+    del served
 
     # 10. Per-kernel numbers.
     meta = {

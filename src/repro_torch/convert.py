@@ -1,17 +1,18 @@
 """Carry the reference's values into the port.
 
-This system has no model weights: what both packages must share to compute
-the same thing is the frequency operator (a dense matrix, or the structured
-operator's signs and radii), the quantizer's dither, the sketch state (float
-or quantized) and, for Lloyd, the starting centroids.  Each function takes
-the reference's value as a numpy array (``np.asarray`` of a JAX array) and
-returns the port's.
+What both packages must share to compute the same thing is the frequency
+operator (a dense matrix, or the structured operator's signs and radii), the
+quantizer's dither, the sketch state (float or quantized) and, for Lloyd,
+the starting centroids; for the LM, its parameters and its decode cache.
+Each function takes the reference's value as a numpy array (``np.asarray``
+of a JAX array; a tree of them for the LM) and returns the port's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch import device as dev_mod
 from repro_torch.core import quantize as qz
@@ -145,3 +146,34 @@ def stacked_operator_from_numpy(
                          f"with {len(stacked.leaves)} leaves")
     stacked.tenant(0)  # the family's own shape checks
     return stacked
+
+
+def _lm_tree(tree: dict, cfg, dev: torch.device) -> dict:
+    """A reference LM tree (parameters or cache: ``groups`` leaves stacked on
+    a leading group axis, ``rest`` unstacked) -> the port's (``groups`` a
+    list of one dict a group), every leaf a tensor of its numpy dtype."""
+
+    def leaves(t, pick=lambda a: a):
+        return tree_map(lambda a: torch.from_numpy(np.array(pick(np.asarray(a)))).to(dev), t)
+
+    n_groups = cfg.n_layers // cfg.period
+    out = {k: leaves(v) for k, v in tree.items() if k != "groups"}
+    out["groups"] = [leaves(tree["groups"], lambda a, g=g: a[g]) for g in range(n_groups)]
+    return out
+
+
+def lm_params_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT) -> dict:
+    """The reference's ``init_lm`` tree as numpy -> the port's parameters:
+    each ``groups`` leaf unstacked along its group axis, the ``rest`` layers
+    in their order.  A tied model (``cfg.tie_embeddings``) has no head: its
+    logits come from the embedding table."""
+    if cfg.tie_embeddings == ("lm_head" in tree):
+        raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the tree "
+                         f"{'has' if 'lm_head' in tree else 'lacks'} an lm_head")
+    return _lm_tree(tree, cfg, dev_mod.resolve(device))
+
+
+def lm_cache_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT) -> dict:
+    """The reference's decode cache (``init_cache`` or ``prefill``'s) as
+    numpy -> the port's, unstacked as ``lm_params_from_numpy`` does."""
+    return _lm_tree(tree, cfg, dev_mod.resolve(device))

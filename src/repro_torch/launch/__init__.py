@@ -1,7 +1,8 @@
-"""Launch descriptions (counterpart of ``repro.launch``): ``specs.SketchJobSpec``,
-how a sketch job is deployed.  The reference's LM launchers (``train``,
-``serve``, ``dryrun``, ``mesh``) belong to the LM substrate (ROADMAP Queue 1
-item 22)."""
+"""Launch descriptions (counterpart of ``repro.launch``): ``specs`` (a sketch
+job's ``SketchJobSpec``; the LM's input specs and ``make_batch``) and
+``serve``, the LM's prefill and serve steps on one card.  The reference's
+``train``, ``dryrun`` and ``mesh`` launchers wait for the LM's training half
+(ROADMAP Queue 1 item 22 (b))."""
 
 from repro_torch.launch.specs import SketchJobSpec
 

@@ -1,5 +1,5 @@
-"""The launchable description of a sketch workload (counterpart of
-``repro.launch.specs.SketchJobSpec``).
+"""The launchable description of a sketch workload and the LM's input
+specs (counterpart of ``repro.launch.specs``).
 
 :class:`SketchJobSpec` names how a sketch pass is deployed — engine backend,
 merge topology, ingest mode, quantization, operator family, decoder, the
@@ -10,17 +10,24 @@ and ``FleetService`` from one place.  Backend names are the port's
 ``"xla"`` and ``"pallas"`` both map to ``"kernel"``), and a fleet job runs
 on ``core.fleet.FLEET_BACKENDS``.
 
-The reference module's LM half (``sds``, ``train_batch_specs``,
-``prefill_batch_specs``, ``decode_token_specs``, ``make_batch``: input
-stand-ins for the dry-run of the model cells) waits for the LM substrate
-(ROADMAP Queue 1 item 22).
+The LM half (``sds``, a shape-and-dtype record; ``train_batch_specs``,
+``prefill_batch_specs``, ``decode_token_specs``; ``make_batch``, a random
+batch matching the specs, drawn from an explicit ``torch.Generator``)
+describes the model cells' inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
-__all__ = ["SketchJobSpec"]
+import torch
+
+from repro_torch import device as dev_mod
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
+__all__ = ["SketchJobSpec", "sds", "train_batch_specs", "prefill_batch_specs",
+           "decode_token_specs", "make_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,3 +190,53 @@ class SketchJobSpec:
         if self.drift_threshold is not None:
             base += f" drift_threshold={self.drift_threshold}"
         return base
+
+
+class sds(NamedTuple):
+    """A tensor's shape and dtype (the reference's ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    s_text = s - cfg.frontend_len if cfg.frontend == "vision" else s
+    batch = {
+        "tokens": sds((b, s_text), torch.int32),
+        "labels": sds((b, s_text), torch.int32),
+    }
+    if cfg.frontend == "vision":
+        batch["patches"] = sds((b, cfg.frontend_len, cfg.d_model), torch.float32)
+    elif cfg.frontend == "audio":
+        batch["frames"] = sds((b, cfg.frontend_len, cfg.d_model), torch.float32)
+    return batch
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    batch = train_batch_specs(cfg, shape)
+    batch.pop("labels")
+    return batch
+
+
+def decode_token_specs(cfg: ModelConfig, shape: ShapeConfig) -> sds:
+    return sds((shape.global_batch, 1), torch.int32)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator | None = None,
+               device=dev_mod.DEFAULT) -> dict:
+    """A random batch matching the specs: tokens uniform over the vocabulary,
+    labels the tokens shifted left by one, frontend inputs standard normal.
+    Drawn from ``gen`` (default: seed 0 on ``device``), on the generator's
+    device."""
+    dev = dev_mod.resolve(device if gen is None else gen.device)
+    gen = gen if gen is not None else dev_mod.generator(0, dev)
+    specs = train_batch_specs(cfg, shape)
+    tokens = torch.randint(0, cfg.vocab_size, specs["tokens"].shape, generator=gen,
+                           dtype=torch.int32, device=dev)
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    for name in ("patches", "frames"):
+        if name in specs:
+            out[name] = torch.randn(specs[name].shape, generator=gen, dtype=torch.float32,
+                                    device=dev)
+    return out

@@ -1,16 +1,17 @@
-"""The port's three sketch examples (``repro_torch.examples``), run on the
-CPU through their ``main(argv)`` at small sizes: their output lines, the
-relative SSE of CKM against Lloyd-Max x5, the one-rank process group of
-``full_pipeline --backend sharded`` (the kernel backend's sketch and
-decode), and ``serve_fleet``'s placement, shard routing and bitwise
-evict/restore."""
+"""The port's examples (``repro_torch.examples``), run on the CPU through
+their ``main(argv)`` at small sizes: their output lines, the relative SSE of
+CKM against Lloyd-Max x5, the one-rank process group of ``full_pipeline
+--backend sharded`` (the kernel backend's sketch and decode),
+``serve_fleet``'s placement, shard routing and bitwise evict/restore, and
+``serve_kv_ckm``'s compressed-cache fidelity."""
 
 import re
 
 import pytest
+import torch
 import torch.distributed as dist
 
-from repro_torch.examples import full_pipeline, quickstart, serve_fleet
+from repro_torch.examples import full_pipeline, quickstart, serve_fleet, serve_kv_ckm
 
 pytestmark = pytest.mark.torch_port
 
@@ -120,3 +121,27 @@ def test_serve_fleet_placement():
         serve_fleet.placement(4, 2, "cpu")
     with pytest.raises(ValueError, match=r"--devices must lie in \[0, --shards=2\]"):
         serve_fleet.placement(2, 3, "cpu")
+
+
+def test_serve_kv_ckm(capsys, monkeypatch):
+    """The reference's lines for both clusterers on the random model's keys
+    and on planted clusters, at a shorter prompt and fewer centroids (the
+    example's K = 64 takes minutes of CKM on the CPU); the clustered regime
+    under ``tests/test_kv_clustering.py``'s 0.15 bar."""
+    for name, value in (("S_PROMPT", 256), ("N_CENTROIDS", 8), ("RING", 16)):
+        monkeypatch.setattr(serve_kv_ckm, name, value)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # CLOMPR's tiny CPU ops: see test_torch_kv_clustering
+    try:
+        lines = _run(capsys, serve_kv_ckm)
+    finally:
+        torch.set_num_threads(threads)
+    for method in ("lloyd", "ckm"):
+        pad = f"{method:6s}"
+        rel = _number(lines, rf"^random-init KV  {pad}: rel err ([\d.]+) \(10\.7x smaller "
+                             r"cache; random-init keys have no cluster structure — worst case\)$")
+        assert 0.0 <= rel
+        rel = _number(lines, rf"^clustered KV    {pad}: rel err ([\d.]+) "
+                             r"\(pretrained-cache regime\)$")
+        assert rel < 0.15, (method, rel)
+    assert lines[-1].startswith("note: for LOCAL offline compression Lloyd is the right")

@@ -4,7 +4,9 @@ field sets as the reference's (backend names mapped: the reference's
 exception types and the same overrides, kwargs and description; its
 ``fleet_kwargs`` / ``service_kwargs`` drive the port's engine (a tenant mesh
 when ``tenant_shards > 1``) and service; ``core.clompr`` re-exports the
-decoder's objects."""
+decoder's objects; the LM half's input specs agree with the reference's for
+every architecture and shape, and ``make_batch`` draws a batch that matches
+them from an explicit generator."""
 
 import dataclasses
 import importlib
@@ -12,12 +14,16 @@ import importlib
 import pytest
 import torch
 
+from repro.configs import base as jbase
 from repro.core import clompr as jclompr
+from repro.launch import specs as jspecs
 from repro.launch.specs import SketchJobSpec as JaxJobSpec
 from repro_torch import launch
+from repro_torch.configs import base as tbase
 from repro_torch.core import CKMConfig, FleetEngine, ckm, fleet_specs
 from repro_torch.core import clompr as tclompr
 from repro_torch.core import fleet as fl
+from repro_torch.launch import specs as tspecs
 from repro_torch.launch.specs import SketchJobSpec
 from repro_torch.parallel import tenant_mesh
 from repro_torch.serve import FleetService
@@ -135,3 +141,54 @@ def test_core_clompr_reexports_the_decoder():
     for name in tclompr.__all__:
         assert getattr(tclompr, name) is getattr(dec_clompr, name)
     assert tclompr.CLOMPRConfig(k=3).init == jclompr.CLOMPRConfig(k=3).init
+
+
+# ---------------------------------------------------------------------------
+# The LM half: input specs and make_batch
+# ---------------------------------------------------------------------------
+
+
+def _port_cfg(arch):
+    """The reference's smoke config in the port's type (every family: the
+    specs read only its frontend fields)."""
+    return tbase.ModelConfig(**dataclasses.asdict(jbase.get_smoke_config(arch)))
+
+
+def _as_pairs(specs):
+    if isinstance(specs, dict):
+        return {k: _as_pairs(v) for k, v in specs.items()}
+    return tuple(specs.shape), str(specs.dtype).split(".")[-1]
+
+
+@pytest.mark.parametrize("arch", jbase.ARCHS)
+@pytest.mark.parametrize("shape", sorted(jbase.SHAPES))
+def test_lm_batch_specs_match_the_reference(arch, shape):
+    jcfg, tcfg = jbase.get_smoke_config(arch), _port_cfg(arch)
+    jshape, tshape = jbase.SHAPES[shape], tbase.SHAPES[shape]
+    for name in ("train_batch_specs", "prefill_batch_specs", "decode_token_specs"):
+        got = getattr(tspecs, name)(tcfg, tshape)
+        want = getattr(jspecs, name)(jcfg, jshape)
+        assert _as_pairs(got) == _as_pairs(want), name
+    assert tspecs.sds((2, 3), torch.int32) == ((2, 3), torch.int32)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-small", "internvl2-26b"])
+def test_make_batch_matches_the_specs(arch):
+    """The reference's shapes and dtypes, tokens in the vocabulary, labels
+    the tokens shifted left, frontend inputs drawn; one generator seed gives
+    the same batch."""
+    cfg = _port_cfg(arch)
+    shape = tbase.ShapeConfig("t", 48, 3, "train")
+    batch = tspecs.make_batch(cfg, shape, torch.Generator().manual_seed(5))
+    want = jspecs.make_batch(jbase.get_smoke_config(arch), jbase.ShapeConfig("t", 48, 3, "train"))
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in batch.items()} == {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
+    tok = batch["tokens"]
+    assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size
+    assert torch.equal(batch["labels"], torch.roll(tok, -1, dims=1))
+    again = tspecs.make_batch(cfg, shape, torch.Generator().manual_seed(5))
+    assert all(torch.equal(again[k], v) for k, v in batch.items())
+    assert not torch.equal(tspecs.make_batch(cfg, shape, device="cpu")["tokens"], tok)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tspecs.make_batch(cfg, shape)
