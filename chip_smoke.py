@@ -277,7 +277,7 @@ LM_ATOL, LM_RTOL = 2e-2, 1e-2
 # ring of 64); KV_DECODE_STEPS tokens decoded.  Section 4 holds kernels 1 and
 # 2 against their plain versions at this phase's shapes: one head's S - ring
 # + 1 keys of the gemma3-1B prompt at head_dim 256, kernel 2 at each K of
-# KV_SHAPE_KS (K = 64 takes two centroid tiles of its generic path), kernel 1
+# KV_SHAPE_KS (both on its tile path, K = 64 as one centroid tile), kernel 1
 # at CKM's m = 5 K head_dim (serve/kv_clustering.py compress_kv).  The
 # clustered regime at head_dim 256 (planted centres x4, key noise 0.1):
 # (keys, planted centres = centroids, ring) at the example's sizes and at
@@ -293,6 +293,21 @@ KV_SHAPE_KS = (64, 16)
 KV_CLUSTERED_EXAMPLE, KV_CLUSTERED_TEST = (1024, 64, 64), (512, 16, 32)
 KV_CLUSTERED_BAR = 0.15
 KV_LLOYD_SEEDS, KV_LLOYD_PLAIN_TOL = 20, 1e-4
+# Kernel 2's tile path (n > 64, or K past its switch at n <= 64): every
+# (n, K, N) of these, with the ragged edges of its point tiles (N = 1, 63,
+# 8129 = 127 x 64 + 1, 20,001), centroid tiles (K = 1, 47, 65, 300) and
+# feature chunks (n = 65, 100, 257, 784) and the 4-byte staging of rows that
+# are not 16-byte aligned (n odd); the prefixes of one draw a width, from a
+# generator of their own (derive_seed(DATA_SEED, 300)); ties at n = 256 (the
+# duplicated centroids of ASSIGN_TIES, each (kept, [duplicates])), a row
+# wider than the redesign's predecessor took (ASSIGN_WIDE_N), and the
+# (n, K, N) of ASSIGN_TIMED timed beside the plain version.
+ASSIGN_SWEEP_NS = (65, 100, 128, 256, 257, 784, 2048)
+ASSIGN_SWEEP_KS = (1, 7, 16, 47, 64, 65, 300)
+ASSIGN_SWEEP_NPTS = (1, 63, 8129, 20_001)
+ASSIGN_TIES = ((0, (3, 8, 16, 64)), (9, (20, 73)))
+ASSIGN_WIDE_N = 12_289
+ASSIGN_TIMED = ((784, 64, 20_001), (2048, 64, 20_001))
 # A decoder's convergence series against its returned cost: the polish after
 # the traced loop lowers the objective, so CLOMPR's and sketch_shift's cost
 # is at most the last residual norm squared, and CL-AMP's cost per frequency
@@ -494,13 +509,15 @@ def max_structured_phase(x, op, chunk: int = 1 << 18) -> float:
                for i in range(0, x.shape[0], chunk))
 
 
-def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn):
+def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn, flips=None):
     """An integer-sum kernel against its plain version on the card.
 
     ``kernel(lo, hi)`` and ``plain(lo, hi)`` return the (qcos, qsin) sums of
     rows [lo, hi).  Checks: two launches bitwise equal; kernel(rows [0, a)) +
     kernel(rows [a, N)) == kernel(all rows) exactly; entries differing from
-    the plain version counted, with max |dq| / N <= CODE_TOL."""
+    the plain version counted, with max |dq| / N <= CODE_TOL; and, given
+    ``flips(got, ref)`` (a ``boundary_flips`` call), every differing entry
+    held to the boundary rule besides."""
     q1, q2 = kernel(0, n_pts), kernel(0, n_pts)
     parts = [kernel(0, split_at), kernel(split_at, n_pts)]
     torch.cuda.synchronize()
@@ -518,6 +535,9 @@ def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn):
         f"[{name} {label}] N={n_pts} differing entries={n_diff} of {2 * q1[0].numel()} "
         f"max|dq|/N={err:.3e} (tol {CODE_TOL}) bitwise-repeatable split-exact"
     )
+    if flips is not None:
+        _, n_near, _ = flips(q1, ref)
+        line += f"; every flip on a code boundary ({n_near} boundary rows)"
     return _timed({"max_abs_err": err}, lambda: kernel(0, n_pts), lambda: plain(0, n_pts),
                   bound_fn, line)
 
@@ -577,6 +597,9 @@ def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None
             lambda lo, hi, b=bits: ft.quantized_structured_sketch_sums_plain(
                 x[lo:hi], op.diags, op.radii, padded, b),
             n_pts, split_at, lambda: structured_bound(n_pts, n, op.d, op.nblocks, True),
+            flips=(lambda got, ref: structured_flips(
+                f"quantized_structured_sketch {label} d={op.d} 1bit", x, op, padded, got, ref))
+            if bits == 1 else None,
         )
     if results is not None:
         for (name, bits), r in out.items():
@@ -642,11 +665,13 @@ def check_denoise(kd, r, q, lo, hi, label):
     )
 
 
-def check_assign(aa, x, c, label, dup_of=None):
+def check_assign(aa, x, c, label, dup_of=None, time_it=True):
     """assign_argmin kernel vs its plain version on the card.  Labels may
     differ only at near-ties, where the distances to both labels agree within
-    the distance tolerance.  With ``dup_of = (i, j)``, centroid j repeats centroid
-    i < j and must never win (ties go to the lowest index)."""
+    the distance tolerance.  With ``dup_of = (i, j)``, centroid j (or each of
+    a tuple of them) repeats centroid i < j and must never win (ties go to
+    the lowest index).  Timed beside the plain version unless ``time_it`` is
+    False."""
     lab, dist = aa.assign_argmin(x, c)
     lab2, dist2 = aa.assign_argmin(x, c)
     torch.cuda.synchronize()
@@ -670,8 +695,13 @@ def check_assign(aa, x, c, label, dup_of=None):
         "bitwise-repeatable"
     )
     if dup_of is not None:
-        check(int((lab == dup_of[1]).sum()) == 0, f"assign_argmin {label}: tie not to lowest index")
+        dups = torch.tensor(dup_of[1], device=lab.device).reshape(-1)
+        check(not bool(torch.isin(lab, dups).any()) and bool((lab == dup_of[0]).any()),
+              f"assign_argmin {label}: tie not to lowest index")
         line += " ties-to-lowest"
+    if not time_it:
+        print(line, flush=True)
+        return {"max_abs_err": err}
     return _timed(
         {"max_abs_err": err},
         lambda: aa.assign_argmin(x, c),
@@ -679,6 +709,46 @@ def check_assign(aa, x, c, label, dup_of=None):
         lambda: assign_bound(x.shape[0], x.shape[1], c.shape[0]),
         line,
     )
+
+
+def assign_sweep(aa, dev):
+    """Kernel 2's tile path over ASSIGN_SWEEP_NS x ASSIGN_SWEEP_KS x
+    ASSIGN_SWEEP_NPTS, the ties of ASSIGN_TIES, a row of ASSIGN_WIDE_N
+    features, with check_assign's bars; the shapes of ASSIGN_TIMED timed."""
+    from repro_torch import device as device_mod
+
+    t0 = time.perf_counter()
+    g = device_mod.generator(device_mod.derive_seed(DATA_SEED, 300), dev)
+    n_max, k_max = max(ASSIGN_SWEEP_NPTS), max(ASSIGN_SWEEP_KS)
+    timed = {}
+    for n_s in ASSIGN_SWEEP_NS:
+        xs = torch.randn((n_max, n_s), generator=g, device=dev) * 3
+        cs = torch.randn((k_max, n_s), generator=g, device=dev) * 3
+        for k_s in ASSIGN_SWEEP_KS:
+            for n_pts in ASSIGN_SWEEP_NPTS:
+                time_it = (n_s, k_s, n_pts) in ASSIGN_TIMED
+                r = check_assign(aa, xs[:n_pts], cs[:k_s].contiguous(),
+                                 f"tile sweep n={n_s} K={k_s}", time_it=time_it)
+                if time_it:
+                    timed[(n_s, k_s, n_pts)] = r
+        if n_s == 256:
+            for kept, dups in ASSIGN_TIES:
+                k_t = max(dups) + 7
+                tied = cs[:k_t].clone()
+                tied[list(dups)] = tied[kept].clone()
+                check_assign(aa, xs, tied, f"tile sweep n={n_s} K={k_t} ties {kept}={dups}",
+                             dup_of=(kept, dups), time_it=False)
+    xs = torch.randn((63, ASSIGN_WIDE_N), generator=g, device=dev) * 3
+    cs = torch.randn((7, ASSIGN_WIDE_N), generator=g, device=dev) * 3
+    check_assign(aa, xs, cs, f"wide n={ASSIGN_WIDE_N}", time_it=False)
+    for (n_s, k_s, n_pts), r in timed.items():
+        print(f"[assign_argmin tile timed] n={n_s} K={k_s} N={n_pts}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+    shapes = len(ASSIGN_SWEEP_NS) * len(ASSIGN_SWEEP_KS) * len(ASSIGN_SWEEP_NPTS)
+    print(f"[assign_argmin tile sweep] {shapes} shapes, "
+          f"{sum(len(d) for _, d in ASSIGN_TIES)} ties, n={ASSIGN_WIDE_N}: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def check_flash(fa, label, q, k, v, rep, causal, window, time_it=False, q_chunk=None):
@@ -1186,9 +1256,9 @@ def _same_state(a, b) -> bool:
     return type(a) is type(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-def fleet_code_flips(x, w, dither, got, ref, chunk=4096):
-    """1-bit code sums of a fleet, ``got`` against ``ref`` ((T, m) int32
-    pairs for rows ``x (T, B, n)``, ``w (T, n, m)``, ``dither (T, m)``).
+def boundary_flips(name, x, w, dither, got, ref, rows=1 << 14):
+    """1-bit code sums ``got`` against ``ref`` ((T, m) int32 pairs) of rows
+    ``x (T, B, n)`` under frequencies ``w (T, n, m)`` and ``dither (T, m)``.
 
     Each entry may differ only by flips of points on a code boundary: by at
     most twice the count of its rows whose float64 phase has |cos| (or |sin|)
@@ -1198,22 +1268,39 @@ def fleet_code_flips(x, w, dither, got, ref, chunk=4096):
     diff = torch.stack([torch.abs(a.long() - b.long()) for a, b in zip(got, ref)])
     idx = torch.nonzero(diff)  # (k, 3): (cos/sin, tenant, frequency)
     n_near = 0
-    for lo in range(0, idx.shape[0], chunk):
-        part = idx[lo:lo + chunk]
-        which, t, j = part.unbind(1)
-        xs = x[t].double()  # (k, B, n)
-        ws = w[t, :, j].double()  # (k, n)
-        ds = dither[t, j].double()
-        theta = torch.einsum("kbn,kn->kb", xs, ws) + ds[:, None]
-        mag = torch.einsum("kbn,kn->kb", xs.abs(), ws.abs()) + ds.abs()[:, None]
-        trig = torch.where(which[:, None] == 0, torch.cos(theta), torch.sin(theta))
-        near = (trig.abs() < 1e-6 * (1 + mag)).sum(1)
+    for t in torch.unique(idx[:, 1]).tolist():
+        which, _, j = idx[idx[:, 1] == t].unbind(1)
+        ws, ds = w[t][:, j].double(), dither[t, j].double()  # (n, k), (k,)
+        near = torch.zeros_like(j)
+        for lo in range(0, x.shape[1], rows):
+            xs = x[t, lo:lo + rows].double()
+            theta = xs @ ws + ds
+            mag = xs.abs() @ ws.abs() + ds.abs()
+            trig = torch.where(which == 0, torch.cos(theta), torch.sin(theta))
+            near += (trig.abs() < 1e-6 * (1 + mag)).sum(0)
         bad = diff[which, t, j] > 2 * near
         check(not bool(bad.any()),
-              f"quantized_fourier_sketch_fleet: {int(bad.sum())} entries differ from the plain "
-              f"version by more than their boundary points allow")
+              f"{name}: {int(bad.sum())} entries differ from the plain version by more than "
+              "their boundary points allow")
         n_near += int(near.sum())
     return idx.shape[0], n_near, float(diff.max())
+
+
+def structured_w64(op) -> torch.Tensor:
+    """The structured operator's (n, nblocks d) frequencies in float64, from
+    its signs and radii (every block column, the ragged tail included)."""
+    from repro_torch.kernels import freq_transform as ft
+
+    eye = torch.eye(op.n, op.d, dtype=torch.float64, device=op.diags.device)
+    cols = ft.hd_chain(eye[:, None, :], op.diags.double()) * op.radii.double()
+    return cols.reshape(op.n, op.nblocks * op.d)
+
+
+def structured_flips(name, x, op, dither, got, ref):
+    """``boundary_flips`` of kernel 5's 1-bit sums (``(nblocks, d)`` pairs)
+    on rows ``x`` under ``op`` and its padded ``(nblocks, d)`` dither."""
+    return boundary_flips(name, x[None], structured_w64(op)[None], dither.reshape(1, -1),
+                          [q.reshape(1, -1) for q in got], [q.reshape(1, -1) for q in ref])
 
 
 def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, rows=FLEET_B,
@@ -1308,8 +1395,9 @@ def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, row
     qbit = all(torch.equal(q[i], torch.stack([p[i] for p in qs])) for i in (0, 1))
     qp = fs.quantized_fourier_sketch_sums_fleet_plain(blk, w_all, dith, 1)
     # One boundary flip moves an entry's sum by 2 of B = 1000 rows, so the
-    # bar is the boundary rule itself, per entry (fleet_code_flips).
-    n_diff, n_near, qerr = fleet_code_flips(blk, w_all, dith, q, qp)
+    # bar is the boundary rule itself, per entry (boundary_flips).
+    n_diff, n_near, qerr = boundary_flips("quantized_fourier_sketch_fleet", blk, w_all, dith,
+                                          q, qp)
     qerr /= rows
     check(qbit, "quantized_fourier_sketch_fleet: differs from T single launches")
     qloop_ms = median_ms(lambda: [fs.quantized_fourier_sketch_sums(blk[t], w_all[t], dith[t], 1)
@@ -2873,6 +2961,7 @@ def main() -> None:
     print(f"[fourier_sketch phases] kv-ckm shape: max|x w| = {max_phase(keys, w_kv):.3f} rad",
           flush=True)
     del keys, w_kv
+    assign_sweep(aa, dev)
 
     # 4b. The slice-2 kernels (quantized dense, structured float and
     # quantized) at the main path's shapes: the fit's operator and dither.

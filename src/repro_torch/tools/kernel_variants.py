@@ -1,4 +1,4 @@
-"""Where kernels 1, 3, 4-6 and 8 spend their time: each timed beside copies
+"""Where kernels 1-6 and 8 spend their time: each timed beside copies
 of its source with one part of the work taken out, on one card.
 
     PYTHONPATH=src python3 -m repro_torch.tools.kernel_variants   (one CUDA card)
@@ -19,7 +19,13 @@ the decoder's swarm (P = 80, n = 10, m = 1000, on the fit's sketch) timed
 eagerly and as 100 launches replayed in a CUDA graph (device time a
 launch), and at the wide shape (P = 80, n = 2048, m = 20,000, on the
 materialised wide structured operator); kernel 8 (``flash_attention``) at
-llama3.2-1B width, bf16, B = 1, S = 4096, causal.
+llama3.2-1B width, bf16, B = 1, S = 4096, causal; kernel 2
+(``assign_argmin``) at the main path's N = 10^7, n = K = 10, at the LM's
+KV-cache shapes (8129 clustered keys of head_dim 256, K = 64 and 16) and at
+n = 784 and 2048 (K = 64, N = 20,001); its tile path with resident and
+streamed point rows (N = 20,001, K = 300, n = 256 .. 736); then both of its
+paths at n <= 64 (N = 10^6, K = 16 .. 128), which is where its switch was
+set.
 
 ``--baseline NAME=PATH`` adds another source of kernel NAME (an earlier
 version, for example one written out by ``git show
@@ -30,9 +36,10 @@ their redesign (commit 8d5cea6, with those C interfaces: kernel 3 without
 ``quantized_fourier_sketch_resident``, on the grid of 8 CTAs an SM and at
 most 16,384 rows a CTA; kernel 6's ``sketch_shift_sums`` with its split of
 m into chunks of 1024); kernel 4-5 baselines must have the current C
-interface.  ``--only`` runs only the named kernels (``fourier_sketch``,
-``quantized_fourier_sketch``, ``structured_sketch``, ``sketch_shift``,
-``flash_attention``).
+interface; a kernel 2 baseline may have the one before its redesign
+(``assign_argmin(x, c, N, n, K, labels, dist, stream)``, no launch plan).  ``--only`` runs only the named kernels (``fourier_sketch``,
+``assign_argmin``, ``quantized_fourier_sketch``, ``structured_sketch``,
+``sketch_shift``, ``flash_attention``).
 
 The variants run in turns (in order, then in reverse) and each line gives
 the median of 10 CUDA-event timings per turn.  The edits drop work, so their
@@ -53,6 +60,7 @@ import argparse
 import ctypes
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -61,6 +69,7 @@ from repro_torch.core import ckm, freq_ops, frequencies
 from repro_torch.core import quantize as qz
 from repro_torch.data import synthetic
 from repro_torch.kernels import _build
+from repro_torch.kernels import assign_argmin as aa
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fourier_sketch as fs
 from repro_torch.kernels import freq_transform as ft
@@ -128,13 +137,37 @@ FLASH_VARIANTS = {
         "          mma_bf16(oacc[2 * tp], lo, b[0], b[1]);\n": "",
         "          mma_bf16(oacc[2 * tp + 1], lo, b[2], b[3]);\n": ""}},
 }
+# Kernel 2's ring depth: variant label -> stages (its launch plan's too).
+ASSIGN_STAGES = {f"{s} ring stages": s for s in (2, 3, 4)}
+ASSIGN_VARIANTS = {
+    "as is": {},
+    **{label: {"assign_argmin.cu": {
+        f"constexpr int kStages = {aa.TILE_STAGES};": f"constexpr int kStages = {s};"}}
+       for label, s in ASSIGN_STAGES.items() if s != aa.TILE_STAGES},
+    "one block an SM allowed 255 registers": {"assign_argmin.cu": {
+        "__global__ void __launch_bounds__(kThreads, 2)\nassign_tiles(":
+        "__global__ void __launch_bounds__(kThreads, 1)\nassign_tiles("}},
+    "no staging (cp.async not issued)": {"assign_argmin.cu": {
+        "    if (t < steps) {\n      const int kt = t / nch": "    if (t < 0) {\n      const int kt = t / nch"}},
+    "one feature chunk (32 features, whatever n)": {"assign_argmin.cu": {
+        "  const int nch = (n + kBK - 1) / kBK;\n  const int tiles":
+        "  const int nch = 1;\n  const int tiles"}},
+    "no products (staging, norms, epilogue and merge only)": {"assign_argmin.cu": {
+        "          acc[i][j] = fmaf(xv[i].x, cv[j].x, acc[i][j]);\n"
+        "          acc[i][j] = fmaf(xv[i].y, cv[j].y, acc[i][j]);\n"
+        "          acc[i][j] = fmaf(xv[i].z, cv[j].z, acc[i][j]);\n"
+        "          acc[i][j] = fmaf(xv[i].w, cv[j].w, acc[i][j]);\n": ""}},
+}
 BASELINE = "baseline (--baseline)"
 
 
-def build(name: str, variants: dict, baseline: Path | None = None) -> dict[str, ctypes.CDLL]:
+def build(name: str, variants: dict, baseline: Path | None = None,
+          report: str | None = None) -> dict[str, ctypes.CDLL]:
     """Each variant of ``csrc/<name>.cu`` and its headers written to its own
     directory and built (all nvcc processes started together), then loaded;
-    ``baseline``, a whole other source, as one more variant."""
+    ``baseline``, a whole other source, as one more variant.  With
+    ``report``, prints the registers and spills ptxas gives each variant's
+    entry functions whose names hold that string."""
     src = (_build.CSRC / f"{name}.cu").read_bytes()
     files = {f"{name}.cu": src.decode()}
     files.update({h: (_build.CSRC / h).read_text() for h in _build._headers(src)})
@@ -172,6 +205,13 @@ def build(name: str, variants: dict, baseline: Path | None = None) -> dict[str, 
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name} variant {label!r}:\n{log}")
         libs[label] = ctypes.CDLL(str(lib))
+        for chunk in log.split("Compiling entry function")[1:] if report else ():
+            fn = chunk.split("'")[1]
+            if report in fn:
+                regs = chunk.split("Used ")[1].split(" registers")[0]
+                spill = chunk.split(" bytes spill stores")[0].split(",")[-1].strip()
+                print(f"[ptxas {name}] {label}: {fn}: {regs} registers, {spill} B spilled",
+                      flush=True)
     return libs
 
 
@@ -435,6 +475,85 @@ def in_graph_us(calls: dict, launches: int = 100) -> None:
               flush=True)
 
 
+def assign_calls(libs, x, c, path=None, resident=None):
+    """Kernel 2 of each library on ``x`` and ``c``: through the launch plan
+    (``aa.assign_plan``, ``path`` and ``resident`` forcing a choice; an
+    ASSIGN_STAGES variant's plan sized for its ring) where the library has one,
+    else through the C interface from before the redesign; and the plain
+    version's result."""
+    n_pts, n = x.shape
+    k = c.shape[0]
+    dev = x.device
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    labels = torch.empty((n_pts,), dtype=torch.int32, device=dev)
+    dist = torch.empty((n_pts,), dtype=torch.float32, device=dev)
+    out = (x.data_ptr(), c.data_ptr(), n_pts, n, k)
+    calls = {}
+    for label, lib in libs.items():
+        if hasattr(lib, "assign_argmin_init"):
+            lib.assign_argmin.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, i64, i64] + [ptr] * 3
+            if lib.assign_argmin_init():
+                raise RuntimeError(f"assign_argmin variant {label!r}: shared-memory opt-in failed")
+            stages = aa.TILE_STAGES
+            aa.TILE_STAGES = ASSIGN_STAGES.get(label, stages)
+            try:
+                plan = aa.assign_plan(n_pts, n, k, path, resident)
+            finally:
+                aa.TILE_STAGES = stages
+
+            def launch(lib=lib, plan=plan):
+                return lib.assign_argmin(*out, plan.path == "tile", plan.resident, plan.grid,
+                                         plan.smem, labels.data_ptr(), dist.data_ptr(),
+                                         stream_ptr(dev))
+        else:
+            lib.assign_argmin.argtypes = [ptr, ptr, i64, i32, i32] + [ptr] * 3
+
+            def launch(lib=lib):
+                return lib.assign_argmin(*out, labels.data_ptr(), dist.data_ptr(),
+                                         stream_ptr(dev))
+
+        def call(launch=launch):
+            status = launch()
+            if status:
+                raise RuntimeError(f"assign_argmin variant launch failed ({status})")
+            return labels, dist
+        calls[label] = call
+    return calls, aa.assign_argmin_plain(x, c)
+
+
+def host_us(x, c, call, reps: int = 2000) -> None:
+    """Host microseconds a call of kernel 2's wrapper (``aa.assign_argmin``)
+    and of the bare C call, back to back (where the device keeps up, the
+    host time a launch), and of the wrapper's steps before its C call."""
+    dev = x.device
+    steps = {
+        "wrapper": lambda: aa.assign_argmin(x, c),
+        "C call": call,
+        "  input checks": lambda: (aa._check_inputs(x, c), aa.check_cuda((("x", x), ("c", c)))),
+        "  launch plan": lambda: aa.assign_plan(*x.shape, c.shape[0]),
+        "  two outputs (new_empty)": lambda: (x.new_empty(x.shape[0], dtype=torch.int32),
+                                              x.new_empty(x.shape[0])),
+        "  on_device, _lib, stream_ptr": lambda: (aa.on_device(dev), aa._lib(dev),
+                                                 aa.stream_ptr(dev)),
+    }
+    for label, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        print(f"  {label}: {(time.perf_counter() - t0) / reps * 1e6:.1f} us a call, host "
+              "clock, back to back", flush=True)
+
+
+def assign_check(out, ref) -> str:
+    """Kernel 2's distance error and label flips against the plain version."""
+    labels, dist = out
+    return (f"max|d dist| = {float((dist - ref[1]).abs().max()):.3e}, labels differing "
+            f"{int((labels != ref[0]).sum())}")
+
+
 def flash_calls(libs, q, k, v, rep):
     bh, s_q, hd = q.shape
     calls = {}
@@ -461,8 +580,8 @@ def max_err(out, ref, n_pts: int, what: str = "sums/N") -> str:
     return f"max|d({what})| = {err:.3e}"
 
 
-KERNELS = ("fourier_sketch", "quantized_fourier_sketch", "structured_sketch", "sketch_shift",
-           "flash_attention")
+KERNELS = ("fourier_sketch", "assign_argmin", "quantized_fourier_sketch", "structured_sketch",
+           "sketch_shift", "flash_attention")
 
 
 def main() -> None:
@@ -486,10 +605,12 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    tables = {"fourier_sketch": SKETCH_VARIANTS, "quantized_fourier_sketch": QSKETCH_VARIANTS,
+    tables = {"fourier_sketch": SKETCH_VARIANTS, "assign_argmin": ASSIGN_VARIANTS,
+              "quantized_fourier_sketch": QSKETCH_VARIANTS,
               "structured_sketch": STRUCTURED_VARIANTS, "sketch_shift": SHIFT_VARIANTS,
               "flash_attention": FLASH_VARIANTS}
-    libs = {name: build(name, tables[name], baselines.get(name))
+    libs = {name: build(name, tables[name], baselines.get(name),
+                        "assign_tiles" if name == "assign_argmin" else None)
             for name in KERNELS if name in only}
 
     n_pts, m = 10_000_000, 1000
@@ -502,6 +623,9 @@ def main() -> None:
         calls, ref = sketch_calls(libs["fourier_sketch"], x, w)
         print(f"[fourier_sketch] N={n_pts} n=10 m={m}", flush=True)
         in_turns(calls, lambda out: max_err(out, ref, n_pts))
+
+    if "assign_argmin" in libs:
+        assign_phase(libs["assign_argmin"], x, dev)
 
     if "quantized_fourier_sketch" in libs:
         # Kernel 3 at the fit shape, 1 and 4 bits; then the sweep's n = 100
@@ -604,6 +728,58 @@ def main() -> None:
         in_turns(calls, lambda o: "|do| against the bar 2^-7 |o| + 1e-4: "
                  f"{float(((o.float() - po).abs() / (2.0**-7 * po.abs() + 1e-4)).max()):.3f} "
                  "of it")
+
+
+def assign_phase(libs, x, dev) -> None:
+    """Kernel 2: every library at the main path's shape (10 centroids of the
+    fit's data), at the KV-cache shapes (the smoke run's planted keys: 64
+    clusters of head_dim 256, 8129 keys, centroids drawn from the keys) and
+    at n = 784 and 2048 (the KV shapes also as 100 launches in a CUDA
+    graph); then the as-is library's tile path with resident and streamed
+    rows, and its two paths at n <= 64."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cents = x[torch.randperm(x.shape[0], generator=gen, device=dev)[:10]].contiguous()
+    calls, ref = assign_calls(libs, x, cents)
+    print(f"[assign_argmin] main shape N={x.shape[0]} n=10 K=10", flush=True)
+    in_turns(calls, lambda out: assign_check(out, ref))
+    planted = torch.randn((64, 256), generator=gen, device=dev) * 4
+    keys = (planted[torch.randint(0, 64, (8129,), generator=gen, device=dev)]
+            + 0.1 * torch.randn((8129, 256), generator=gen, device=dev))
+    shapes = [(keys, k_s, f"kv shape N=8129 n=256 K={k_s}") for k_s in (64, 16)]
+    for n_s in (784, 2048):
+        xs = torch.randn((20_001, n_s), generator=gen, device=dev) * 3
+        shapes.append((xs, 64, f"N=20001 n={n_s} K=64"))
+    for xs, k_s, what in shapes:
+        cs = xs[torch.randperm(xs.shape[0], generator=gen, device=dev)[:k_s]].contiguous()
+        calls, ref = assign_calls(libs, xs, cs)
+        print(f"[assign_argmin] {what}", flush=True)
+        in_turns(calls, lambda out: assign_check(out, ref))
+        if xs.shape[0] == 8129:  # launches this short: the device time alone
+            in_graph_us(calls)
+            host_us(xs, cs, calls["as is"])
+    del shapes, keys
+    as_is = {"as is": libs["as is"]}
+    # Resident point rows against rows streamed with each centroid tile.
+    for n_s in (256, 512, 736):
+        xs = torch.randn((20_001, n_s), generator=gen, device=dev) * 3
+        cs = torch.randn((300, n_s), generator=gen, device=dev) * 3
+        both = {}
+        for resident in (True, False):
+            calls, ref = assign_calls(as_is, xs, cs, "tile", resident)
+            both["resident rows" if resident else "streamed rows"] = calls["as is"]
+        print(f"[assign_argmin staging] N=20001 n={n_s} K=300", flush=True)
+        in_turns(both, lambda out: assign_check(out, ref))
+    # The switch at n <= 64: the point path against the tile path.
+    for n_s in (10, 16, 32, 64):
+        xs = torch.randn((1_000_000, n_s), generator=gen, device=dev) * 3
+        for k_s in (16, 32, 48, 64, 128):
+            cs = torch.randn((k_s, n_s), generator=gen, device=dev) * 3
+            both = {}
+            for path in ("point", "tile"):
+                calls, ref = assign_calls(as_is, xs, cs, path)
+                both[f"{path} path"] = calls["as is"]
+            print(f"[assign_argmin paths] N=1000000 n={n_s} K={k_s}", flush=True)
+            in_turns(both, lambda out: assign_check(out, ref))
 
 
 if __name__ == "__main__":

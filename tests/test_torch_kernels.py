@@ -6,6 +6,7 @@ The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds each
 of them against its plain version there.
 """
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -27,6 +28,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sketch_shift as kss
 
 pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _sketch_inputs(seed, n_pts, feat, m):
@@ -175,7 +178,11 @@ def _assign_inputs(seed, n_pts, feat, k):
 
 
 @pytest.mark.parametrize(
-    "n_pts,feat,k", [(100, 10, 10), (1, 4, 3), (777, 5, 13), (2048, 16, 64)]
+    "n_pts,feat,k",
+    [(100, 10, 10), (1, 4, 3), (777, 5, 13), (2048, 16, 64),
+     # The kernel's tile path: wide rows, several centroid tiles, ragged
+     # feature chunks and point tiles.
+     (1024, 256, 64), (300, 100, 65), (130, 1024, 7), (64, 784, 300)],
 )
 def test_assign_argmin_plain_matches_reference_kernel(n_pts, feat, k):
     """Labels equal and distances within rtol 1e-5 of the reference kernel."""
@@ -196,6 +203,65 @@ def test_assign_argmin_plain_ties_go_to_lowest_index():
     tl, _ = aa.assign_argmin_plain(torch.from_numpy(x), torch.from_numpy(c))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     assert not np.isin(tl.numpy(), [5, 6]).any()
+
+
+def test_assign_argmin_plain_ties_go_to_lowest_index_at_wide_rows():
+    """The tie rule at n = 256 (the kernel's tile path), with duplicates
+    across the kernel's lanes, warps and centroid tiles (centroid 0 repeated
+    at 3, 8, 16 and 64; 9 at 20 and 73)."""
+    x, c = _assign_inputs(12, 2000, 256, 80)
+    for kept, dups in ((0, [3, 8, 16, 64]), (9, [20, 73])):
+        c[dups] = c[kept]
+    jl, _ = jops.assign_argmin(jnp.asarray(x), jnp.asarray(c), block_n=128, interpret=True)
+    tl, _ = aa.assign_argmin_plain(torch.from_numpy(x), torch.from_numpy(c))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert not np.isin(tl.numpy(), [3, 8, 16, 64, 20, 73]).any()
+    assert np.isin([0, 9], tl.numpy()).all()
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_assign_plan_covers_every_shape_the_smoke_runs():
+    """Every (N, n, K) that chip_smoke.py hands kernel 2 gets a plan within
+    the 227 KB a block may have (48 KB on the point path, which does not opt
+    in), whose grid covers N with no empty CTA; n > 64 takes the tile path,
+    and the tile path keeps its rows resident only across centroid tiles."""
+    cs = _chip_smoke()
+    shapes = {(cs.N, cs.DIM, cs.K), (cs.RAGGED_N, cs.DIM, cs.K), (8129, 256, 64), (8129, 256, 16),
+              (63, cs.ASSIGN_WIDE_N, 7)}
+    shapes |= {(20_001, n, 7) for n in (3, 70, *cs.SWEEP_DENSE_NS)}
+    shapes |= {(n_pts, n, k) for n in cs.ASSIGN_SWEEP_NS for k in cs.ASSIGN_SWEEP_KS
+               for n_pts in cs.ASSIGN_SWEEP_NPTS}
+    shapes |= {(max(cs.ASSIGN_SWEEP_NPTS), 256, max(d) + 7) for _, d in cs.ASSIGN_TIES}
+    assert {(n_pts, n, k) for n, k, n_pts in cs.ASSIGN_TIMED} <= shapes
+    paths = set()
+    for n_pts, n, k in sorted(shapes):
+        plan = aa.assign_plan(n_pts, n, k)
+        block = aa.POINT_THREADS if plan.path == "point" else aa.TILE_POINTS
+        assert plan.grid * block >= n_pts > (plan.grid - 1) * block, (n_pts, n, k, plan)
+        assert 0 < plan.smem <= (aa.SMEM_MAX if plan.path == "tile" else 48 * 1024), plan
+        assert plan.path == "tile" or n <= aa.POINT_MAX_N
+        assert not plan.resident or k > aa.TILE_CENTROIDS
+        paths.add((plan.path, plan.resident))
+    assert paths == {("point", False), ("tile", False), ("tile", True)}
+
+
+def test_assign_plan_mirrors_the_cuda_layout():
+    """The plan's constants are the CUDA source's (it refuses any other
+    plan on the card), and a forced point path past 64 features raises."""
+    code = (_build.CSRC / "assign_argmin.cu").read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", code)}
+    assert (consts["kBM"], consts["kBN"], consts["kBK"], consts["kStages"]) == (
+        aa.TILE_POINTS, aa.TILE_CENTROIDS, aa.TILE_FEATURES, aa.TILE_STAGES)
+    assert consts["kThreads"] == aa.POINT_THREADS
+    assert aa.assign_plan(10, 65, 3).path == "tile"
+    with pytest.raises(ValueError):
+        aa.assign_plan(10, 65, 3, path="point")
 
 
 def test_ops_dispatch_cpu_tensors_to_the_plain_versions(monkeypatch):
