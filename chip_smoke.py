@@ -17,7 +17,9 @@ deep tail and open boxes); the sweep of the sketch kernels' widths at
 N = 20,001 (kernels 1-3 at n = 3 to 100, kernel 1 also at phases of
 10^3-10^4 radians, kernels 4-5 at d = 64 to 1024); kernels 1 and 2 at the
 CKM-compressed KV cache's shapes (8129 keys at head_dim 256; K = 64 and 16,
-m = 81,920), and kernels 3-5 at
+m = 81,920); kernels 1 and 4 at the training loop's launches (4 rows: the
+balancer at n = 16, m = 640, the monitor at d = 2048, m = 32,768 and at
+the smoke config's n = 64, m = 512), and kernels 3-5 at
 phases of 10^3-10^5 radians on 1,000,003 rows; kernel 3's 1- and 4-bit
 times at the fit shape beside kernel 1's (a timed call over 50 ms, such as
 a plain version at N >= 10^6, is timed 3 times, not 10); flash
@@ -77,8 +79,17 @@ check against forward, a timed prefill of 4 x 4096 and 1 x 8192 tokens and
 and the CKM-compressed KV cache on gemma3-1B's global layers
 (``kv_ckm_phase``: Lloyd and CKM compression through kernels 1 and 2,
 decodes through the compressed layers, the clustered regime at head_dim
-256, Lloyd there over 20 seeds through kernel 2 and its plain version); one
-JSON line of per-kernel numbers,
+256, Lloyd there over 20 seeds through kernel 2 and its plain version); the
+LM's training path (``lm_train_phase``: train_loop.run at llama3.2-1B's
+width and depth, B = 4 x S = 4096, AdamW, bf16 compute, remat "full", the
+activation monitor and the compressive balancer on through kernels 4 and 1,
+three steps timed by CUDA events beside the loop's wall time, with tokens/s,
+loss, gradient norm, peak memory, the balancer's decode seconds and the
+model- and hardware-FLOP shares, the first loss against float32 compute, the
+final checkpoint restored bitwise, the monitor's decode and the balancer's
+weights) and the restart invariant at its smoke config
+(``lm_restart_phase``: six steps straight against three, a restart and
+three); one JSON line of per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
@@ -150,6 +161,8 @@ SHIFT_SWEEP = ((1, 3, 5), (17, 40, 300), (80, 64, 1000), (33, 100, 777))
 # a graphed decode of the same depth: every one of the 2K rounds, NNLS and
 # merge still runs.
 RE_DECODE_STEPS = {"atom_steps": 60, "joint_steps": 40, "final_steps": 200}
+# CLOMPR's short decodes under the profiler (section 9): 550 Adam steps.
+SHORT_CLOMPR_STEPS = {"atom_steps": 15, "joint_steps": 10, "final_steps": 50}
 # The fits' relative SSEs as this script printed them on commit 227003f
 # (NVIDIA H100 80GB HBM3, 700 W), before the streaming layer: with
 # telemetry off, every fit should give them to the digit.
@@ -289,6 +302,27 @@ LM_ATOL, LM_RTOL = 2e-2, 1e-2
 # the bar are printed (a k-means++ draw that seeds two centroids in one
 # cluster misses it when the query attends to that cluster, in both).
 KV_CENTROIDS, KV_RING, KV_DECODE_STEPS, KV_SEED = 64, 64, 8, 7
+# The LM's training path (launch/train.py, train/train_loop.py) at
+# llama3.2-1B's published width and depth: AdamW over float32 parameters,
+# bf16 compute, remat "full", the activation monitor (K = 4, structured at
+# d_model 2048: kernel 4) and the compressive balancer (a decode every 2
+# steps; kernel 1) on, over SyntheticLM(DataConfig(seed=0, n_domains=4)).
+# (arch, batch, sequence): the reference's train_4k cell (S = 4096) with its
+# global batch of 256 (512 chips' worth) cut to B = 4.  LM_TRAIN_STEPS steps;
+# the first step's loss is held to the same batch's loss at float32 compute
+# from the same parameters (relative LM_TRAIN_LOSS_RTOL: bf16 rounding of
+# the activations; at initialisation ln V dominates the loss, so the bar
+# sits near the ~1e-3 the rounding predicts, not at 2e-2); the final
+# checkpoint (keep=1) goes under
+# build/train_checkpoints/, is restored and compared bitwise, and needs
+# twice the state's bytes free there.  Then the restart invariant of
+# tests/test_substrate.py's loop (the smoke config, S = 32, B = 4, float32,
+# a checkpoint every LM_RESTART_STEPS // 2 steps): LM_RESTART_STEPS steps
+# straight against half, a restart and the rest, the final losses within
+# LM_RESTART_RTOL.
+LM_TRAIN = ("llama3.2-1b", 4, 4096)
+LM_TRAIN_STEPS, LM_TRAIN_SEED, LM_TRAIN_LOSS_RTOL = 3, 8, 1e-3
+LM_RESTART_STEPS, LM_RESTART_RTOL = 6, 1e-4
 KV_SHAPE_KS = (64, 16)
 KV_CLUSTERED_EXAMPLE, KV_CLUSTERED_TEST = (1024, 64, 64), (512, 16, 32)
 KV_CLUSTERED_BAR = 0.15
@@ -2850,6 +2884,215 @@ def kv_ckm_phase(dev, run, served, centroids=KV_CENTROIDS, ring=KV_RING,
     print(f"[kv-ckm] {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+def lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step, counted from the code: the forward's
+    products (the attention projections, the SwiGLU MLP, the tied
+    unembedding; causal attention's QK^T and PV over the half of the scores
+    a causal mask needs), three times that for the forward and backward.
+    Remat "full" runs one forward more (x 4/3 for the hardware's FLOPs)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    per_token = 2 * (cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                                     + 3 * d * cfg.d_ff) + d * cfg.vocab_size)
+    attention = cfg.n_layers * 2 * batch * cfg.n_heads * hd * seq * seq
+    return 3.0 * (per_token * batch * seq + attention)
+
+
+def lm_train_shapes(dev) -> dict:
+    """Kernel 1's and kernel 4's inputs at the training path's shapes: the
+    balancer's and the monitors' operators as ``train_loop.run`` makes them
+    (see LM_TRAIN), B = LM_TRAIN[1] rows each.  The balancer's rows are the
+    first batch's document embeddings, which also set its sigma^2; the
+    monitors' pooled rows are standard normal from a generator of their own.
+    -> {"dense": [(label, x, w)], "structured": [(label, x, op)]}."""
+    from repro_torch import device as device_mod
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
+    from repro_torch.data.clustering import CompressiveBalancer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.monitor import ActivationMonitor
+
+    arch, batch, seq = LM_TRAIN
+    cfg, smoke = get_config(arch), get_smoke_config(arch)
+    data = DataConfig(seed=0, n_domains=4)
+    embeds = SyntheticLM(cfg, ShapeConfig("train_4k", seq, batch, "train"), data,
+                         dev).batch_numpy(0)["_doc_embeds"]
+    bal = CompressiveBalancer(k=data.n_domains, dim=data.embed_dim, seed=LM_TRAIN_SEED + 3,
+                              device=dev)
+    bal.update(embeds)
+    g = device_mod.generator(device_mod.derive_seed(LM_TRAIN_SEED, 300), dev)
+    wide = ActivationMonitor(dim=cfg.d_model, k=4, device=dev).freqs
+    narrow = ActivationMonitor(dim=smoke.d_model, k=2, device=dev).freqs
+    x_bal = torch.from_numpy(embeds).to(dev)
+    return {
+        "dense": [
+            (f"lm-train balancer N={batch}", x_bal, bal.freqs.w.contiguous()),
+            (f"lm-train restart monitor N={batch}",
+             torch.randn((batch, smoke.d_model), generator=g, device=dev),
+             narrow.w.contiguous()),
+        ],
+        "structured": [(f"lm-train monitor N={batch}",
+                        torch.randn((batch, cfg.d_model), generator=g, device=dev), wide)],
+    }
+
+
+def lm_train_phase(dev, run):
+    """[lm-train <arch>]: ``train_loop.run`` at the published config's width
+    and depth (see LM_TRAIN): the first batch's loss at float32 compute,
+    then LM_TRAIN_STEPS bf16 steps with the monitor and the balancer on
+    (kernels 4 and 1, counted), each step's time by CUDA events beside the
+    loop's wall time, tokens/s, loss, gradient norm and peak memory, the
+    balancer's decode seconds, the model- and hardware-FLOP shares of the
+    bf16 peak, the final checkpoint's bytes, save and restore seconds
+    (restored bitwise), the monitor's decode and the balancer's weights."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    arch, batch, seq = LM_TRAIN
+    steps = LM_TRAIN_STEPS
+    tag = f"lm-train {arch}"
+    cfg = get_config(arch)
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    data = DataConfig(seed=0, n_domains=4)
+    root = Path(__file__).resolve().parent / "build" / "train_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # The checkpoint: float32 parameters and AdamW's m and v (12 bytes a
+    # parameter), the step and the monitor's sketch.
+    state_bytes = 12 * cfg.param_count()
+    free = shutil.disk_usage(root).free
+    print(f"[{tag} disk] {free / 1e9:.1f} GB free under {root}; the state ~{state_bytes / 1e9:.1f} "
+          "GB", flush=True)
+    check(free >= 2 * state_bytes, f"{tag}: {free / 1e9:.1f} GB free under {root}, under twice "
+                                   f"the state's {state_bytes / 1e9:.1f} GB")
+
+    def f32_loss():
+        params = tfm.init_lm(LM_TRAIN_SEED, cfg, device=dev)
+        with torch.no_grad():
+            return float(tfm.lm_loss(params, cfg, SyntheticLM(cfg, shape, data, dev).batch(0),
+                                     dtype=torch.float32))
+
+    loss32 = run(f"{tag} f32 loss", f32_loss, ())
+    loop = train_loop.LoopConfig(steps=steps, ckpt_dir=str(root), ckpt_every=steps + 1, keep=1,
+                                 monitor_k=4, balance_every=2, log_every=1,
+                                 dtype=torch.bfloat16, remat="full")
+    base = _reset_peak(dev)
+    out = run(tag, lambda: train_loop.run(cfg, shape, None, loop, data, seed=LM_TRAIN_SEED,
+                                          device=dev), ("fourier_sketch", "structured_sketch"))
+    hist = out["history"]
+    check(len(hist) == steps, f"{tag}: {len(hist)} logged steps, not {steps}")
+    tokens = batch * seq
+    for h in hist:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]),
+              f"{tag}: step {h['step']} loss {h['loss']} gnorm {h['gnorm']}")
+        print(f"[{tag} step {h['step']}] step function {h['step_ms']:.1f} ms (CUDA events), "
+              f"{tokens / h['step_ms'] * 1e3:.0f} tokens/s; the loop's wall {h['wall_ms']:.1f} ms "
+              f"(batch, upload, step, balancer), {tokens / h['wall_ms'] * 1e3:.0f} tokens/s; loss "
+              f"{h['loss']:.4f}, gnorm {h['gnorm']:.4f}, lr {h['lr']:.3e}, peak device memory "
+              f"{h['peak_bytes'] / 1e9:.2f} GB ({(h['peak_bytes'] - base) / 1e9:.2f} GB over the "
+              "phase's start)", flush=True)
+    wall_s = sum(h["wall_ms"] for h in hist) * 1e-3
+    print(f"[{tag} loop] {steps} steps in {wall_s:.2f} s of the loop's wall time: "
+          f"{steps * tokens / wall_s:.0f} tokens/s; the balancer's decodes "
+          f"{[round(t, 3) for t in out['balance_s']]} s (every 2 steps, inside the wall time)",
+          flush=True)
+    flops = lm_train_flops(cfg, batch, seq)
+    step_ms = statistics.median(h["step_ms"] for h in hist)
+    rate = flops / (step_ms * 1e-3)
+    print(f"[{tag} model flops] {flops / 1e12:.1f} TFLOP a step (6 x params x tokens and causal "
+          f"attention, counted from the code); median step function {step_ms:.1f} ms: "
+          f"{rate / 1e12:.1f} TFLOP/s, model-FLOP share {100 * rate / PEAK_BF16_FLOP_PER_S:.2f}% "
+          f"of {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16; hardware-FLOP share (x 4/3, "
+          f"remat's recompute included) {100 * 4 / 3 * rate / PEAK_BF16_FLOP_PER_S:.2f}%",
+          flush=True)
+    rel = abs(hist[0]["loss"] - loss32) / abs(loss32)
+    print(f"[{tag} loss] step 1 at bf16 compute {hist[0]['loss']:.6f} against float32 "
+          f"{loss32:.6f}: relative {rel:.2e} (bar {LM_TRAIN_LOSS_RTOL})", flush=True)
+    check(math.isfinite(loss32) and rel <= LM_TRAIN_LOSS_RTOL,
+          f"{tag}: the bf16 loss {hist[0]['loss']} is {rel:.2e} from the float32 {loss32}")
+
+    # The final checkpoint: bytes, save seconds, restored bitwise.
+    ck = Checkpointer(root, keep=1)
+    check(ck.all_steps() == [steps], f"{tag}: checkpoints {ck.all_steps()}, not [{steps}]")
+    nbytes = sum(f.stat().st_size for f in (root / f"step_{steps:010d}").iterdir())
+    state = out["state"]
+    t0 = time.perf_counter()
+    restored = ck.restore(state)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    leaves, want = tree_leaves(restored), tree_leaves(state)
+    same = len(leaves) == len(want) and all(torch.equal(a, b) for a, b in zip(leaves, want))
+    print(f"[{tag} checkpoint] step {steps}: {nbytes / 1e9:.3f} GB in {len(leaves)} leaves, saved "
+          f"in {out['save_s']:.1f}s (snapshot to the host and write), restored in "
+          f"{restore_s:.1f}s (a warm read), bitwise equal to the live state: {same}", flush=True)
+    check(same, f"{tag}: the restored checkpoint differs from the live state")
+    del restored, leaves, want
+
+    res = out["monitor_result"]
+    weights = out["balance_weights"]
+    check(tuple(res.centroids.shape) == (4, cfg.d_model)
+          and bool(torch.isfinite(res.centroids).all()), f"{tag}: monitor centroids")
+    check(weights is not None and len(weights) == data.n_domains
+          and bool(np.all(np.isfinite(weights))) and abs(float(weights.sum()) - 1.0) < 1e-9,
+          f"{tag}: balancer weights {weights}")
+    print(f"[{tag}] {cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, B={batch} x S={seq} (train_4k's global "
+          f"batch of 256 cut to {batch}), AdamW, float32 parameters, bf16 compute, remat full; "
+          f"monitor weights {[round(float(w), 3) for w in res.weights]}; balancer weights "
+          f"{[round(float(w), 3) for w in weights]}; phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    del out, state, res
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def lm_restart_phase(dev, run):
+    """[lm-train restart]: LM_RESTART_STEPS steps straight against half, a
+    restart from the checkpoint and the rest, at LM_TRAIN's smoke config on
+    the card (the reference loop test's configuration): the same final
+    loss."""
+    import shutil
+
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    tag = "lm-train restart"
+    steps = LM_RESTART_STEPS
+    cfg = get_smoke_config(LM_TRAIN[0])
+    root = Path(__file__).resolve().parent / "build" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def loop(name, n):
+        cfg_loop = train_loop.LoopConfig(steps=n, ckpt_dir=str(root / name), ckpt_every=steps // 2,
+                                         monitor_k=2, log_every=2, dtype=torch.float32)
+        return train_loop.run(cfg, ShapeConfig("t", 32, 4, "train"), None, cfg_loop,
+                              DataConfig(seed=0), device=dev)
+
+    straight = run(f"{tag} straight", lambda: loop("a", steps), "fourier_sketch")
+    run(f"{tag} first half", lambda: loop("b", steps // 2), "fourier_sketch")
+    resumed = run(f"{tag} resumed", lambda: loop("b", steps), "fourier_sketch")
+    a, b = straight["history"][-1]["loss"], resumed["history"][-1]["loss"]
+    finite = all(bool(torch.isfinite(o["monitor_result"].centroids).all())
+                 for o in (straight, resumed))
+    print(f"[{tag}] {cfg.name}: {steps} steps straight, final loss {a:.6f}; {steps // 2} + "
+          f"restart + {steps - steps // 2}, final loss {b:.6f} (relative {abs(a - b) / abs(a):.2e}, "
+          f"bar {LM_RESTART_RTOL}); the resumed run logged steps "
+          f"{[h['step'] for h in resumed['history']]}; monitor centroids finite: {finite}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    check(resumed["history"][0]["step"] > steps // 2, f"{tag}: the second run did not resume")
+    check(abs(a - b) <= LM_RESTART_RTOL * abs(a), f"{tag}: final losses {a} and {b} differ")
+    check(finite, f"{tag}: monitor centroids not finite")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def plain_assign():
     """Kernel 2's wrapper replaced by its plain version: the same draws and
@@ -2914,6 +3157,14 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"[data] N={N} K={K} n={DIM} m={M} in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    # Each section's seconds (the phases print their own).
+    t_section = [time.perf_counter()]
+
+    def section(label):
+        now = time.perf_counter()
+        print(f"[{label}] {now - t_section[0]:.1f}s", flush=True)
+        t_section[0] = now
+
     # 4. Each kernel against its plain version, at the main path's shapes.
     cfg = ckm.CKMConfig(k=K, m=M)
     g_sig, g_freq, _ = ckm.stream_keys(FIT_SEED, dev)
@@ -2961,7 +3212,21 @@ def main() -> None:
     print(f"[fourier_sketch phases] kv-ckm shape: max|x w| = {max_phase(keys, w_kv):.3f} rad",
           flush=True)
     del keys, w_kv
+
+    # Kernels 1 and 4 at [lm-train]'s shapes, B = 4 rows a step: the
+    # balancer's operator (n = 16, m = 640) after its first batch of
+    # document embeddings, the monitor's at d_model 2048 (m = 32,768, 16
+    # whole blocks) and at the restart phase's smoke width (dense, n = 64,
+    # m = 512), on pooled rows from a generator of their own.
+    lm_shapes = lm_train_shapes(dev)
+    for label, x_t, w_t in lm_shapes["dense"]:
+        check_sketch(fs, x_t, w_t, ones[:x_t.shape[0]], label)
+    for label, x_t, op_t in lm_shapes["structured"]:
+        check_structured(ft, x_t, op_t, ones[:x_t.shape[0]], label)
+    del lm_shapes
+    section("kernel checks 1-2")
     assign_sweep(aa, dev)
+    section("assign_argmin tile sweep")
 
     # 4b. The slice-2 kernels (quantized dense, structured float and
     # quantized) at the main path's shapes: the fit's operator and dither.
@@ -2993,6 +3258,7 @@ def main() -> None:
     op_w = freq_ops.make_operator("structured", g_freq, WIDE_M, WIDE_DIM, sigma2_w, device=dev)
     check_slice2_kernels(fs, ft, xw, None, op_w, quantize.draw_dither(g_dither, WIDE_M),
                          "wide", WIDE_N // 3)
+    section("kernel checks 3-5")
 
     # 4d. The decoder kernels.  sketch_shift at the decoder's swarm on the
     # fit's operator and sketch, at a ragged swarm and sketch, and on the
@@ -3046,6 +3312,7 @@ def main() -> None:
     check_denoise(kd, torch.tensor([[0.3, -2.0, 5.0, -5.0]], device=dev), 2.0,
                   torch.tensor([-inf, -1.0, -inf, -1.0], device=dev),
                   torch.tensor([inf, inf, 1.0, 1.0], device=dev), "open boxes")
+    section("kernel checks 6-7")
 
     # 4e. The sweep of the sketch kernels' widths at small N: every template
     # instance and generic path of kernels 1-3, every case of the structured
@@ -3081,6 +3348,7 @@ def main() -> None:
         check_slice2_kernels(fs, ft, xs, None, op_s, quantize.draw_dither(g_dither, m_s),
                              f"sweep n={n_s}", SWEEP_N // 3)
     del xs
+    section("sketch kernel sweeps")
 
     # 4f. Flash attention against its plain version: the edge cases, then
     # the model shapes (timed beside SDPA, which the port never calls).
@@ -3102,6 +3370,7 @@ def main() -> None:
         if label == "llama3.2-1b bf16":
             results["flash_attention"] = r
         del qf, kf, vf
+    section("kernel checks 8")
 
     # 5-7. The main path, each phase with the launch counts it caused.
     counters = {
@@ -3225,6 +3494,7 @@ def main() -> None:
     kept = {label: f"{rel_now[label]:.4f}" == f"{EARLIER_RELATIVE_SSE[label]:.4f}"
             for label in EARLIER_RELATIVE_SSE}
     print(f"[quality as on 227003f] the same 4 digits as before: {kept}", flush=True)
+    section("fits")
 
     # 8c. Each decoder's decode with its loops eager, against a graphed
     # decode of the same sketch and depth (sketch_shift and CL-AMP at full
@@ -3288,7 +3558,11 @@ def main() -> None:
     # timed alone and then once more under the profiler for its device time
     # and operations (the profiler's own host cost inflates a profiled wall
     # time, so the busy share is the device time over the unprofiled wall).
-    short = dataclasses.replace(cfg, atom_steps=30, joint_steps=20, final_steps=100)
+    # CLOMPR's are SHORT_CLOMPR_STEPS deep: the profiler's processing of
+    # their ~10^5 device operations a run costs the host far more than the
+    # decodes themselves.
+    section("eager decodes")
+    short = dataclasses.replace(cfg, **SHORT_CLOMPR_STEPS)
     adam_steps = 2 * K * (short.atom_steps + short.joint_steps) + short.final_steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
@@ -3309,17 +3583,20 @@ def main() -> None:
         runs, parts = {}, []
         for eager in (True, False):
             out, wall, (caps, reps) = decode_once(r, short_cfg, eager)
+            t_prof = time.perf_counter()
             with torch.profiler.profile(activities=activities) as prof:
                 out_p, wall_p, _ = decode_once(r, short_cfg, eager)
             check(all(torch.equal(a, b) for a, b in zip(out, out_p)),
                   f"{label}: a repeated short decode differs")
             device_ops = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+            t_prof = time.perf_counter() - t_prof - wall_p
             busy = sum(e.self_device_time_total for e in device_ops) / 1e6
             n_ops = sum(e.count for e in device_ops)
             runs[eager] = (out, wall, busy)
             by_name = {e.key: (e.count, e.self_device_time_total) for e in device_ops}
             parts.append(
-                f"{'eager' if eager else 'graphed'} wall {wall:.3f}s (profiled {wall_p:.3f}s), "
+                f"{'eager' if eager else 'graphed'} wall {wall:.3f}s (profiled {wall_p:.3f}s, "
+                f"then {t_prof:.1f}s of the profiler's processing), "
                 f"device busy {busy:.3f}s ({100 * busy / wall:.1f}%), {n_ops} device "
                 f"operations, {n_ops / n_units:.1f} per {unit}"
                 + ("" if eager else f", {caps} captures, {reps} replays")
@@ -3376,6 +3653,7 @@ def main() -> None:
           f"{floor_us:.2f} us of device time per launch, {floor_graph_us:.2f} us per launch "
           "with the gaps (CUDA events over the replay); beside amp_denoise's in-graph time "
           "above", flush=True)
+    section("short decodes")
 
     # 9b. The attention entry point (ops.flash_attention, the reference's
     # (B, S, H, hd) layout) at the model shapes: the same bits as the kernel
@@ -3428,6 +3706,11 @@ def main() -> None:
                                 keep=arch == "gemma3-1b")
     kv_ckm_phase(dev, run, served)
     del served
+
+    # 9i. The LM's training path at llama3.2-1B width, and the restart
+    # invariant at its smoke config.
+    lm_train_phase(dev, run)
+    lm_restart_phase(dev, run)
 
     # 10. Per-kernel numbers.
     meta = {

@@ -3,7 +3,8 @@
 What both packages must share to compute the same thing is the frequency
 operator (a dense matrix, or the structured operator's signs and radii), the
 quantizer's dither, the sketch state (float or quantized) and, for Lloyd,
-the starting centroids; for the LM, its parameters and its decode cache.
+the starting centroids; for the LM, its parameters and its decode cache;
+for training, the optimizer's state and the train state.
 Each function takes the reference's value as a numpy array (``np.asarray``
 of a JAX array; a tree of them for the LM) and returns the port's.
 """
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map
 
 from repro_torch import device as dev_mod
 from repro_torch.core import quantize as qz
+from repro_torch.core.distributed_sketch import SketchState
 from repro_torch.core.engine import (
     DecayedQuantizedSketchEngineState,
     DecayedSketchEngineState,
@@ -23,6 +25,7 @@ from repro_torch.core.engine import (
     SketchEngineState,
 )
 from repro_torch.core.freq_ops import DenseOperator, StackedOperator, StructuredOperator
+from repro_torch.optim import optimizers as optim
 
 _STATE_TYPES = (SketchEngineState, QuantizedSketchEngineState, DecayedSketchEngineState,
                 DecayedQuantizedSketchEngineState)
@@ -177,3 +180,102 @@ def lm_cache_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT) -> dict:
     """The reference's decode cache (``init_cache`` or ``prefill``'s) as
     numpy -> the port's, unstacked as ``lm_params_from_numpy`` does."""
     return _lm_tree(tree, cfg, dev_mod.resolve(device))
+
+
+# ---------------------------------------------------------------------------
+# Training: the optimizer's state and the train state
+# ---------------------------------------------------------------------------
+
+
+def _over_params(ref, like, leaf, g: int | None = None):
+    """``leaf(ref_subtree, like_tensor, group)`` at every parameter of the
+    port's tree ``like``, ``ref`` being a reference tree that mirrors the
+    parameters (its ``groups`` stacked on a leading group axis)."""
+    if isinstance(like, dict):
+        return {
+            k: ([_over_params(ref[k], sub, leaf, i) for i, sub in enumerate(v)]
+                if k == "groups" and isinstance(v, list) else _over_params(ref[k], v, leaf, g))
+            for k, v in like.items()
+        }
+    return leaf(ref, like, g)
+
+
+def _q8_from_numpy(ref, like: torch.Tensor, g: int | None, sqrt_domain: bool, dev):
+    """One parameter's ``Q8`` state.  Exact where the parameter's share of a
+    stacked leaf is whole blocks of 128 (or the leaf is not stacked);
+    otherwise the reference's blocks straddle groups, and the group's values
+    are dequantised and quantised again in the port's blocks."""
+    q, scale = np.asarray(ref.q), np.asarray(ref.scale)
+    size = like.numel()
+    if g is not None and size % optim._QBLOCK:
+        qs = optim.Q8(torch.from_numpy(q.copy()), torch.from_numpy(scale.astype(np.float32)))
+        flat = optim._dequantize(qs, (q.size,), sqrt_domain)[g * size:(g + 1) * size]
+        out = optim._quantize(flat, sqrt_domain)
+        return optim.Q8(out.q.to(dev), out.scale.to(dev))
+    if g is not None:
+        blocks = size // optim._QBLOCK
+        q, scale = q[g * blocks:(g + 1) * blocks], scale[g * blocks:(g + 1) * blocks]
+    return optim.Q8(torch.from_numpy(np.array(q, dtype=np.int8)).to(dev), _f32(scale, dev))
+
+
+def _adafactor_stats(ref: dict, like: torch.Tensor, g: int | None, sliced) -> dict:
+    """One parameter's Adafactor statistics.  A stacked leaf's rows and
+    columns are the layer's own (``...`` axes), except where the layer's
+    parameter is a vector: the reference factors the stack ``(G, d)`` of
+    vectors across groups, where the port's unstacked vector keeps a full
+    ``v``.  That ``v`` is carried as the reference's estimate,
+    ``vr[g] vc / mean(vr)``, and the two differ from the next update on."""
+    if "v" in ref or like.ndim >= 2:
+        return {k: sliced(v, g) for k, v in ref.items()}
+    vr, vc = np.asarray(ref["vr"], np.float32), np.asarray(ref["vc"], np.float32)
+    v = vr[g] * vc / np.maximum(np.mean(vr, axis=-1), np.float32(1e-30))
+    return {"v": sliced(v, None)}
+
+
+def opt_state_from_numpy(tree: dict, opt_cfg, like: dict, device=dev_mod.DEFAULT) -> dict:
+    """The reference optimizer's state as numpy (``opt.init`` or
+    ``opt.update``'s, for ``opt_cfg.name``) -> the port's, in the tree of the
+    port's parameters ``like`` (stacked ``groups`` unstacked): AdamW's
+    ``m``/``v``, AdamW8's ``Q8`` pairs (``_q8_from_numpy``), Adafactor's
+    ``vr``/``vc``/``v`` (``_adafactor_stats``) and every optimizer's
+    ``count``."""
+    dev = dev_mod.resolve(device)
+
+    def sliced(a, g):
+        a = np.asarray(a)
+        return _f32(a if g is None else a[g], dev)
+
+    out: dict = {"count": torch.tensor(int(np.asarray(tree["count"])), dtype=torch.int32,
+                                       device=dev)}
+    if opt_cfg.name == "adamw":
+        for key in ("m", "v"):
+            out[key] = _over_params(tree[key], like, lambda r, p, g: sliced(r, g))
+    elif opt_cfg.name == "adamw8":
+        for key, sqrt_domain in (("m", False), ("v", True)):
+            out[key] = _over_params(
+                tree[key], like, lambda r, p, g, s=sqrt_domain: _q8_from_numpy(r, p, g, s, dev))
+    elif opt_cfg.name == "adafactor":
+        out["stats"] = _over_params(tree["stats"], like,
+                                    lambda r, p, g: _adafactor_stats(r, p, g, sliced))
+    elif opt_cfg.name != "sgd":
+        raise ValueError(opt_cfg.name)
+    return out
+
+
+def train_state_from_numpy(tree: dict, cfg, opt_cfg, device=dev_mod.DEFAULT) -> dict:
+    """The reference's train state as numpy (``{"params", "opt", "step"}``
+    and, from its train loop, ``"monitor"``) -> the port's: parameters
+    requiring gradients, the optimizer's state, an int32 step and the
+    monitor's ``SketchState``."""
+    dev = dev_mod.resolve(device)
+    params = lm_params_from_numpy(tree["params"], cfg, dev)
+    for p in tree_flatten(params)[0]:
+        p.requires_grad_(True)
+    state = {
+        "params": params,
+        "opt": opt_state_from_numpy(tree["opt"], opt_cfg, params, dev),
+        "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev),
+    }
+    if "monitor" in tree:
+        state["monitor"] = SketchState(*(_f32(a, dev) for a in tree["monitor"]))
+    return state

@@ -23,8 +23,10 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch import device as dev_mod
+from repro_torch.core import freq_ops as fo
 from repro_torch.core import sketch as sk
 from repro_torch.core.engine import SketchEngine, rank_block
+from repro_torch.kernels import ops as kops
 
 
 class SketchState(NamedTuple):
@@ -49,14 +51,16 @@ def init_state(m: int, n: int, device=dev_mod.DEFAULT) -> SketchState:
 def update(state: SketchState, x: torch.Tensor, w) -> SketchState:
     """Fold a batch ``x: (B, n)`` into the accumulator (streaming use).
 
-    ``w``: a ``core.freq_ops.FrequencyOperator`` or a raw ``(n, m)`` matrix,
-    forwarded to ``core.sketch.sketch`` on the state's device.
+    ``w``: a ``core.freq_ops.FrequencyOperator`` or a raw ``(n, m)`` matrix.
+    The batch's unnormalised sums come from the sketch kernels on the
+    state's device (``kernels.ops.fourier_sketch_sums``: kernel 1 for a
+    dense operator, kernel 4 for a structured one; their plain versions on
+    the CPU), as the engine's do.
     """
-    x = torch.as_tensor(x, dtype=torch.float32).to(state.sums.device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(state.sums.device).contiguous()
     b = x.shape[0]
-    # Unnormalised sums: sketch() with unit weights.
     ones = torch.ones((b,), dtype=torch.float32, device=x.device)
-    part = sk.sketch(x, w, weights=ones, chunk=min(b, 8192))
+    part = sk._stacked(*kops.fourier_sketch_sums(x, fo.as_operator(w).to(x.device), ones))
     return SketchState(
         sums=state.sums + part,
         count=state.count + b,

@@ -9,7 +9,7 @@ the shapes of its inputs; the step runs eagerly under
 reference donates it).  Serving parameters are bf16: ``serving_params``
 casts a float32 model.  The reference's placement over a mesh
 (``NamedSharding``, ``param_specs``, ``cache_specs``) waits for the LM half
-of ``parallel/sharding`` (ROADMAP Queue 1 item 22 (b)): ``mesh`` must be
+of ``parallel/sharding`` (ROADMAP Queue 1 item 22 (b), part 2): ``mesh`` must be
 ``None``.
 """
 
@@ -54,8 +54,8 @@ def params_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
 def _one_card(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "serving runs on one card: mesh must be None (the sharded serve steps wait for "
-            "ROADMAP Queue 1 item 22 (b))"
+            "serving runs on one card: mesh must be None (the sharded serve steps are "
+            "ROADMAP Queue 1 item 22 (b), part 2)"
         )
 
 

@@ -15,8 +15,9 @@ Conventions, as in the reference:
   constraints).
 
 Two parts of the reference wait for their families: ``cross_attention_apply``
-and ``encoder_kv`` (whisper, ROADMAP Queue 1 item 22 (c)).  The bf16
-softmax's backward waits for training (item 22 (b)).
+and ``encoder_kv`` (whisper, ROADMAP Queue 1 item 22 (c)).  Training runs
+these functions under autograd; the bf16 softmax carries the reference's
+custom backward.
 """
 
 from __future__ import annotations
@@ -86,10 +87,30 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return x * inv * params["scale"].to(x.dtype)
 
 
+class _SoftmaxBF16(torch.autograd.Function):
+    """Softmax over the last axis: float32 inside, bf16 out, and only the
+    bf16 probabilities saved for the backward (a plain softmax would save
+    its float32 output, doubling the attention's largest saved tensor).
+    The backward is the reference's ``_softmax_bf16_bwd``:
+    ``p (g - sum(p g))`` in float32, returned in bf16."""
+
+    @staticmethod
+    def forward(ctx, scores):
+        p = torch.softmax(scores.to(_F32), dim=-1).to(torch.bfloat16)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        pf, gf = p.to(_F32), g.to(_F32)
+        dot = torch.sum(pf * gf, dim=-1, keepdim=True)
+        return (pf * (gf - dot)).to(torch.bfloat16)
+
+
 def _softmax_bf16(scores: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis: float32 inside, bf16 out (the forward of
-    the reference's ``_softmax_bf16``)."""
-    return torch.softmax(scores.to(_F32), dim=-1).to(torch.bfloat16)
+    """The reference's ``_softmax_bf16``: forward and custom backward."""
+    return _SoftmaxBF16.apply(scores)
 
 
 # ---------------------------------------------------------------------------

@@ -12,26 +12,28 @@ group and the layers run in a Python loop.  Serving caches mirror the same
 
 Modes
 -----
-- ``forward``      : full sequence (the prefill backbone)
+- ``forward``      : full sequence (training and the prefill backbone), with
+                     ``remat`` over each group of ``period`` layers
+- ``lm_loss``      : forward + ``chunked_ce_loss`` (the training objective)
 - ``prefill``      : forward + cache construction for decode
 - ``decode_step``  : one token against the cache (ring buffers for sliding-
                      window layers, CKM-compressed KV for a cache in the
                      ``"ck"`` form, ``serve.kv_clustering``)
 
-One card: ``mesh=`` must be ``None`` (a mesh raises; the sharded LM waits
-for ROADMAP Queue 1 item 22 (b)).  The other families (``moe``, the
+One card: ``mesh=`` must be ``None`` (a mesh raises; the LM on a mesh is
+ROADMAP Queue 1 item 22 (b), part 2).  The other families (``moe``, the
 recurrent mixers ``mamba``/``mlstm``/``slstm``, the whisper encoder and the
-vision frontend) raise ``NotImplementedError`` (item 22 (c)), and the
-training half (``chunked_ce_loss``, ``lm_loss``, ``remat``) waits for item
-22 (b).
+vision frontend) raise ``NotImplementedError`` (item 22 (c)).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as dev_mod
 from repro_torch.configs.base import ModelConfig
@@ -99,8 +101,8 @@ def _check_cfg(cfg: ModelConfig) -> None:
 def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "the LM runs on one card: mesh must be None (the sharded LM waits for ROADMAP "
-            "Queue 1 item 22 (b))"
+            "the LM runs on one card: mesh must be None (the LM on a mesh is ROADMAP "
+            "Queue 1 item 22 (b), part 2)"
         )
 
 
@@ -265,20 +267,64 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype):
     return x, positions
 
 
+# Rematerialisation: "full" recomputes each group's forward in its backward
+# (only the group's input is saved); "dots" saves the products without batch
+# dimensions (the projections' ``mm``, as the reference's
+# ``dots_with_no_batch_dims_saveable``) and recomputes the rest.
+REMAT_MODES = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematerialised(fn, remat: str, *args):
+    """``fn(*args)``, its activations rematerialised in the backward as
+    ``remat`` says (only while autograd records)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kwargs = {}
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
     batch: dict,
     mesh=None,
     dtype=torch.bfloat16,
+    remat: str = "none",
 ):
-    """Full-sequence forward.  Returns (final hidden (B, S, d), aux)."""
+    """Full-sequence forward.  Returns (final hidden (B, S, d), aux).
+
+    ``remat`` (``"none"``, ``"full"``, ``"dots"``) applies to each group of
+    ``period`` layers, as the reference's scan body; the ``rest`` layers run
+    without it, as the reference's do."""
     _check_mesh(mesh)
     x, positions = _embed_inputs(params, cfg, batch, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def group(gparams, x, aux):
+        for i in range(cfg.period):
+            x, a, _ = layer_forward(gparams[str(i)], cfg, cfg.mixer_pattern[i],
+                                    cfg.mlp_pattern[i], x, positions)
+            aux = aux + a
+        return x, aux
+
+    for gparams in params["groups"]:
+        x, aux = _rematerialised(functools.partial(group, gparams), remat, x, aux)
     for li, where, g, key in _walk(cfg):
-        x, a, _ = layer_forward(_at(params, where, g, key), cfg, *_kind(cfg, li), x, positions)
-        aux = aux + a
+        if where == "rest":
+            x, a, _ = layer_forward(params["rest"][key], cfg, *_kind(cfg, li), x, positions)
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux
 
@@ -287,6 +333,59 @@ def logits_fn(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x)
     return L.lm_head(params["lm_head"], x)
+
+
+def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor, lc: torch.Tensor):
+    """One chunk's (sum of token losses, count of counted tokens)."""
+    logits = logits_fn(params, cfg, xc).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_ce_loss(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    labels: torch.Tensor,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Cross-entropy over sequence chunks: the (B, S, V) logits never
+    materialise, in the forward or the backward (each chunk's float32
+    logits are recomputed in its backward; only its input is saved).
+
+    labels: (B, S) integers, negative = ignored (padding).  The mean over
+    the counted tokens (``max(count, 1)``).
+    """
+    b, s, _ = x.shape
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-100)
+    fn = functools.partial(_ce_chunk, params, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, x.shape[1], chunk):
+        t, c = _rematerialised(fn, "full", x[:, start:start + chunk],
+                               labels[:, start:start + chunk])
+        total = total + t
+        count = count + c
+    return total / torch.clamp(count, min=1.0)
+
+
+def lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict,
+    mesh=None,
+    dtype=torch.bfloat16,
+    remat: str = "none",
+    aux_weight: float = 0.01,
+) -> torch.Tensor:
+    x, aux = forward(params, cfg, batch, mesh, dtype, remat)
+    loss = chunked_ce_loss(params, cfg, x, batch["labels"])
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

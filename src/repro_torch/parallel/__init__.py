@@ -3,7 +3,7 @@
 ``sharding.axis_extent`` (the sharded SketchEngine's) and
 ``sharding.tenant_mesh`` (the fleet's ``sharding="mesh"``) are ported; the
 parameter and cache sharding rules and ``parallel/pipeline.py`` belong to
-the LM substrate (ROADMAP Queue 1 item 22).
+the LM on a mesh (ROADMAP Queue 1 item 22 (b), part 2).
 """
 
 from repro_torch.parallel.sharding import TenantMesh, axis_extent, tenant_mesh
