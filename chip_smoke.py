@@ -71,15 +71,22 @@ entry launched once a block, no peer copy and no torch.distributed call, a
 structured mesh fleet) and its service (``serve_mesh_phases``: 4096 host
 requests shard-routed sync and async, decodes, evict/restore, bitwise the
 unsharded service); the three examples of ``repro_torch.examples`` at their
-default sizes (``examples_phase``); the LM serving path
-(``lm_serve_phase``: llama3.2-1B and gemma3-1B at their published widths
-and depths, bf16 weights built on the card, a float32 prefill -> decode
-check against forward, a timed prefill of 4 x 4096 and 1 x 8192 tokens and
-32 greedy decode steps through the serve layer's steps, the peak memory)
-and the CKM-compressed KV cache on gemma3-1B's global layers
-(``kv_ckm_phase``: Lloyd and CKM compression through kernels 1 and 2,
-decodes through the compressed layers, the clustered regime at head_dim
-256, Lloyd there over 20 seeds through kernel 2 and its plain version); the
+default sizes (``examples_phase``); the LM serving path of every family
+(``lm_serve_phase``: llama3.2-1B, gemma3-1B, granite-moe, xlstm, whisper and
+internvl2 at their published widths and depths, jamba at 16 of 32 layers and
+kimi-k2 at 1 of 61, bf16 weights drawn on the card, a float32 prefill ->
+decode check against forward at the depth that fits 40 GB (kimi-k2's at its
+smoke config), a timed prefill (4 x 4096, 1 x 8192, 4 x (1500 frames + 448
+tokens), 1 x (256 patches + 3840 tokens), 1 x 32768) and 32 greedy decode
+steps through the serve layer's steps, the peak memory, each recurrent
+mixer's one-layer time) and the CKM-compressed KV cache on gemma3-1B's
+global layers (``kv_ckm_phase``: Lloyd and CKM compression through kernels
+1 and 2, decodes through the compressed layers, the clustered regime at
+head_dim 256, Lloyd there over 20 seeds through kernel 2 and its plain
+version) and on jamba's attention layers (``long_context_phase``: Lloyd at
+K = 4096 through kernel 2, 32 tokens decoded beside the Mamba states, held
+to the full cache; kernel 2 also checked at that shape, N = 31,745, n =
+128, among the kernel checks); the
 LM's training path (``lm_train_phase``: train_loop.run at llama3.2-1B's
 width and depth, B = 4 x S = 4096, AdamW, bf16 compute, remat "full", the
 activation monitor and the compressive balancer on through kernels 4 and 1,
@@ -161,8 +168,11 @@ SHIFT_SWEEP = ((1, 3, 5), (17, 40, 300), (80, 64, 1000), (33, 100, 777))
 # a graphed decode of the same depth: every one of the 2K rounds, NNLS and
 # merge still runs.
 RE_DECODE_STEPS = {"atom_steps": 60, "joint_steps": 40, "final_steps": 200}
-# CLOMPR's short decodes under the profiler (section 9): 550 Adam steps.
-SHORT_CLOMPR_STEPS = {"atom_steps": 15, "joint_steps": 10, "final_steps": 50}
+# CLOMPR's short decodes under the profiler (section 9): 410 Adam steps (the
+# profiler's host processing of their device operations, not the decodes,
+# takes most of the section's time), each loop a multiple of the Adam
+# graphs' unroll of 10, so they replay the graphs the re-decodes captured.
+SHORT_CLOMPR_STEPS = {"atom_steps": 10, "joint_steps": 10, "final_steps": 10}
 # The fits' relative SSEs as this script printed them on commit 227003f
 # (NVIDIA H100 80GB HBM3, 700 W), before the streaming layer: with
 # telemetry off, every fit should give them to the digit.
@@ -277,14 +287,45 @@ SHARDED_TOPOLOGIES = ("allreduce", "tree", "ring")
 SHARDED_RANKS, SHARDED_TICKS, SHARDED_DECAY, SHARDED_TIMEOUT_S = 4, 10, 0.99, 300
 # The LM serving path (models/, launch/serve.py) at the published widths and
 # depths of src/repro_torch/configs: (batch, prompt, float32-check prompt)
-# per architecture.  llama3.2-1B prefills 4 requests of 4096 tokens (kernel
-# 8's shape); gemma3-1B one of 8192 (16 windows of 512), its float32 check
-# past the window so that the rings wrap.  LM_DECODE_STEPS greedy tokens
-# after the prefill; LM_CHECK_STEPS decode steps checked against forward to
-# tests/test_archs.py's bar; a warm-up prefill of LM_WARM_PROMPT tokens.
-LM_SERVE = {"llama3.2-1b": (4, 4096, 128), "gemma3-1b": (1, 8192, 600)}
+# per architecture: (batch, prompt, float32-check prompt, depth), prompts in
+# positions (internvl2's count its 256 patches; whisper's are decoder tokens
+# after the encoder's 1500 frames), depth None = the published n_layers.
+# llama3.2-1B prefills 4 requests of 4096 tokens (kernel 8's shape);
+# gemma3-1B one of 8192 (16 windows of 512), its float32 check past the
+# window so that the rings wrap; granite-moe and xlstm 4 x 4096; whisper 4 x
+# (1500 frames + 448 tokens); internvl2 1 x (256 patches + 3840 tokens);
+# jamba 1 x 32768 (long_500k's 524,288 cut to one card's prefill) at 16 of
+# its 32 layers (two periods of 8: 103 GB in bf16 at full depth); kimi-k2 1
+# x 4096 at 1 of its 61 layers (2.08 TB in bf16; one layer's 384 experts are
+# 33.8 GB).  LM_DECODE_STEPS greedy tokens after the prefill; the float32
+# check (LM_CHECK_STEPS decode steps against forward to tests/test_archs.py's
+# bar) runs at the largest depth whose float32 parameters take at most
+# LM_CHECK_BYTES, or at the smoke config where one layer is over (kimi-k2); a
+# warm-up prefill of LM_WARM_PROMPT tokens.
+LM_SERVE = {
+    "llama3.2-1b": (4, 4096, 128, None),
+    "gemma3-1b": (1, 8192, 600, None),
+    "granite-moe-1b-a400m": (4, 4096, 128, None),
+    "xlstm-125m": (4, 4096, 128, None),
+    "whisper-small": (4, 448, 128, None),
+    "internvl2-26b": (1, 4096, 384, None),
+    "jamba-v0.1-52b": (1, 32768, 128, 16),
+    "kimi-k2-1t-a32b": (1, 4096, 128, 1),
+}
+LM_SERVE_CUTS = {
+    "jamba-v0.1-52b": "cut: 103 GB in bf16 at full depth; prompt cut from long_500k's 524,288",
+    "kimi-k2-1t-a32b": "cut: 2.08 TB in bf16 at full depth",
+}
 LM_DECODE_STEPS, LM_CHECK_STEPS, LM_WARM_PROMPT, LM_SEED = 32, 8, 256, 6
+LM_CHECK_BYTES = 40e9
 LM_ATOL, LM_RTOL = 2e-2, 1e-2
+# jamba's long-context cache ([jamba long-context]): after its prefill, its
+# attention layers compressed by build_compressed_cache (Lloyd, K =
+# CKM_KV_CENTROIDS = 4096 centroids a head, a ring of CKM_KV_RECENT = 1024,
+# models/transformer.py), LONG_DECODE_STEPS tokens decoded with the Mamba
+# states carried; kernel 2 at that shape (N = 32768 - 1024 + 1 keys of
+# head_dim 128, K = 4096) among the kernel checks.
+LONG_CONTEXT_ARCH, LONG_DECODE_STEPS = "jamba-v0.1-52b", 32
 # The CKM-compressed KV cache (serve/kv_clustering.py) on gemma3-1B's global
 # layers, at examples/serve_kv_ckm.py's sizes (K = 64 centroids a head, a
 # ring of 64); KV_DECODE_STEPS tokens decoded.  Section 4 holds kernels 1 and
@@ -2610,21 +2651,69 @@ def _clone(tree):
     return tree_map(torch.Tensor.clone, tree)
 
 
-def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, sync=None,
-                   steps=LM_DECODE_STEPS, check_steps=LM_CHECK_STEPS, keep=False):
-    """[lm-serve <arch>]: the published config at full width and depth, built
-    by ``init_lm`` on the card.  In float32: prefill -> decode against
-    ``forward`` at ``check_prompt`` tokens, to ``tests/test_archs.py``'s bar.
-    Then the serving (bf16) model: ``batch`` prompts of ``prompt`` tokens
-    through the serve layer's prefill step and ``steps`` greedy tokens
-    through its serve step, timed, the logits finite, the peak memory against
-    the bf16 parameters plus the KV cache.  No kernel launches (the model's
-    attention is plain PyTorch).  With ``keep``, returns what
-    ``kv_ckm_phase`` needs: the serving model, the cache of one more
+def _check_config(cfg):
+    """The float32 check's config: the largest depth whose float32
+    parameters take at most LM_CHECK_BYTES, or None when one layer is over."""
+    depth = cfg.n_layers
+    while depth and dataclasses.replace(cfg, n_layers=depth).param_count() * 4 > LM_CHECK_BYTES:
+        depth -= 1
+    return dataclasses.replace(cfg, n_layers=depth) if depth else None
+
+
+def _frontend_inputs(cfg, batch, gen, dev, dtype=torch.float32):
+    """The stub frontend's inputs of a batch: patches or frames, (B, F, d)."""
+    name = {"vision": "patches", "audio": "frames"}.get(cfg.frontend)
+    if name is None:
+        return {}
+    return {name: torch.randn((batch, cfg.frontend_len, cfg.d_model), generator=gen,
+                              device=dev).to(dtype)}
+
+
+def _recurrent_ms(cfg, params, dev, batch, seq, sync) -> dict:
+    """Each recurrent mixer of ``cfg``: one layer's full-sequence apply on
+    (batch, seq) bf16 activations, host-clock ms (synchronised), once warm."""
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    for li, where, g, key in tfm._walk(cfg):
+        mixer = tfm._kind(cfg, li)[0]
+        if mixer in out or mixer not in tfm._APPLY:
+            continue
+        apply, dims_of = tfm._APPLY[mixer]
+        p = tfm._at(params, where, g, key)["mixer"]
+        x = torch.randn((batch, seq, cfg.d_model), device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            apply(p, dims_of(cfg), x[:, :16])
+            sync(dev)
+            t0 = time.perf_counter()
+            apply(p, dims_of(cfg), x)
+            sync(dev)
+        out[mixer] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, depth=None,
+                   sync=None, steps=LM_DECODE_STEPS, check_steps=LM_CHECK_STEPS, keep=False):
+    """[lm-serve <arch>]: the published config at full width, at ``depth``
+    layers (None: all), built by ``init_lm`` on the card.  In float32:
+    prefill -> decode against ``forward`` at ``check_prompt`` positions, to
+    ``tests/test_archs.py``'s bar, at the largest depth whose float32
+    parameters take at most LM_CHECK_BYTES (the smoke config where one layer
+    is over) and, for a MoE, at a capacity factor that drops no token,
+    freed before the serving model is built.  Then the serving
+    (bf16) model, built in bf16: ``batch`` prompts of ``prompt`` positions
+    (with the frontend's stub inputs: internvl2's patches lead the prompt,
+    whisper's frames feed its encoder) through the serve layer's prefill
+    step and ``steps`` greedy tokens through its serve step, timed, the
+    logits finite, the peak memory against the bf16 parameters plus the
+    cache (KV, recurrent states, cross keys and values); each recurrent
+    mixer's one-layer apply timed at the prompt's shape.  No kernel launches
+    (the model's attention is plain PyTorch).  With ``keep``, returns what a
+    compressed-cache phase needs: the serving model, the cache of one more
     (untimed) prefill, the prompt's length and the first request's first
     decoded token."""
     from repro_torch import device as device_mod
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
     from repro_torch.launch import serve as lserve
     from repro_torch.launch import specs as lspecs
     from repro_torch.models import transformer as tfm
@@ -2632,44 +2721,65 @@ def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, sy
     sync = sync or torch.cuda.synchronize
     t_phase = time.perf_counter()
     tag = f"lm-serve {arch}"
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+    prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
 
     def gen(i):
         return device_mod.generator(device_mod.derive_seed(LM_SEED, i), dev)
 
     # 1. Float32: prefill -> decode against forward.
-    params = tfm.init_lm(LM_SEED, cfg, device=dev)
+    check_cfg = _check_config(full)
+    where = (f"{check_cfg.n_layers} of {full.n_layers} layers" if check_cfg is not None
+             else "the smoke config (one layer's float32 parameters exceed "
+                  f"{LM_CHECK_BYTES / 1e9:.0f} GB)")
+    check_cfg = check_cfg or get_smoke_config(arch)
+    if check_cfg.moe_experts:
+        # A capacity of every token: the prefill's dispatch drops none, as
+        # the decode's dense path drops none (at the published 1.25 the two
+        # differ by design once an expert overflows).
+        no_drop = max(check_cfg.moe_capacity_factor, check_cfg.moe_experts / check_cfg.moe_top_k)
+        check_cfg = dataclasses.replace(check_cfg, moe_capacity_factor=no_drop)
+        where += f", MoE capacity factor {no_drop:g} (no token dropped)"
+    params = tfm.init_lm(LM_SEED, check_cfg, device=dev)
     f32 = torch.float32
-    tok = torch.randint(0, cfg.vocab_size, (2, check_prompt + check_steps), generator=gen(1),
-                        device=dev)
+    n_check = check_prompt - prefix
+    check_in = {"tokens": torch.randint(0, check_cfg.vocab_size, (2, n_check + check_steps),
+                                        generator=gen(1), device=dev),
+                **_frontend_inputs(check_cfg, 2, gen(3), dev)}
 
     def consistency():
         worst = -float("inf")
         with torch.inference_mode():
-            x, _ = tfm.forward(params, cfg, {"tokens": tok}, dtype=f32)
-            ref = tfm.logits_fn(params, cfg, x[:, check_prompt - 1:])
+            x, _ = tfm.forward(params, check_cfg, check_in, dtype=f32)
+            ref = tfm.logits_fn(params, check_cfg, x[:, check_prompt - 1:])
             del x
-            logits, cache, index = tfm.prefill(params, cfg, {"tokens": tok[:, :check_prompt]},
-                                               check_prompt + check_steps, dtype=f32)
+            logits, cache, index = tfm.prefill(
+                params, check_cfg, {**check_in, "tokens": check_in["tokens"][:, :n_check]},
+                check_prompt + check_steps, dtype=f32)
             for t in range(check_steps + 1):
                 if t:
-                    logits, cache = tfm.decode_step(params, cfg,
-                                                    tok[:, check_prompt + t - 1:][:, :1],
-                                                    cache, index + t - 1, dtype=f32)
+                    logits, cache = tfm.decode_step(
+                        params, check_cfg, check_in["tokens"][:, n_check + t - 1:][:, :1],
+                        cache, index + t - 1, dtype=f32)
                 want = ref[:, t]
                 excess = torch.abs(logits[:, 0] - want) - (LM_ATOL + LM_RTOL * torch.abs(want))
                 worst = max(worst, float(torch.amax(excess)))
         return worst, float(torch.amax(torch.abs(ref)))
 
     worst, ref_max = run(f"{tag} f32 check", consistency, ())
-    print(f"[{tag} f32 check] prefill of {check_prompt} tokens then {check_steps} decode "
-          f"steps against forward (B=2): max(|d| - (atol + rtol |ref|)) = {worst:.3e} "
+    print(f"[{tag} f32 check] {where}: prefill of {check_prompt} positions then {check_steps} "
+          f"decode steps against forward (B=2): max(|d| - (atol + rtol |ref|)) = {worst:.3e} "
           f"(atol {LM_ATOL}, rtol {LM_RTOL}; max |logit| {ref_max:.3f})", flush=True)
     check(worst <= 0.0, f"{tag}: prefill -> decode differs from forward by {worst:.3e} over "
                         "the bar")
+    del params, check_in
+    sync(dev)
+    torch.cuda.empty_cache()
 
-    # 2. The serving model.
-    params = lserve.serving_params(params)
+    # 2. The serving model, drawn in bf16 (the bits of casting the float32
+    # model of the same seed).
+    params = tfm.init_lm(LM_SEED, cfg, device=dev, dtype=torch.bfloat16)
     sync(dev)
     base = _reset_peak(dev)
     param_bytes = _nbytes(tree_leaves(params))
@@ -2677,17 +2787,20 @@ def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, sy
     shape = ShapeConfig(tag, prompt + steps, batch, "prefill")
     prefill, _ = lserve.make_prefill(cfg, shape)
     serve_step, _ = lserve.make_serve_step(cfg, shape)
-    tokens = lspecs.make_batch(cfg, shape, gen(2))["tokens"][:, :prompt].contiguous()
+    inputs = lspecs.make_batch(cfg, shape, gen(2))
+    inputs.pop("labels")
+    inputs["tokens"] = inputs["tokens"][:, :prompt - prefix].contiguous()
     warm_prefill, _ = lserve.make_prefill(
-        cfg, ShapeConfig(tag, LM_WARM_PROMPT + 1, batch, "prefill"))
-    logits, cache, index = warm_prefill(params, {"tokens": tokens[:, :LM_WARM_PROMPT]})
+        cfg, ShapeConfig(tag, prefix + LM_WARM_PROMPT + 1, batch, "prefill"))
+    logits, cache, index = warm_prefill(
+        params, {**inputs, "tokens": inputs["tokens"][:, :LM_WARM_PROMPT]})
     serve_step(params, torch.argmax(logits[:, -1], -1, keepdim=True), cache, index)
     del logits, cache
 
     def serve():
         sync(dev)
         t0 = time.perf_counter()
-        logits, cache, index = prefill(params, {"tokens": tokens})
+        logits, cache, index = prefill(params, inputs)
         sync(dev)
         t1 = time.perf_counter()
         finite = torch.isfinite(logits).all()
@@ -2699,27 +2812,141 @@ def lm_serve_phase(dev, run, phase_counts, arch, batch, prompt, check_prompt, sy
         return t1 - t0, time.perf_counter() - t1, bool(finite), cache
 
     prefill_s, decode_s, finite, cache = run(tag, serve, ())
-    kv_bytes = _nbytes(tree_leaves(cache))
+    cache_bytes = _nbytes(tree_leaves(cache))
     del cache
     peak = _peak_since(dev, base) + param_bytes
     check(finite, f"{tag}: non-finite logits")
     check(phase_counts[tag]["flash_attention"] == 0, f"{tag}: the model launched kernel 8")
-    budget = cfg.param_count() * 2 + kv_bytes
-    print(f"[{tag}] {cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
-          f"head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16: prefill of "
-          f"B={batch} x S={prompt} {prefill_s * 1e3:.1f} ms ({batch * prompt / prefill_s:.0f} "
-          f"tokens/s); {steps} greedy decode steps {decode_s / steps * 1e3:.2f} ms a token "
-          f"({batch * steps / decode_s:.1f} tokens/s over the batch); logits finite; peak "
-          f"device memory {peak / 1e9:.3f} GB against params {cfg.param_count() * 2 / 1e9:.3f} "
-          f"GB (param_count x 2 B) + KV cache {kv_bytes / 1e9:.3f} GB = {budget / 1e9:.3f} GB "
-          f"({peak / budget:.3f}x); phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    budget = cfg.param_count() * 2 + cache_bytes
+    layers = (f"{cfg.n_layers} layers" if depth is None else
+              f"{cfg.n_layers} of {full.n_layers} layers ({LM_SERVE_CUTS[arch]})")
+    if cfg.encoder_layers:
+        layers += f" + an encoder of {cfg.encoder_layers} on {cfg.frontend_len} frames"
+    if cfg.moe_experts:
+        layers += f", MoE {cfg.moe_experts} experts top-{cfg.moe_top_k}"
+    mixers = "/".join(dict.fromkeys(cfg.mixer_pattern))
+    recurrent = _recurrent_ms(cfg, params, dev, batch, prompt, sync)
+    print(f"[{tag}] {layers}, mixers {mixers}, d={cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, bf16: prefill of B={batch} x S={prompt} "
+          f"{'(' + str(prefix) + ' patches + ' + str(prompt - prefix) + ' tokens) ' if prefix else ''}"
+          f"{prefill_s * 1e3:.1f} ms ({batch * prompt / prefill_s:.0f} positions/s); {steps} "
+          f"greedy decode steps {decode_s / steps * 1e3:.2f} ms a token ({batch * steps / decode_s:.1f} "
+          f"tokens/s over the batch); logits finite; peak device memory {peak / 1e9:.3f} GB "
+          f"against params {cfg.param_count() * 2 / 1e9:.3f} GB (param_count x 2 B) + cache "
+          f"{cache_bytes / 1e9:.3f} GB = {budget / 1e9:.3f} GB ({peak / budget:.3f}x); phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    if recurrent:
+        print(f"[{tag} mixers] one layer's full-sequence apply at B={batch} x S={prompt}, bf16, "
+              "host clock: " + ", ".join(f"{m} {ms:.1f} ms ({ms * 1e3 / prompt:.1f} us a "
+                                         "position)" for m, ms in recurrent.items()),
+              flush=True)
     if not keep:
         return None
     # The cache right after the prefill, and the first token (the timed run's
     # decode wrote its cache in place).
-    logits, cache, index = prefill(params, {"tokens": tokens})
+    logits, cache, index = prefill(params, inputs)
     return {"cfg": cfg, "params": params, "cache": cache, "index": index,
             "first": torch.argmax(logits[:1, -1], -1, keepdim=True)}
+
+
+def _compressed_decode(served, layers, compressed, steps, tokens=None, sync=None):
+    """``steps`` tokens decoded from ``served``'s prefill cache (cloned)
+    with each layer of ``compressed`` (layer index -> a ``"ck"`` cache) in
+    place of its full cache: greedy from the first token, or fed
+    ``tokens``.  Returns ([(token, float logits)], seconds a step)."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, params, index = served["cfg"], served["params"], served["index"]
+    cache = _clone(served["cache"])
+    for li, where, g, key in layers:
+        if li in compressed:
+            tfm._put(cache, where, g, key, _clone(compressed[li]))
+    out, nxt = [], served["first"]
+    (sync or torch.cuda.synchronize)()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(steps):
+            tok = nxt if tokens is None else tokens[t]
+            logits, cache = tfm.decode_step(params, cfg, tok, cache, index + t)
+            out.append((tok, logits[:, 0].float()))
+            nxt = torch.argmax(logits[:, -1], -1, keepdim=True)
+    (sync or torch.cuda.synchronize)()
+    return out, (time.perf_counter() - t0) / steps
+
+
+def _relative_errors(got, full) -> list[float]:
+    return [float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+            for (_, a), (_, b) in zip(got, full)]
+
+
+def long_context_phase(dev, run, phase_counts, served, steps=LONG_DECODE_STEPS, centroids=None,
+                       ring=None):
+    """[jamba long-context]: jamba's attention layers (``long_context="ckm"``)
+    compressed from its prefill's KV by ``build_compressed_cache``: Lloyd
+    through kernel 2 (counted), K = CKM_KV_CENTROIDS centroids a head, a ring
+    of CKM_KV_RECENT; k-means++'s host loop timed apart.  Then ``steps``
+    tokens decoded with those layers in the ``"ck"`` form beside the carried
+    Mamba states, against the full cache: the logits' relative error
+    (random weights: no bar), ms a token."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import lloyd as lloyd_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import kv_clustering as kvc
+
+    t_phase = time.perf_counter()
+    centroids = centroids or tfm.CKM_KV_CENTROIDS
+    ring = ring or tfm.CKM_KV_RECENT
+    cfg, cache0, index = served["cfg"], served["cache"], served["index"]
+    tag = f"{cfg.name.split('-')[0]} long-context"
+    layers = [(li, where, g, key) for li, where, g, key in tfm._walk(cfg)
+              if tfm._kind(cfg, li)[0] == "attn"]
+    check(bool(layers), f"{tag}: no attention layer")
+    kpp_s = [0.0]
+    init = lloyd_mod._init_centroids
+
+    def timed_init(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = init(*args, **kwargs)
+        torch.cuda.synchronize()
+        kpp_s[0] += time.perf_counter() - t0
+        return out
+
+    def compress():
+        out = {}
+        for li, where, g, key in layers:
+            c = tfm._at(cache0, where, g, key)
+            out[li] = kvc.build_compressed_cache(device_mod.derive_seed(KV_SEED, 300, li),
+                                                 c["k"][:, :index], c["v"][:, :index],
+                                                 centroids, ring, "lloyd")
+        return out
+
+    lloyd_mod._init_centroids = timed_init
+    try:
+        t0 = time.perf_counter()
+        comp = run(f"{tag} compress", compress, "assign_argmin")
+        compress_s = time.perf_counter() - t0
+    finally:
+        lloyd_mod._init_centroids = init
+    k = tfm._at(cache0, *layers[0][1:])["k"]
+    heads = len(layers) * k.shape[0] * k.shape[2]  # batch x kv heads a layer
+    full, full_ms = _compressed_decode(served, layers, {}, steps)
+    got, ck_s = _compressed_decode(served, layers, comp, steps, [tok for tok, _ in full])
+    rel = _relative_errors(got, full)
+    live = sum(int((c["clogw"] > -1e29).sum()) for c in comp.values())
+    print(f"[{tag}] {len(layers)} attention layers of {cfg.n_layers} (layers "
+          f"{[li for li, *_ in layers]}), {heads} heads compressed from S={index} to K="
+          f"{centroids} + ring {ring} ({index / (centroids + ring):.1f}x smaller; {live} of "
+          f"{heads * centroids} centroids live) by Lloyd in {compress_s:.2f} s ({kpp_s[0]:.2f} s "
+          f"of it k-means++'s {centroids - 1} host steps a head, {kpp_s[0] / heads * 1e3:.1f} ms "
+          f"a head), launches {phase_counts[f'{tag} compress']['assign_argmin']} of kernel 2; "
+          f"{steps} tokens decoded with the Mamba states carried: "
+          f"{ck_s * 1e3:.2f} ms a token compressed, {full_ms * 1e3:.2f} with the full cache; "
+          f"relative error of the logits against the full cache max {max(rel):.4f} mean "
+          f"{statistics.mean(rel):.4f} (random weights: the worst case, no bar); phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    check(all(math.isfinite(r) for r in rel), f"{tag}: non-finite logits")
 
 
 def kv_ckm_phase(dev, run, served, centroids=KV_CENTROIDS, ring=KV_RING,
@@ -2759,27 +2986,12 @@ def kv_ckm_phase(dev, run, served, centroids=KV_CENTROIDS, ring=KV_RING,
     ckm_c = run("kv-ckm ckm", lambda: compress("ckm", layers[:1]),
                 ("fourier_sketch", "assign_argmin"))
 
-    def decode(compressed, tokens=None):
-        cache = _clone(cache0)
-        for li, where, g, key in layers:
-            if li in compressed:
-                tfm._put(cache, where, g, key, _clone(compressed[li]))
-        out, nxt = [], served["first"]
-        with torch.inference_mode():
-            for t in range(steps):
-                tok = nxt if tokens is None else tokens[t]
-                logits, cache = tfm.decode_step(params, cfg, tok, cache, index + t)
-                out.append((tok, logits[:, 0].float()))
-                nxt = torch.argmax(logits[:, -1], -1, keepdim=True)
-        return out
-
-    full = decode({})
+    full, _ = _compressed_decode(served, layers, {}, steps)
     tokens = [tok for tok, _ in full]
     rel = {}
     for method, comp in (("lloyd", lloyd_c), ("ckm", {**lloyd_c, **ckm_c})):
-        got = decode(comp, tokens)
-        rel[method] = [float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
-                       for (_, a), (_, b) in zip(got, full)]
+        got, _ = _compressed_decode(served, layers, comp, steps, tokens)
+        rel[method] = _relative_errors(got, full)
     print(f"[kv-ckm decode] {len(layers)} global layers of {cfg.n_layers} (layers "
           f"{[li for li, *_ in layers]}) compressed from S={index} to K={centroids} + ring "
           f"{ring} ({index / (centroids + ring):.1f}x smaller); {steps} tokens decoded: "
@@ -3125,6 +3337,7 @@ def main() -> None:
     from repro_torch.kernels import freq_transform as ft
     from repro_torch.kernels import ops
     from repro_torch.kernels import sketch_shift as ks
+    from repro_torch.models import transformer as tfm
     from repro_torch.serve import kv_clustering as kvc
 
     smoke_t0 = time.perf_counter()
@@ -3212,6 +3425,22 @@ def main() -> None:
     print(f"[fourier_sketch phases] kv-ckm shape: max|x w| = {max_phase(keys, w_kv):.3f} rad",
           flush=True)
     del keys, w_kv
+
+    # Kernel 2 at [jamba long-context]'s shape: one head's S - ring + 1 keys
+    # of the 32k prompt at head_dim 128 against CKM_KV_CENTROIDS centroids
+    # (more than shared memory holds: the tile path streams them), planted
+    # clusters as above, the centroids a sample of the keys (Lloyd's start).
+    jamba = get_config(LONG_CONTEXT_ARCH)
+    n_keys = LM_SERVE[LONG_CONTEXT_ARCH][1] - tfm.CKM_KV_RECENT + 1
+    planted = torch.randn((tfm.CKM_KV_CENTROIDS, jamba.head_dim_), generator=g_kv,
+                          device=dev) * 4
+    keys = (planted[torch.randint(0, tfm.CKM_KV_CENTROIDS, (n_keys,), generator=g_kv,
+                                  device=dev)]
+            + 0.1 * torch.randn((n_keys, jamba.head_dim_), generator=g_kv, device=dev))
+    sample = torch.randperm(n_keys, generator=g_kv, device=dev)[:tfm.CKM_KV_CENTROIDS]
+    check_assign(aa, keys, keys[sample].contiguous(),
+                 f"long-context shape K={tfm.CKM_KV_CENTROIDS}")
+    del keys, planted
 
     # Kernels 1 and 4 at [lm-train]'s shapes, B = 4 rows a step: the
     # balancer's operator (n = 16, m = 640) after its first batch of
@@ -3699,13 +3928,18 @@ def main() -> None:
     # 9g. The port's three sketch examples at their default sizes.
     examples_phase(dev, run)
 
-    # 9h. The LM serving path at llama3.2-1B and gemma3-1B width, and the
-    # CKM-compressed KV cache on gemma3-1B's global layers.
-    for arch, (lm_batch, prompt, check_prompt) in LM_SERVE.items():
+    # 9h. The LM serving path of every family at its published width, the
+    # CKM-compressed KV cache on gemma3-1B's global layers, and jamba's
+    # compressed long-context cache.
+    for arch, (lm_batch, prompt, check_prompt, depth) in LM_SERVE.items():
         served = lm_serve_phase(dev, run, phase_counts, arch, lm_batch, prompt, check_prompt,
-                                keep=arch == "gemma3-1b")
-    kv_ckm_phase(dev, run, served)
-    del served
+                                depth, keep=arch in ("gemma3-1b", LONG_CONTEXT_ARCH))
+        if arch == "gemma3-1b":
+            kv_ckm_phase(dev, run, served)
+        elif arch == LONG_CONTEXT_ARCH:
+            long_context_phase(dev, run, phase_counts, served)
+        del served
+        torch.cuda.empty_cache()
 
     # 9i. The LM's training path at llama3.2-1B width, and the restart
     # invariant at its smoke config.

@@ -1,11 +1,7 @@
 """Model / run configuration dataclasses + the ``--arch`` registry
 (counterpart of ``repro.configs.base``, of which ``ModelConfig``,
-``ShapeConfig`` and ``SHAPES`` are copies).
-
-The port runs the dense family (mixers ``attn`` and ``local``, MLP
-``dense``).  ``get_config`` / ``get_smoke_config`` on an architecture of
-another family raise ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+``ShapeConfig`` and ``SHAPES`` are copies).  Every architecture of
+``ARCHS`` has its module here.
 """
 
 from __future__ import annotations
@@ -154,24 +150,8 @@ ARCHS = [
     "jamba-v0.1-52b",
 ]
 
-# The architectures whose family is not ported yet, with the ROADMAP item
-# (Queue 1 item 22 (c), the other families) that brings each.
-NOT_PORTED = {
-    "internvl2-26b": "vlm (the vision frontend)",
-    "kimi-k2-1t-a32b": "moe",
-    "granite-moe-1b-a400m": "moe",
-    "xlstm-125m": "ssm (mlstm / slstm)",
-    "whisper-small": "audio (the whisper encoder and cross-attention)",
-    "jamba-v0.1-52b": "hybrid (mamba and moe)",
-}
-
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: the {NOT_PORTED[arch]} family is not ported yet (ROADMAP Queue 1 "
-            "item 22 (c), the other families); the port runs the dense family"
-        )
     mod_name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 

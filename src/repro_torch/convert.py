@@ -153,15 +153,21 @@ def stacked_operator_from_numpy(
 
 def _lm_tree(tree: dict, cfg, dev: torch.device) -> dict:
     """A reference LM tree (parameters or cache: ``groups`` leaves stacked on
-    a leading group axis, ``rest`` unstacked) -> the port's (``groups`` a
-    list of one dict a group), every leaf a tensor of its numpy dtype."""
+    a leading group axis, ``rest`` unstacked; an encoder's layers stacked in
+    ``encoder["groups"]``) -> the port's (each ``groups`` a list of one dict
+    a group or encoder layer), every leaf a tensor of its numpy dtype."""
 
     def leaves(t, pick=lambda a: a):
         return tree_map(lambda a: torch.from_numpy(np.array(pick(np.asarray(a)))).to(dev), t)
 
-    n_groups = cfg.n_layers // cfg.period
-    out = {k: leaves(v) for k, v in tree.items() if k != "groups"}
-    out["groups"] = [leaves(tree["groups"], lambda a, g=g: a[g]) for g in range(n_groups)]
+    def unstacked(t, n):
+        return [leaves(t, lambda a, g=g: a[g]) for g in range(n)]
+
+    out = {k: leaves(v) for k, v in tree.items() if k not in ("groups", "encoder")}
+    out["groups"] = unstacked(tree["groups"], cfg.n_layers // cfg.period)
+    if "encoder" in tree:
+        out["encoder"] = {"groups": unstacked(tree["encoder"]["groups"], cfg.encoder_layers),
+                          "final_norm": leaves(tree["encoder"]["final_norm"])}
     return out
 
 

@@ -1,5 +1,5 @@
-"""The LM substrate's models, the dense family on one card (counterpart of
-``repro.models``): ``layers`` (RMSNorm, RoPE, GQA attention, SwiGLU,
-embeddings) and ``transformer`` (``init_lm``, ``forward``, ``prefill``,
-``decode_step``, ``init_cache``).  ``moe`` and ``ssm`` wait for ROADMAP
-Queue 1 item 22 (c)."""
+"""The LM substrate's models on one card (counterpart of ``repro.models``):
+``layers`` (RMSNorm, RoPE, GQA and cross attention, SwiGLU, embeddings),
+``moe`` (top-k routing, dispatch and dense expert paths), ``ssm`` (Mamba,
+mLSTM, sLSTM) and ``transformer`` (``init_lm``, ``forward``, ``prefill``,
+``decode_step``, ``init_cache``) for all ten architectures."""

@@ -1,6 +1,7 @@
-"""Transformer building blocks, the dense subset (counterpart of
-``repro.models.layers``): RMSNorm, RoPE, GQA attention (global and
-sliding-window; prefill and decode), the SwiGLU MLP, embeddings.
+"""Transformer building blocks (counterpart of ``repro.models.layers``):
+RMSNorm, RoPE, GQA attention (global and sliding-window; prefill and
+decode), whisper's cross-attention over encoder keys and values, the SwiGLU
+MLP, embeddings.
 
 Conventions, as in the reference:
 - Plain functions on dicts of tensors: ``init_*`` returns a parameter dict,
@@ -13,11 +14,12 @@ Conventions, as in the reference:
   flash kernel, as the reference's models call none.
 - No ``shard`` hooks: one card, no mesh (the reference's are GSPMD
   constraints).
+- ``init_*`` take ``dtype``: each leaf is drawn in float32 and stored in
+  ``dtype`` as soon as it is drawn, so a bf16 model never holds its float32
+  copy (the bits of casting the float32 model).
 
-Two parts of the reference wait for their families: ``cross_attention_apply``
-and ``encoder_kv`` (whisper, ROADMAP Queue 1 item 22 (c)).  Training runs
-these functions under autograd; the bf16 softmax carries the reference's
-custom backward.
+Training runs these functions under autograd; the bf16 softmax carries the
+reference's custom backward.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def _normal(gen: torch.Generator | None, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=_F32, device=device)
 
 
-def _dense_init(gen, shape, device, in_axis: int = 0) -> torch.Tensor:
-    return _normal(gen, shape, device) / float(shape[in_axis]) ** 0.5
+def _dense_init(gen, shape, device, in_axis: int = 0, dtype=_F32) -> torch.Tensor:
+    return _normal(gen, shape, device).div_(float(shape[in_axis]) ** 0.5).to(dtype)
 
 
 # Scalar constants are computed on the host in float32 and passed to the
@@ -76,8 +78,8 @@ def to_bf16(value: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def init_rmsnorm(d: int, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=_F32, device=device)}
+def init_rmsnorm(d: int, device, dtype=_F32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -149,13 +151,13 @@ class AttnDims:
     score_dtype: str = "f32"  # storage dtype of QK^T blocks (see ModelConfig)
 
 
-def init_attention(gen, dims: AttnDims, device) -> Params:
+def init_attention(gen, dims: AttnDims, device, dtype=_F32) -> Params:
     d, h, kvh, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim
     return {
-        "wq": _dense_init(gen, (d, h * hd), device),
-        "wk": _dense_init(gen, (d, kvh * hd), device),
-        "wv": _dense_init(gen, (d, kvh * hd), device),
-        "wo": _dense_init(gen, (h * hd, d), device),
+        "wq": _dense_init(gen, (d, h * hd), device, dtype=dtype),
+        "wk": _dense_init(gen, (d, kvh * hd), device, dtype=dtype),
+        "wv": _dense_init(gen, (d, kvh * hd), device, dtype=dtype),
+        "wo": _dense_init(gen, (h * hd, d), device, dtype=dtype),
     }
 
 
@@ -279,16 +281,41 @@ def attention_decode(
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
 
 
+def cross_attention_apply(params: Params, dims: AttnDims, x: torch.Tensor,
+                          enc_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder keys and values
+    (whisper): every query sees every encoder position, no rope on q."""
+    b, s, _ = x.shape
+    h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k, v = enc_kv
+    qh = q.reshape(b, s, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qh, k).to(_F32) * f32_inv_sqrt(hd)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrqs,bskh->bqkrh", probs, v).reshape(b, s, h * hd)
+    return out @ params["wo"].to(x.dtype)
+
+
+def encoder_kv(params: Params, dims: AttnDims, enc_out: torch.Tensor):
+    """A cross-attention layer's keys and values of the encoder output:
+    (B, F, KV, hd) each."""
+    b, s, _ = enc_out.shape
+    kvh, hd = dims.n_kv_heads, dims.head_dim
+    k = (enc_out @ params["wk"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
+    v = (enc_out @ params["wv"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen, d: int, ff: int, device) -> Params:
+def init_mlp(gen, d: int, ff: int, device, dtype=_F32) -> Params:
     return {
-        "w_gate": _dense_init(gen, (d, ff), device),
-        "w_up": _dense_init(gen, (d, ff), device),
-        "w_down": _dense_init(gen, (ff, d), device),
+        "w_gate": _dense_init(gen, (d, ff), device, dtype=dtype),
+        "w_up": _dense_init(gen, (d, ff), device, dtype=dtype),
+        "w_down": _dense_init(gen, (ff, d), device, dtype=dtype),
     }
 
 
@@ -304,8 +331,8 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_embedding(gen, vocab: int, d: int, device) -> Params:
-    return {"table": _normal(gen, (vocab, d), device) * 0.02}
+def init_embedding(gen, vocab: int, d: int, device, dtype=_F32) -> Params:
+    return {"table": _normal(gen, (vocab, d), device).mul_(0.02).to(dtype)}
 
 
 def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -318,8 +345,8 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["table"].to(x.dtype).T
 
 
-def init_lm_head(gen, d: int, vocab: int, device) -> Params:
-    return {"w": _dense_init(gen, (d, vocab), device)}
+def init_lm_head(gen, d: int, vocab: int, device, dtype=_F32) -> Params:
+    return {"w": _dense_init(gen, (d, vocab), device, dtype=dtype)}
 
 
 def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""The model stack, the dense subset (counterpart of
-``repro.models.transformer``): one decoder that realises the dense
-architectures (mixers ``attn`` and ``local``, MLP ``dense``) from the
-(mixer, mlp) layer pattern in ``ModelConfig``.
+"""The model stack (counterpart of ``repro.models.transformer``): one
+decoder, with an optional encoder, that realises the ten architectures from
+the (mixer, mlp) layer pattern in ``ModelConfig``: mixers ``attn``,
+``local``, ``mamba``, ``mlstm`` and ``slstm``; MLPs ``dense``, ``moe`` and
+``none``; whisper's encoder with cross-attention in every decoder layer;
+the vision prefix (patch embeddings put in front of the tokens).
 
 Layer grouping: ``n_layers // period`` groups of one period each, then the
 remainder (``rest``), in that order: gemma3-1B's 26 layers are 4 periods of
@@ -13,17 +15,22 @@ group and the layers run in a Python loop.  Serving caches mirror the same
 Modes
 -----
 - ``forward``      : full sequence (training and the prefill backbone), with
-                     ``remat`` over each group of ``period`` layers
+                     ``remat`` over each group of ``period`` layers; returns
+                     the MoE layers' summed aux loss
 - ``lm_loss``      : forward + ``chunked_ce_loss`` (the training objective)
-- ``prefill``      : forward + cache construction for decode
+- ``prefill``      : forward + cache construction for decode (KV for the
+                     attention layers, the final state for the recurrent
+                     ones, the encoder's cross keys and values)
 - ``decode_step``  : one token against the cache (ring buffers for sliding-
                      window layers, CKM-compressed KV for a cache in the
-                     ``"ck"`` form, ``serve.kv_clustering``)
+                     ``"ck"`` form, ``serve.kv_clustering``, carried states
+                     for the recurrent mixers; the MoE's dense path)
 
-One card: ``mesh=`` must be ``None`` (a mesh raises; the LM on a mesh is
-ROADMAP Queue 1 item 22 (b), part 2).  The other families (``moe``, the
-recurrent mixers ``mamba``/``mlstm``/``slstm``, the whisper encoder and the
-vision frontend) raise ``NotImplementedError`` (item 22 (c)).
+The modality frontends are stubs, as in the reference: ``vlm`` takes
+precomputed patch embeddings (``batch["patches"]``), ``audio`` precomputed
+frames into the encoder (``batch["frames"]``).  One card: ``mesh=`` must be
+``None`` (a mesh raises; the LM on a mesh is ROADMAP Queue 1 item 22 (b),
+part 2).
 """
 
 from __future__ import annotations
@@ -38,16 +45,13 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as dev_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 
 Params = dict[str, Any]
 
-_MIXERS = ("attn", "local")
-_LATER = {
-    "moe": "the moe family",
-    "mamba": "the ssm family",
-    "mlstm": "the ssm family",
-    "slstm": "the ssm family",
-}
+_MIXERS = ("attn", "local", "mamba", "mlstm", "slstm")
+_MLPS = ("dense", "moe", "none")
 
 # ---------------------------------------------------------------------------
 # Dims and checks
@@ -67,33 +71,37 @@ def attn_dims(cfg: ModelConfig, mixer: str) -> L.AttnDims:
     )
 
 
+def mamba_dims(cfg: ModelConfig) -> ssm.MambaDims:
+    return ssm.MambaDims(cfg.d_model, cfg.ssm_state, cfg.ssm_conv, cfg.ssm_expand,
+                         cfg.scan_chunk)
+
+
+def mlstm_dims(cfg: ModelConfig) -> ssm.MLSTMDims:
+    return ssm.MLSTMDims(cfg.d_model, cfg.mlstm_heads, cfg.ssm_expand, cfg.scan_chunk)
+
+
+def slstm_dims(cfg: ModelConfig) -> ssm.SLSTMDims:
+    return ssm.SLSTMDims(cfg.d_model, cfg.n_heads)
+
+
+def moe_dims(cfg: ModelConfig) -> moe_mod.MoEDims:
+    return moe_mod.MoEDims(cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.moe_top_k,
+                           cfg.moe_capacity_factor)
+
+
 def _kind(cfg: ModelConfig, layer_idx: int) -> tuple[str, str]:
     p = cfg.period
     return cfg.mixer_pattern[layer_idx % p], cfg.mlp_pattern[layer_idx % p]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 22 (c), the other families); "
-        "the port runs the dense family (mixers 'attn' and 'local', MLP 'dense')"
-    )
-
-
 def _check_kinds(mixer: str, mlp_kind: str) -> None:
-    for kind in (mixer, mlp_kind):
-        if kind in _LATER:
-            raise _not_ported(f"{kind!r} ({_LATER[kind]})")
     if mixer not in _MIXERS:
         raise ValueError(mixer)
-    if mlp_kind not in ("dense", "none"):
+    if mlp_kind not in _MLPS:
         raise ValueError(mlp_kind)
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers:
-        raise _not_ported(f"{cfg.name}: the whisper encoder and cross-attention")
-    if cfg.frontend is not None:
-        raise _not_ported(f"{cfg.name}: the {cfg.frontend} frontend")
     for mixer, mlp_kind in zip(cfg.mixer_pattern, cfg.mlp_pattern):
         _check_kinds(mixer, mlp_kind)
 
@@ -147,14 +155,51 @@ def _put(tree: Params, where: str, g: int | None, key: str, value) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen, cfg: ModelConfig, mixer: str, mlp_kind: str, device) -> Params:
+def init_layer(gen, cfg: ModelConfig, mixer: str, mlp_kind: str, cross: bool, device,
+               dtype=torch.float32) -> Params:
     _check_kinds(mixer, mlp_kind)
-    p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, device)}
-    p["mixer"] = L.init_attention(gen, attn_dims(cfg, mixer), device)
+    p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, device, dtype)}
+    if mixer in ("attn", "local"):
+        p["mixer"] = L.init_attention(gen, attn_dims(cfg, mixer), device, dtype)
+    elif mixer == "mamba":
+        p["mixer"] = ssm.init_mamba(gen, mamba_dims(cfg), device, dtype)
+    elif mixer == "mlstm":
+        p["mixer"] = ssm.init_mlstm(gen, mlstm_dims(cfg), device, dtype)
+    else:
+        p["mixer"] = ssm.init_slstm(gen, slstm_dims(cfg), device, dtype)
+    if cross:
+        p["norm_cross"] = L.init_rmsnorm(cfg.d_model, device, dtype)
+        p["cross"] = L.init_attention(gen, attn_dims(cfg, "attn"), device, dtype)
     if mlp_kind == "dense":
-        p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device)
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, device, dtype)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device, dtype)
+    elif mlp_kind == "moe":
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, device, dtype)
+        p["mlp"] = moe_mod.init_moe(gen, moe_dims(cfg), device, dtype)
     return p
+
+
+_APPLY = {"mamba": (ssm.mamba_apply, mamba_dims), "mlstm": (ssm.mlstm_apply, mlstm_dims),
+          "slstm": (ssm.slstm_apply, slstm_dims)}
+_STEP = {"mamba": ssm.mamba_step, "mlstm": ssm.mlstm_step, "slstm": ssm.slstm_step}
+
+
+def _cross_and_mlp(p: Params, cfg: ModelConfig, mlp_kind: str, x: torch.Tensor, enc_kv,
+                   dense_path: bool):
+    """The layer after its mixer: cross-attention over ``enc_kv`` (when
+    given), then the MLP.  Returns (x, aux)."""
+    if enc_kv is not None:
+        h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        x = x + L.cross_attention_apply(p["cross"], attn_dims(cfg, "attn"), h, enc_kv)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mlp_kind == "dense":
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h)
+    elif mlp_kind == "moe":
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        out, aux = moe_mod.moe_apply(p["mlp"], moe_dims(cfg), h, dense_path=dense_path)
+        x = x + out
+    return x, aux
 
 
 def layer_forward(
@@ -166,24 +211,30 @@ def layer_forward(
     positions: torch.Tensor,
     mesh=None,
     causal: bool = True,
+    enc_kv=None,
     collect_cache: bool = False,
 ):
-    """Pre-norm residual layer.  Returns (x, aux_loss, cache_or_None)."""
+    """Pre-norm residual layer.  Returns (x, aux_loss, cache_or_None): the
+    cache is the attention's ``{"k", "v"}`` or a recurrent mixer's final
+    state."""
     _check_mesh(mesh)
     _check_kinds(mixer, mlp_kind)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    dims = attn_dims(cfg, mixer)
     cache = None
-    if collect_cache:
-        out, (k, v) = L.attention_apply(p["mixer"], dims, h, positions, causal, return_kv=True)
-        cache = {"k": k, "v": v}
+    if mixer in ("attn", "local"):
+        dims = attn_dims(cfg, mixer)
+        if collect_cache:
+            out, (k, v) = L.attention_apply(p["mixer"], dims, h, positions, causal,
+                                            return_kv=True)
+            cache = {"k": k, "v": v}
+        else:
+            out = L.attention_apply(p["mixer"], dims, h, positions, causal)
     else:
-        out = L.attention_apply(p["mixer"], dims, h, positions, causal)
-    x = x + out
-    if mlp_kind == "dense":
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+        apply, dims_of = _APPLY[mixer]
+        out, state = apply(p["mixer"], dims_of(cfg), h)
+        cache = state if collect_cache else None
+    x, aux = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=False)
+    return x, aux, cache
 
 
 def layer_step(
@@ -197,23 +248,27 @@ def layer_step(
     mesh=None,
 ):
     """Single-token decode.  x: (B, 1, d).  Returns (x, new_cache); the
-    cache's tensors are written in place."""
+    cache's tensors (keys and values, recurrent states) are written in
+    place.  The MoE takes its dense path."""
     _check_mesh(mesh)
     _check_kinds(mixer, mlp_kind)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    dims = attn_dims(cfg, mixer)
-    if "ck" in cache:  # CKM-compressed global attention (long_context)
-        from repro_torch.serve.kv_clustering import attention_decode_compressed
+    enc_kv = (cache["cross_k"], cache["cross_v"]) if "cross_k" in cache else None
+    if mixer in ("attn", "local"):
+        dims = attn_dims(cfg, mixer)
+        if "ck" in cache:  # CKM-compressed global attention (long_context)
+            from repro_torch.serve.kv_clustering import attention_decode_compressed
 
-        out, kv_cache = attention_decode_compressed(p["mixer"], dims, h, cache, index)
+            out, kv_cache = attention_decode_compressed(p["mixer"], dims, h, cache, index)
+        else:
+            out, ck, cv = L.attention_decode(p["mixer"], dims, h, cache["k"], cache["v"], index)
+            kv_cache = {"k": ck, "v": cv}
+        cache = {**cache, **kv_cache}
     else:
-        out, ck, cv = L.attention_decode(p["mixer"], dims, h, cache["k"], cache["v"], index)
-        kv_cache = {"k": ck, "v": cv}
-    cache = {**cache, **kv_cache}
-    x = x + out
-    if mlp_kind == "dense":
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
+        out, state = _STEP[mixer](p["mixer"], _APPLY[mixer][1](cfg), h, cache["state"])
+        for name, t in state.items():
+            cache["state"][name].copy_(t)
+    x, _ = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=True)
     return x, cache
 
 
@@ -222,29 +277,42 @@ def layer_step(
 # ---------------------------------------------------------------------------
 
 
-def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT) -> Params:
-    """Random float32 parameters of the reference's distributions (dense
-    matrices normal / sqrt(fan_in), the embedding normal x 0.02, RMSNorm
-    scales 1), drawn on ``device`` itself: the embedding from
-    ``derive_seed(seed, 0)``, layer ``l`` from ``derive_seed(seed, 1, l)``,
-    the untied head from ``derive_seed(seed, 2)``.  ``device="meta"`` gives
-    the shapes and dtypes alone."""
+def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT,
+            dtype=torch.float32) -> Params:
+    """Random parameters of the reference's distributions (dense matrices
+    normal / sqrt(fan_in), the embedding normal x 0.02, RMSNorm scales 1,
+    the mixers' constants), drawn in float32 on ``device`` itself: the
+    embedding from ``derive_seed(seed, 0)``, layer ``l`` from
+    ``derive_seed(seed, 1, l)``, the untied head from ``derive_seed(seed,
+    2)``, encoder layer ``l`` from ``derive_seed(seed, 3, l)``.  Each leaf is
+    stored in ``dtype`` as soon as it is drawn: ``dtype=torch.bfloat16``
+    gives ``launch.serve.serving_params`` of the float32 model, bitwise,
+    without holding it.  ``device="meta"`` gives the shapes and dtypes
+    alone."""
     _check_cfg(cfg)
     dev = _device(device)
+    cross = cfg.encoder_layers > 0
 
     def gen(*path):
         return None if dev.type == "meta" else dev_mod.generator(
             dev_mod.derive_seed(seed, *path), dev)
 
     params: Params = {
-        "embed": L.init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dev),
+        "embed": L.init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev, dtype),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dev, dtype),
         **_new_tree(cfg),
     }
     for li, where, g, key in _walk(cfg):
-        _put(params, where, g, key, init_layer(gen(1, li), cfg, *_kind(cfg, li), dev))
+        _put(params, where, g, key,
+             init_layer(gen(1, li), cfg, *_kind(cfg, li), cross, dev, dtype))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.init_lm_head(gen(2), cfg.d_model, cfg.vocab_size, dev)
+        params["lm_head"] = L.init_lm_head(gen(2), cfg.d_model, cfg.vocab_size, dev, dtype)
+    if cross:
+        params["encoder"] = {
+            "groups": [init_layer(gen(3, li), cfg, "attn", "dense", False, dev, dtype)
+                       for li in range(cfg.encoder_layers)],
+            "final_norm": L.init_rmsnorm(cfg.d_model, dev, dtype),
+        }
     return params
 
 
@@ -260,11 +328,37 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torc
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype):
-    """Token embedding.  Returns (x, positions)."""
+    """Token embedding, behind the vision prefix (``batch["patches"]``, (B,
+    F, d) stub embeddings) for a ``vision`` frontend.  Returns (x,
+    positions) over the whole sequence."""
     _check_cfg(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"], dtype)
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     return x, positions
+
+
+def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder on precomputed (stub) frame features (B, F, d):
+    non-causal attention layers, then the encoder's final norm."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for p in params["encoder"]["groups"]:
+        x, _, _ = layer_forward(p, cfg, "attn", "dense", x, positions, causal=False)
+    return L.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
+def _encoder_out(params, cfg: ModelConfig, batch: dict, dtype):
+    """The encoder's output for an encoder-decoder model, else None."""
+    if not cfg.encoder_layers:
+        return None
+    return _encoder_forward(params, cfg, batch["frames"].to(dtype))
+
+
+def _enc_kv(p: Params, cfg: ModelConfig, enc_out):
+    """A decoder layer's cross keys and values of ``enc_out`` (or None)."""
+    return None if enc_out is None else L.encoder_kv(p["cross"], attn_dims(cfg, "attn"), enc_out)
 
 
 # Rematerialisation: "full" recomputes each group's forward in its backward
@@ -303,19 +397,23 @@ def forward(
     dtype=torch.bfloat16,
     remat: str = "none",
 ):
-    """Full-sequence forward.  Returns (final hidden (B, S, d), aux).
+    """Full-sequence forward.  Returns (final hidden (B, S_total, d), aux):
+    S_total counts the vision prefix; aux is the sum of the MoE layers'
+    load-balance losses.
 
     ``remat`` (``"none"``, ``"full"``, ``"dots"``) applies to each group of
-    ``period`` layers, as the reference's scan body; the ``rest`` layers run
-    without it, as the reference's do."""
+    ``period`` layers, as the reference's scan body; the ``rest`` layers and
+    the encoder run without it, as the reference's do."""
     _check_mesh(mesh)
     x, positions = _embed_inputs(params, cfg, batch, dtype)
+    enc_out = _encoder_out(params, cfg, batch, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group(gparams, x, aux):
         for i in range(cfg.period):
-            x, a, _ = layer_forward(gparams[str(i)], cfg, cfg.mixer_pattern[i],
-                                    cfg.mlp_pattern[i], x, positions)
+            p = gparams[str(i)]
+            x, a, _ = layer_forward(p, cfg, cfg.mixer_pattern[i], cfg.mlp_pattern[i], x,
+                                    positions, enc_kv=_enc_kv(p, cfg, enc_out))
             aux = aux + a
         return x, aux
 
@@ -323,7 +421,9 @@ def forward(
         x, aux = _rematerialised(functools.partial(group, gparams), remat, x, aux)
     for li, where, g, key in _walk(cfg):
         if where == "rest":
-            x, a, _ = layer_forward(params["rest"][key], cfg, *_kind(cfg, li), x, positions)
+            p = params["rest"][key]
+            x, a, _ = layer_forward(p, cfg, *_kind(cfg, li), x, positions,
+                                    enc_kv=_enc_kv(p, cfg, enc_out))
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux
@@ -384,7 +484,12 @@ def lm_loss(
     aux_weight: float = 0.01,
 ) -> torch.Tensor:
     x, aux = forward(params, cfg, batch, mesh, dtype, remat)
-    loss = chunked_ce_loss(params, cfg, x, batch["labels"])
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        # The patch positions carry no label.
+        f = batch["patches"].shape[1]
+        labels = F.pad(labels, (f, 0), value=-100)
+    loss = chunked_ce_loss(params, cfg, x, labels)
     return loss + aux_weight * aux
 
 
@@ -416,7 +521,12 @@ def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
                 "v": zeros(CKM_KV_RECENT, hd),
             }
         return {"k": zeros(cache_len, hd), "v": zeros(cache_len, hd)}
-    _check_kinds(mixer, "dense")
+    if mixer == "mamba":
+        return {"state": ssm.mamba_init_state(mamba_dims(cfg), batch, dtype, device)}
+    if mixer == "mlstm":
+        return {"state": ssm.mlstm_init_state(mlstm_dims(cfg), batch, device)}
+    if mixer == "slstm":
+        return {"state": ssm.slstm_init_state(slstm_dims(cfg), batch, dtype, device)}
     raise ValueError(mixer)
 
 
@@ -425,18 +535,27 @@ def init_cache(
     dtype=torch.bfloat16, device=dev_mod.DEFAULT,
 ) -> Params:
     """Zero cache mirroring the (groups, rest) parameter structure; every
-    layer its own tensors.  ``device="meta"`` gives shapes and dtypes."""
+    layer its own tensors (an encoder-decoder's layers also hold their cross
+    keys and values, ``cross_k`` / ``cross_v``).  ``device="meta"`` gives
+    shapes and dtypes."""
     _check_cfg(cfg)
     dev = _device(device)
     cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
-        _put(cache, where, g, key, _layer_cache_spec(
-            cfg, _kind(cfg, li)[0], batch, cache_len, mode, dtype, dev))
+        c = _layer_cache_spec(cfg, _kind(cfg, li)[0], batch, cache_len, mode, dtype, dev)
+        if cfg.encoder_layers:
+            for name in ("cross_k", "cross_v"):
+                c[name] = torch.zeros((batch, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim_),
+                                      dtype=dtype, device=dev)
+        _put(cache, where, g, key, c)
     return cache
 
 
 def _to_cache(cfg: ModelConfig, mixer: str, raw: Params, cache_len: int) -> Params:
-    """A layer's prefill keys and values in decode-cache form."""
+    """A layer's prefill keys and values (or final state) in decode-cache
+    form."""
+    if mixer not in ("attn", "local"):
+        return {"state": raw}
     k, v = raw["k"], raw["v"]
     s = k.shape[1]
     if mixer == "attn":
@@ -460,18 +579,26 @@ def prefill(
     mesh=None,
     dtype=torch.bfloat16,
 ):
-    """Process the prompt; returns (last-position logits, cache, index)."""
+    """Process the prompt (behind its vision prefix; the encoder on its
+    frames); returns (last-position logits, cache, index), ``index`` the
+    length of the whole sequence."""
     _check_mesh(mesh)
     x, positions = _embed_inputs(params, cfg, batch, dtype)
     s_total = x.shape[1]
     if cache_len < s_total:
         raise ValueError(f"cache_len {cache_len} < prompt length {s_total}")
+    enc_out = _encoder_out(params, cfg, batch, dtype)
     cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
         mixer, mlp_kind = _kind(cfg, li)
-        x, _, raw = layer_forward(_at(params, where, g, key), cfg, mixer, mlp_kind, x,
-                                  positions, collect_cache=True)
-        _put(cache, where, g, key, _to_cache(cfg, mixer, raw, cache_len))
+        p = _at(params, where, g, key)
+        enc_kv = _enc_kv(p, cfg, enc_out)
+        x, _, raw = layer_forward(p, cfg, mixer, mlp_kind, x, positions, enc_kv=enc_kv,
+                                  collect_cache=True)
+        c = _to_cache(cfg, mixer, raw, cache_len)
+        if enc_kv is not None:
+            c["cross_k"], c["cross_v"] = enc_kv
+        _put(cache, where, g, key, c)
     x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return logits_fn(params, cfg, x), cache, s_total
 

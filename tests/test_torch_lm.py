@@ -1,5 +1,8 @@
 """The port's LM serving path (dense family) against the reference, in
-float32 on the CPU: the configs and their counts; each layer function;
+float32 on the CPU: the configs and their counts (all ten architectures,
+whose smoke configs ``init_lm`` builds with the reference's tree; the other
+families' models are held in ``tests/test_torch_families.py``); each layer
+function;
 ``forward``, ``prefill`` and ``decode_step`` for llama3.2-1b, gemma3-1b and
 smollm-360m at their smoke configs, with the reference's parameters carried
 across by ``convert.lm_params_from_numpy``; the cache's structure; the serve
@@ -33,7 +36,6 @@ from repro_torch.models import transformer as ttfm
 pytestmark = pytest.mark.torch_port
 
 DENSE = ("llama3.2-1b", "gemma3-1b", "smollm-360m")
-PORTED = (*DENSE, "mistral-large-123b")
 TOL = 1e-4
 BF16_TOL = 2.0**-7
 B, S_PROMPT, N_STEPS = 2, 16, 4
@@ -87,7 +89,7 @@ def _close_tree(got, want, what):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", jbase.ARCHS)
 @pytest.mark.parametrize("which", ["config", "smoke"])
 def test_config_and_counts_match_the_reference(arch, which):
     get_j = jbase.get_config if which == "config" else jbase.get_smoke_config
@@ -104,19 +106,23 @@ def test_registry_and_shapes_match_the_reference():
     assert tbase.ARCHS == jbase.ARCHS
     assert {k: dataclasses.asdict(v) for k, v in tbase.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
-    assert set(tbase.NOT_PORTED) | set(PORTED) == set(jbase.ARCHS)
 
 
-@pytest.mark.parametrize("arch", sorted(tbase.NOT_PORTED))
-def test_unported_families_raise(arch):
-    for get in (tbase.get_config, tbase.get_smoke_config):
-        with pytest.raises(NotImplementedError, match="item 22 \\(c\\)"):
-            get(arch)
-    # The reference's config of that family, copied into the port's type, is
-    # refused by the model too.
-    cfg = tbase.ModelConfig(**dataclasses.asdict(jbase.get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 22 \\(c\\)"):
-        ttfm.init_lm(0, cfg, device="cpu")
+@pytest.mark.parametrize("arch", jbase.ARCHS)
+def test_init_lm_builds_every_smoke_config(arch):
+    """``init_lm`` builds each architecture's smoke config on the CPU with
+    the reference's tree (groups and the encoder's layers unstacked), its
+    shapes and dtypes, every value finite."""
+    tcfg = tbase.get_smoke_config(arch)
+    jcfg = jbase.get_smoke_config(arch)
+    got = _flatten(ttfm.init_lm(0, tcfg, device="cpu"))
+    jtree = jax.eval_shape(lambda: jtfm.init_lm(jax.random.PRNGKey(0), jcfg))
+    want = _flatten(convert.lm_params_from_numpy(
+        jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jtree), tcfg, "cpu"))
+    assert got.keys() == want.keys()
+    for name, t in got.items():
+        assert (t.shape, t.dtype) == (want[name].shape, want[name].dtype), name
+        assert bool(torch.isfinite(t).all()), name
 
 
 # ---------------------------------------------------------------------------

@@ -435,11 +435,32 @@ def test_preempt_file_flushes_a_checkpoint_and_stops(tmp_path):
     assert int(resumed["state"]["step"]) == 4 and [h["step"] for h in resumed["history"]] == [2, 4]
 
 
-def test_loop_reports_its_wall_time_and_the_balancer_decodes(tmp_path):
+# The loop's CLOMPR decodes at a thirtieth of their default depth, one
+# restart: the wall-time test checks that the balancer's decodes are timed,
+# not how good they are.
+SHALLOW_DECODE = {"atom_steps": 10, "joint_steps": 5, "nnls_iters": 10,
+                  "final_steps": 20, "atom_restarts": 1}
+
+
+def test_loop_reports_its_wall_time_and_the_balancer_decodes(tmp_path, monkeypatch):
     """Each logged step carries the step function's time and the loop's
     wall time per step since the previous log point, which holds the
-    balancer's decodes (one every ``balance_every`` steps, each timed)."""
+    balancer's decodes (one every ``balance_every`` steps, each timed).
+    The loop's CLOMPR decodes run at SHALLOW_DECODE's depth in this test
+    only."""
+    from repro_torch.data import clustering as tclust
+
+    decode = tclust.ckm_mod.decode_sketch
+    depths = []
+
+    def shallow(seed, z, freqs, lo, hi, cfg, **kw):
+        depths.append(cfg.atom_steps)
+        return decode(seed, z, freqs, lo, hi, dataclasses.replace(cfg, **SHALLOW_DECODE), **kw)
+
+    monkeypatch.setattr(tclust.ckm_mod, "decode_sketch", shallow)
     out = _loop(tmp_path / "w", 4, balance_every=2)
+    # The balancer's two decodes (and the activation monitor's last one).
+    assert len(depths) >= 2 and all(d > SHALLOW_DECODE["atom_steps"] for d in depths)
     hist, decodes = out["history"], out["balance_s"]
     assert [h["step"] for h in hist] == [2, 4] and len(decodes) == 2
     assert all(t > 0 for t in decodes)
