@@ -96,7 +96,18 @@ model- and hardware-FLOP shares, the first loss against float32 compute, the
 final checkpoint restored bitwise, the monitor's decode and the balancer's
 weights) and the restart invariant at its smoke config
 (``lm_restart_phase``: six steps straight against three, a restart and
-three); one JSON line of per-kernel numbers,
+three); the LM on a mesh (``lm_mesh_phases``: an NCCL group of one rank on
+a (1, 1) mesh, llama3.2-1B's train steps, prefill and decode bitwise the
+mesh=None run at full width and depth and the train loop bitwise the
+one-card loop; four gloo rank processes on the card (``_lm_mesh_rank``,
+every collective through the host), a (2, 2) data x model mesh, llama3.2-1B
+and granite-moe at full width cut to 2 layers, a train step (its loss,
+the gradients the optimizer took and the parameters after it) and a
+prefill with 8 decode tokens each against the one-card run, the compressed
+train step over (2, 2) pod x data against the plain one (the exchanged
+gradient in int16 steps, the pods' parameters equal), and GPipe over 4 stages
+of one full-width layer against the stages in turn); one JSON line of
+per-kernel numbers,
 the total wall time and, last, the device line.  Any failed check raises and the script exits non-zero
 before the last line.  Without a CUDA card it exits non-zero and prints no
 result."""
@@ -364,6 +375,42 @@ KV_CENTROIDS, KV_RING, KV_DECODE_STEPS, KV_SEED = 64, 64, 8, 7
 LM_TRAIN = ("llama3.2-1b", 4, 4096)
 LM_TRAIN_STEPS, LM_TRAIN_SEED, LM_TRAIN_LOSS_RTOL = 3, 8, 1e-3
 LM_RESTART_STEPS, LM_RESTART_RTOL = 6, 1e-4
+
+# The LM on a mesh (parallel/sharding.py, models/ with mesh=, launch/train.py
+# and launch/serve.py over a DeviceMesh, optim/grad_compression.py,
+# parallel/pipeline.py, train/train_loop.py with mesh=).  [lm-mesh p=1]: an
+# NCCL group of one rank, a (1, 1) ("data", "model") mesh; LM_TRAIN's
+# llama3.2-1B at full width and depth (B = 4, S = 4096, bf16, AdamW, remat
+# "full"): one train step on the mesh against the mesh=None step (loss and
+# parameters bitwise), a prefill of the same prompt and LM_MESH_DECODE
+# tokens (logits bitwise), and the train loop on the mesh against one card
+# at the smoke config (monitor and balancer on: kernel 1).  [lm-mesh p=4]:
+# LM_MESH_RANKS gloo processes on the one card (every collective through the
+# host), a (2, 2) ("data", "model") mesh: llama3.2-1B and granite-moe at full
+# width cut to LM_MESH_LAYERS layers (granite at the no-drop capacity E / k)
+# at B = 4, S = LM_MESH_SEQ, float32: one train step and a prefill plus
+# LM_MESH_DECODE tokens each against the one-card run on the same rows
+# (rank 0 runs it): loss within LM_MESH_LOSS_RTOL relative, the gradients
+# the optimizer took (after the step's collectives, gathered) and the
+# parameters after the step within LM_MESH_LEAF_TOL of each leaf's max-abs,
+# logits within LM_ATOL / LM_RTOL.  Granite's aux term on the mesh is each
+# data shard's own, as on the reference's devices: the one-card objective
+# is the cross-entropy over all rows plus the mean of the shards' aux terms
+# (its gradient), and the loss compared takes shard 0's (rank 0's value).
+# build_compressed_train_step on a (2, 2) ("pod", "data") mesh against the
+# plain step on the same mesh (LM_MESH_COMPRESSED at full width, cut to
+# LM_MESH_LAYERS layers, S = LM_MESH_PIPE_SEQ: a dense model whose 0.19 GB
+# embedding keeps gloo's host round trips short): the exchanged mean
+# gradient within one int16 step of the plain step's (a leaf's step: the
+# larger pod gradient's max-abs, from one card, over 2^13), the pods'
+# parameters after the step equal; pipeline_apply over 4
+# stages of one full-width llama3.2-1B layer each against the stages in
+# turn.  Each rank process and its collectives give up after
+# LM_MESH_TIMEOUT_S.
+LM_MESH_RANKS, LM_MESH_LAYERS, LM_MESH_SEQ, LM_MESH_DECODE = 4, 2, 1024, 8
+LM_MESH_PIPE_SEQ, LM_MESH_MICRO, LM_MESH_TIMEOUT_S = 256, 8, 600
+LM_MESH_LOSS_RTOL, LM_MESH_LEAF_TOL = 1e-5, 1e-4
+LM_MESH_COMPRESSED = "smollm-360m"
 KV_SHAPE_KS = (64, 16)
 KV_CLUSTERED_EXAMPLE, KV_CLUSTERED_TEST = (1024, 64, 64), (512, 16, 32)
 KV_CLUSTERED_BAR = 0.15
@@ -3305,6 +3352,409 @@ def lm_restart_phase(dev, run):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def _leaf_errors(got, want) -> float:
+    """The largest |got - want| over each leaf's max-abs, over a tree."""
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        scale = max(float(b.detach().abs().max()), 1e-30)
+        worst = max(worst, float((a.detach().float() - b.detach().float()).abs().max()) / scale)
+    return worst
+
+
+def _bitwise(got, want) -> bool:
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def lm_mesh_phases(dev, run, launches, p1_backend="nccl", sizes=None):
+    """[lm-mesh p=1] and [lm-mesh p=4]: the LM on a mesh (see LM_MESH_RANKS).
+    Neither is an interconnect measurement: NCCL at one rank, gloo through
+    host memory on one card.  ``p1_backend="gloo"``, ``dev=cpu`` and small
+    ``sizes`` (with ``configs.get_config`` replaced by the smoke configs)
+    let a CPU box rehearse the phases: the ranks take their configs and
+    sizes from here."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import device as device_mod
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "lm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    arch, batch, seq = LM_TRAIN
+    cfg = get_config(arch)
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    data = SyntheticLM(cfg, shape, DataConfig(seed=0), dev).batch(0)
+    data = {k: v for k, v in data.items() if not k.startswith("_")}
+    opt = make_optimizer(OptConfig(name="adamw"))
+    tag = "lm-mesh p=1"
+
+    dist.init_process_group(p1_backend, init_method=f"file://{root}/init1", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+
+        def train_pair():
+            """Two steps each way: the first compared, the second (warm)
+            timed and compared again."""
+            one = ltrain.init_state(cfg, opt, seed=LM_TRAIN_SEED, device=dev)
+            sharded = ltrain.init_sharded_state(cfg, opt, mesh, seed=LM_TRAIN_SEED)
+            same_init = _bitwise(one, sharded)
+            ms, out = {}, {}
+            for name, state, m in (("mesh=None", one, None), ("mesh (1, 1)", sharded, mesh)):
+                step = ltrain.build_train_step(cfg, opt, mesh=m, remat="full",
+                                               dtype=torch.bfloat16)
+                out[name] = [step(state, data)[1]]
+                holder = {}
+                ms[name] = event_ms(lambda: holder.update(m=step(state, data)[1]))
+                out[name].append(holder["m"])
+            return one, sharded, same_init, ms, out
+
+        one, sharded, same_init, ms, out = run(f"{tag} train", train_pair, ())
+        loss_same = all(torch.equal(a["loss"], b["loss"])
+                        for a, b in zip(out["mesh=None"], out["mesh (1, 1)"]))
+        params_same = _bitwise(one["params"], sharded["params"])
+        print(f"[{tag} train] {arch} ({cfg.n_layers} layers, d={cfg.d_model}) B={batch} x "
+              f"S={seq}, bf16 compute, AdamW, remat full: the second step on the mesh "
+              f"{ms['mesh (1, 1)']:.1f} ms, mesh=None {ms['mesh=None']:.1f} ms (CUDA events; "
+              f"NCCL at one rank: no collective runs); initial state bitwise {same_init}, losses "
+              f"{[round(float(m['loss']), 6) for m in out['mesh=None']]} bitwise {loss_same}, "
+              f"parameters after two steps bitwise {params_same}", flush=True)
+        check(same_init and loss_same and params_same,
+              f"{tag}: the mesh's train steps are not the mesh=None steps' bits")
+        params = lserve.serving_params(one["params"])
+        del one, sharded, out
+        torch.cuda.empty_cache()
+
+        serve_shape = ShapeConfig("decode", seq + LM_MESH_DECODE, batch, "decode")
+        prompt = {"tokens": data["tokens"]}
+
+        def serve_pair():
+            res = {}
+            for name, m in (("mesh=None", None), ("mesh (1, 1)", mesh)):
+                prefill, _ = lserve.make_prefill(cfg, serve_shape, mesh=m)
+                step, _ = lserve.make_serve_step(cfg, serve_shape, mesh=m)
+                t0 = time.perf_counter()
+                logits, cache, index = prefill(params, prompt)
+                rows = [logits]
+                for t in range(LM_MESH_DECODE):
+                    logits, cache = step(params, data["labels"][:, t:t + 1], cache, index + t)
+                    rows.append(logits)
+                device_mod.sync(dev)
+                res[name] = (rows, time.perf_counter() - t0)
+                del cache
+            return res
+
+        res = run(f"{tag} serve", serve_pair, ())
+        logits_same = _bitwise(res["mesh=None"][0], res["mesh (1, 1)"][0])
+        print(f"[{tag} serve] prefill of {batch} x {seq} and {LM_MESH_DECODE} decode tokens, bf16: "
+              f"mesh {res['mesh (1, 1)'][1]:.2f}s, mesh=None {res['mesh=None'][1]:.2f}s (host "
+              f"wall); logits bitwise {logits_same}", flush=True)
+        check(logits_same, f"{tag}: the mesh's serve logits are not the mesh=None bits")
+        del params, res
+        torch.cuda.empty_cache()
+
+        # The train loop on the mesh against one card, at the smoke config.
+        smoke = get_smoke_config(arch)
+
+        def loops():
+            out = {}
+            for name, m in (("one card", None), ("mesh", mesh)):
+                loop = train_loop.LoopConfig(steps=2, ckpt_dir=str(root / name.replace(" ", "_")),
+                                             ckpt_every=2, keep=1, monitor_k=2,
+                                             balance_every=2, log_every=1,
+                                             dtype=torch.float32)
+                out[name] = train_loop.run(smoke, ShapeConfig("t", 32, 4, "train"), m, loop,
+                                           DataConfig(seed=0), device=dev)
+            return out
+
+        res = run(f"{tag} loop", loops, "fourier_sketch")
+        a, b = res["one card"], res["mesh"]
+        same = (_bitwise(a["state"], b["state"])
+                and [h["loss"] for h in a["history"]] == [h["loss"] for h in b["history"]])
+        print(f"[{tag} loop] train_loop.run on the (1, 1) mesh, {smoke.name} smoke config, 2 "
+              f"steps with the monitor and the balancer: state, monitor sketch and losses "
+              f"bitwise the one-card loop's: {same}", flush=True)
+        check(same, f"{tag} loop: the mesh loop differs from the one-card loop")
+        del res, a, b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # p = 4: gloo ranks on the card.
+    import torch.multiprocessing as mp
+
+    tag = f"lm-mesh p={LM_MESH_RANKS}"
+    t0 = time.perf_counter()
+    sizes = sizes or {"seq": LM_MESH_SEQ, "pipe_seq": LM_MESH_PIPE_SEQ, "micro": LM_MESH_MICRO,
+                      "decode": LM_MESH_DECODE}
+    cfgs = {a: dataclasses.replace(get_config(a), n_layers=LM_MESH_LAYERS)
+            for a in ("llama3.2-1b", "granite-moe-1b-a400m")}
+    cfgs["pipe"] = get_config("llama3.2-1b")
+    cfgs["compressed"] = dataclasses.replace(get_config(LM_MESH_COMPRESSED), n_layers=LM_MESH_LAYERS)
+    ctx = mp.start_processes(_lm_mesh_rank, args=(str(root), dev.type, cfgs, sizes),
+                             nprocs=LM_MESH_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + LM_MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"{tag}: ranks still running after "
+                                               f"{LM_MESH_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    spawn_s = time.perf_counter() - t0
+    result = json.loads((root / "result.json").read_text())
+    note = "gloo through the host, not an interconnect measurement"
+    for line in result["lines"]:
+        print(f"[{tag} {line['label']}] {line['text']} ({note})", flush=True)
+    for line in result["lines"]:
+        check(line["ok"], f"{tag} {line['label']}: {line['text']}")
+    print(f"[{tag}] {LM_MESH_RANKS} gloo ranks on one {dev.type} device, spawned and joined in "
+          f"{spawn_s:.1f}s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[lm-mesh] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def _lm_mesh_rank(rank, root, dev_type, cfgs, sizes) -> None:
+    """One rank of [lm-mesh p=4] (see LM_MESH_RANKS) on ``cfgs`` (the two
+    cut models and the pipeline's layer) at ``sizes``; rank 0 runs the
+    one-card comparisons and writes ``result.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import device as device_mod
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.grad_compression import local_error_state
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device_mod.resolve(dev_type)
+    seq, pipe_seq, micro, n_decode = (sizes[k] for k in ("seq", "pipe_seq", "micro", "decode"))
+    dist.init_process_group("gloo", init_method=f"file://{root}/init4", rank=rank,
+                            world_size=LM_MESH_RANKS,
+                            timeout=datetime.timedelta(seconds=LM_MESH_TIMEOUT_S))
+    lines = []
+
+    def line(label, ok, text):
+        lines.append({"label": label, "ok": bool(ok), "text": text})
+
+    def wall(fn, together=True):
+        """``fn()`` and its host wall seconds; ``together``: every rank
+        starts it at once (a barrier first)."""
+        if together:
+            dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        device_mod.sync(dev)
+        return out, time.perf_counter() - t0
+
+    try:
+        mesh = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+        opt = make_optimizer(OptConfig(name="adamw"))
+        shape = ShapeConfig("t", seq, 4, "train")
+        for arch in ("llama3.2-1b", "granite-moe-1b-a400m"):
+            cfg = cfgs[arch]
+            if cfg.moe_experts:
+                cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+            batch = SyntheticLM(cfg, shape, DataConfig(seed=0), dev).batch(0)
+            batch = {k: v for k, v in batch.items() if not k.startswith("_")}
+            step, _, specs, bspecs = ltrain.jit_train_step(cfg, shape, mesh, OptConfig(name="adamw"),
+                                                           remat="full", dtype=torch.float32,
+                                                           return_grads=True)
+            rows = sh.shard_tree(batch, bspecs, mesh)
+            state = ltrain.init_sharded_state(cfg, opt, mesh, seed=LM_TRAIN_SEED)
+            (_, metrics), secs = wall(lambda: step(state, rows))
+            params = sh.gather_tree(state["params"], specs["params"], mesh)
+            grads = sh.gather_tree(metrics.pop("grads"), specs["params"], mesh)
+            loss = float(metrics["loss"])
+            # Serving from the seed's parameters (drawn again, cut to this rank).
+            serve_params = ltrain.init_sharded_state(cfg, opt, mesh, seed=LM_TRAIN_SEED)["params"]
+            serve_shape = ShapeConfig("d", seq + n_decode, 4, "decode")
+
+            def serve(p, m, toks):
+                with torch.no_grad():
+                    logits, cache, index = tfm.prefill(p, cfg, {"tokens": toks["tokens"]},
+                                                       serve_shape.seq_len, mesh=m,
+                                                       dtype=torch.float32)
+                    out = [logits]
+                    for t in range(n_decode):
+                        logits, cache = tfm.decode_step(p, cfg, toks["labels"][:, t:t + 1], cache,
+                                                        index + t, mesh=m, dtype=torch.float32,
+                                                        cache_len=serve_shape.seq_len)
+                        out.append(logits)
+                return out
+
+            got, serve_s = wall(lambda: serve(serve_params, mesh, rows))
+            tok = sh.token_spec(serve_shape, mesh)
+            got = [sh.gather_leaf(r, tok, mesh) for r in got]
+            del state, serve_params
+            torch.cuda.empty_cache()
+            if rank == 0:
+                one = ltrain.init_state(cfg, opt, seed=LM_TRAIN_SEED, device=dev)
+                n_rows = batch["tokens"].shape[0] // mesh.size(0)
+                shards = [{k: v[i:i + n_rows] for k, v in batch.items()}
+                          for i in range(0, batch["tokens"].shape[0], n_rows)]
+
+                def objective(p):
+                    """The mesh step's objective on one card, and rank 0's loss."""
+                    if not cfg.moe_experts:
+                        ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full")
+                        return ce, ce
+                    ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full",
+                                     aux_weight=0.0)
+                    auxes = [tfm.forward(p, cfg, b, dtype=torch.float32)[1] for b in shards]
+                    return ce + 0.01 * sum(auxes) / len(auxes), ce + 0.01 * auxes[0]
+
+                def one_step():
+                    (_, value), g = ltrain.loss_and_grads(objective, one["params"])
+                    kept = tree_map(torch.clone, g)
+                    opt.update(g, one["opt"], one["params"], one["step"])
+                    return float(value.detach()), kept
+
+                (want, want_grads), one_s = wall(one_step, together=False)
+                rel = abs(loss - want) / abs(want)
+                g_err = _leaf_errors(grads, want_grads)
+                err = _leaf_errors(params, one["params"])
+                line(f"{arch} train", rel <= LM_MESH_LOSS_RTOL and g_err <= LM_MESH_LEAF_TOL
+                     and err <= LM_MESH_LEAF_TOL,
+                     f"{cfg.n_layers} layers at d={cfg.d_model}, B=4 x S={seq} float32, "
+                     f"(2, 2) data x model: one train step {secs:.2f}s on the mesh against "
+                     f"{one_s:.2f}s on one card (host wall); loss {loss:.6f} against {want:.6f} "
+                     f"(relative {rel:.2e}, bar {LM_MESH_LOSS_RTOL}), gradients within "
+                     f"{g_err:.2e} and parameters after the step within {err:.2e} of each "
+                     f"leaf's max-abs (bar {LM_MESH_LEAF_TOL})")
+                del one, want_grads
+                torch.cuda.empty_cache()
+                fresh = tfm.init_lm(LM_TRAIN_SEED, cfg, device=dev)
+                want_rows, one_serve_s = wall(lambda: serve(fresh, None, batch), together=False)
+                errs = [float((a - b).abs().max()) for a, b in zip(got, want_rows)]
+                close = all(torch.allclose(a, b, atol=LM_ATOL, rtol=LM_RTOL)
+                            for a, b in zip(got, want_rows))
+                line(f"{arch} serve", close,
+                     f"prefill of 4 x {seq} and {n_decode} decode tokens, float32: "
+                     f"{serve_s:.2f}s on the mesh against {one_serve_s:.2f}s on one card (host "
+                     f"wall); logits max |diff| {max(errs):.2e} (atol {LM_ATOL}, rtol {LM_RTOL})")
+                del fresh, want_rows
+            del params, grads, got
+            torch.cuda.empty_cache()
+            dist.barrier()
+
+        # The compressed step over (2, 2) ("pod", "data"), against the plain
+        # step on the same mesh.
+        pod = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("pod", "data"))
+        cfg = cfgs["compressed"]
+        short = ShapeConfig("t", pipe_seq, 4, "train")
+        batch = SyntheticLM(cfg, short, DataConfig(seed=1), dev).batch(0)
+        batch = {k: v for k, v in batch.items() if not k.startswith("_")}
+        rows = sh.shard_tree(batch, sh.batch_specs(cfg, short, pod), pod)
+        specs = ltrain.state_specs(ltrain.state_shapes(cfg, opt), cfg, pod)["params"]
+        comp = ltrain.init_sharded_state(cfg, opt, pod, seed=LM_TRAIN_SEED)
+        comp["err"] = local_error_state(comp["params"])
+        plain = ltrain.init_sharded_state(cfg, opt, pod, seed=LM_TRAIN_SEED)
+        (_, mc), comp_s = wall(lambda: ltrain.build_compressed_train_step(
+            cfg, opt, pod, remat="full", dtype=torch.float32, return_grads=True)(comp, rows))
+        (_, mp_), plain_s = wall(lambda: ltrain.build_train_step(
+            cfg, opt, mesh=pod, remat="full", dtype=torch.float32, return_grads=True)(plain, rows))
+        comp_params = sh.gather_tree(comp["params"], specs, pod)
+        err = _leaf_errors(comp_params, sh.gather_tree(plain["params"], specs, pod))
+        g_comp = sh.gather_tree(mc["grads"], specs, pod)
+        g_plain = sh.gather_tree(mp_["grads"], specs, pod)
+        # The pods hold the same parameters after the step (bitwise).
+        psp = C.Spmd(pod)
+        pods_equal = all(torch.equal(*C.all_gather(t[None], psp, "pod", 0))
+                         for t in tree_leaves(comp_params))
+        pods_equal = float(C.all_reduce(torch.tensor(float(pods_equal), device=dev), psp,
+                                        ("pod", "data"), "min")) == 1.0
+        rel = abs(float(mc["loss"]) - float(mp_["loss"])) / abs(float(mp_["loss"]))
+        resid = max(float(e.abs().max()) for e in tree_leaves(comp["err"]))
+        del comp, plain, comp_params, mc, mp_
+        torch.cuda.empty_cache()
+        if rank == 0:
+            # Each pod's gradient on one card (the pods hold rows 0-1 and
+            # 2-3): a leaf's int16 step is the larger one's max-abs / 2^13.
+            fresh = tree_map(lambda t: t.requires_grad_(True),
+                             tfm.init_lm(LM_TRAIN_SEED, cfg, device=dev))
+            pod_grads = [ltrain.loss_and_grads(lambda p, b=b: tfm.lm_loss(
+                p, cfg, b, dtype=torch.float32, remat="full"), fresh)[1]
+                for b in ({k: v[i:i + 2] for k, v in batch.items()} for i in (0, 2))]
+            steps = [max(float(a.abs().max()), float(b.abs().max())) / 2.0 ** 13
+                     for a, b in zip(*(tree_leaves(g) for g in pod_grads), strict=True)]
+            g_steps = [float((a - b).abs().max()) / q
+                       for a, b, q in zip(tree_leaves(g_comp), tree_leaves(g_plain), steps,
+                                          strict=True)]
+            del fresh, pod_grads
+            line("compressed", rel <= LM_MESH_LOSS_RTOL and max(g_steps) <= 1.0
+                 and err <= LM_MESH_LEAF_TOL and pods_equal and math.isfinite(resid)
+                 and resid > 0,
+                 f"build_compressed_train_step, {cfg.name} at {cfg.n_layers} layers (d="
+                 f"{cfg.d_model}), B=4 x "
+                 f"S={pipe_seq}, (2, 2) pod x data, int16 payload of 13 bits: {comp_s:.2f}s "
+                 f"against the plain step's {plain_s:.2f}s (host wall); loss relative "
+                 f"{rel:.2e} (bar {LM_MESH_LOSS_RTOL}); the exchanged mean gradient within "
+                 f"{max(g_steps):.3f} int16 steps of the plain step's (bar 1); parameters "
+                 f"within {err:.2e} of each leaf's max-abs (bar {LM_MESH_LEAF_TOL}); the pods' "
+                 f"parameters equal: {pods_equal}; largest residual {resid:.2e}")
+        del g_comp, g_plain
+        torch.cuda.empty_cache()
+
+        # GPipe: 4 stages of one full-width layer each.
+        pipe = init_device_mesh(dev.type, (LM_MESH_RANKS,), mesh_dim_names=("pipe",))
+        full = cfgs["pipe"]
+
+        def layer(li):
+            gen = device_mod.generator(device_mod.derive_seed(LM_TRAIN_SEED, 1, li), dev)
+            return tfm.init_layer(gen, full, "attn", "dense", False, dev)
+
+        g = device_mod.generator(device_mod.derive_seed(LM_TRAIN_SEED, 400), dev)
+        x = torch.randn((micro, 1, pipe_seq, full.d_model), generator=g, device=dev)
+        pos = torch.arange(pipe_seq, device=dev)[None]
+
+        def stage_fn(p, h):
+            with torch.no_grad():
+                return tfm.layer_forward(p, full, "attn", "dense", h, pos)[0]
+
+        mine = tree_map(lambda t: t[None], layer(rank))
+        out, pipe_s = wall(lambda: pipeline_apply(stage_fn, mine, x, pipe, axis="pipe"))
+        if rank == 0:
+            layers = [layer(li) for li in range(LM_MESH_RANKS)]
+            seq_out = []
+            for m in range(micro):
+                h = x[m]
+                for p in layers:
+                    h = stage_fn(p, h)
+                seq_out.append(h)
+            want = torch.stack(seq_out)
+            diff = float((out - want).abs().max())
+            line("pipeline", diff <= 1e-5 * float(want.abs().max()),
+                 f"pipeline_apply, {LM_MESH_RANKS} stages of one llama3.2-1B layer (d="
+                 f"{full.d_model}), {micro} microbatches of 1 x {pipe_seq}, "
+                 f"float32: {pipe_s:.2f}s (host wall; bubble "
+                 f"{bubble_fraction(LM_MESH_RANKS, micro):.3f}); max |diff| against the "
+                 f"stages in turn {diff:.2e}")
+            (Path(root) / "result.json").write_text(json.dumps({"lines": lines}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def plain_assign():
     """Kernel 2's wrapper replaced by its plain version: the same draws and
@@ -3945,6 +4395,9 @@ def main() -> None:
     # invariant at its smoke config.
     lm_train_phase(dev, run)
     lm_restart_phase(dev, run)
+
+    # 9j. The LM on a mesh: NCCL at one rank, then gloo ranks on the card.
+    lm_mesh_phases(dev, run, launches)
 
     # 10. Per-kernel numbers.
     meta = {

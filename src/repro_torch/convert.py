@@ -171,21 +171,46 @@ def _lm_tree(tree: dict, cfg, dev: torch.device) -> dict:
     return out
 
 
-def lm_params_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT) -> dict:
+def lm_params_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT, mesh=None) -> dict:
     """The reference's ``init_lm`` tree as numpy -> the port's parameters:
     each ``groups`` leaf unstacked along its group axis, the ``rest`` layers
     in their order.  A tied model (``cfg.tie_embeddings``) has no head: its
-    logits come from the embedding table."""
+    logits come from the embedding table.  With ``mesh`` (a ``DeviceMesh``)
+    this rank's blocks as ``parallel.sharding.param_specs`` places them (the
+    MoE's experts, Mamba's channels and the FSDP dimensions cut), on the
+    mesh's device."""
     if cfg.tie_embeddings == ("lm_head" in tree):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the tree "
                          f"{'has' if 'lm_head' in tree else 'lacks'} an lm_head")
-    return _lm_tree(tree, cfg, dev_mod.resolve(device))
+    if mesh is None:
+        return _lm_tree(tree, cfg, dev_mod.resolve(device))
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as sh
+
+    sp = C.as_spmd(mesh)
+    full = _lm_tree(tree, cfg, torch.device("cpu"))
+    return _to(sh.shard_tree(full, sh.param_specs(full, cfg, sp), sp), sp.device)
 
 
-def lm_cache_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT) -> dict:
+def lm_cache_from_numpy(tree: dict, cfg, device=dev_mod.DEFAULT, mesh=None, shape=None) -> dict:
     """The reference's decode cache (``init_cache`` or ``prefill``'s) as
-    numpy -> the port's, unstacked as ``lm_params_from_numpy`` does."""
-    return _lm_tree(tree, cfg, dev_mod.resolve(device))
+    numpy -> the port's, unstacked as ``lm_params_from_numpy`` does.  With
+    ``mesh`` (and the serve ``shape`` it was made for) this rank's pieces as
+    ``cache_specs`` places them."""
+    if mesh is None:
+        return _lm_tree(tree, cfg, dev_mod.resolve(device))
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as sh
+
+    sp = C.as_spmd(mesh)
+    full = _lm_tree(tree, cfg, torch.device("cpu"))
+    return _to(sh.shard_tree(full, sh.cache_specs(full, cfg, shape, sp), sp), sp.device)
+
+
+def _to(tree, dev: torch.device):
+    from repro_torch.parallel import sharding as sh
+
+    return sh.map_with_path(lambda _, t: t.to(dev), tree)
 
 
 # ---------------------------------------------------------------------------

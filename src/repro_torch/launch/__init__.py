@@ -1,8 +1,9 @@
 """Launch descriptions (counterpart of ``repro.launch``): ``specs`` (a sketch
 job's ``SketchJobSpec``; the LM's input specs and ``make_batch``), ``serve``
-(the LM's prefill and serve steps on one card) and ``train`` (the train
-state and step on one card).  The reference's ``mesh`` launcher is ROADMAP
-Queue 1 item 22 (b), part 2, and ``dryrun`` item 23."""
+(the LM's prefill and serve steps), ``train`` (the train state and step),
+both on one card or over a ``DeviceMesh``, and ``mesh`` (the production
+mesh's shape, a local ``DeviceMesh`` over the process group).  The
+reference's ``dryrun`` is ROADMAP Queue 1 item 23."""
 
 from repro_torch.launch.specs import SketchJobSpec
 

@@ -12,8 +12,11 @@ Conventions, as in the reference:
   never builds an (S, S) mask or score matrix; the block size is a config.
   The products are ``torch.einsum`` / ``@``: no library attention and no
   flash kernel, as the reference's models call none.
-- No ``shard`` hooks: one card, no mesh (the reference's are GSPMD
-  constraints).
+- No ``shard`` hooks (the reference's are GSPMD constraints): on a mesh,
+  ``models.transformer`` runs these functions on each rank's heads and
+  columns with explicit collectives around them, and the decode step over
+  a cache whose sequence is split over "model" is
+  ``attention_decode(..., sp, s_full)`` / ``cross_attention_sharded``.
 - ``init_*`` take ``dtype``: each leaf is drawn in float32 and stored in
   ``dtype`` as soon as it is drawn, so a bf16 model never holds its float32
   copy (the bits of casting the float32 model).
@@ -244,6 +247,8 @@ def attention_decode(
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
     index: int,
+    sp=None,
+    s_full: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode step against a KV cache.
 
@@ -252,33 +257,77 @@ def attention_decode(
     layers the cache is a ring buffer of size ``window``.  The new key and
     value are written into the cache tensors in place (the reference's serve
     step donates its cache).
+
+    With ``sp`` (a ``parallel.collectives.Spmd``) the cache's sequence
+    (``s_full`` positions, a ring of ``window`` for a local layer) is split
+    over the "model" axis: this rank holds positions [r S_cache, (r + 1)
+    S_cache) of every head, ``params`` are the whole projections, the rank
+    that owns the new position writes it, and the softmax runs through
+    ``_sharded_softmax_pv``.
     """
     index = int(index)
     b = x.shape[0]
     h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     s_cache = cache_k.shape[1]
+    s_full = s_cache if sp is None else s_full
+    r = 0 if sp is None else sp.rank("model")
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(params, dims, x, pos)
-    slot = index % s_cache if dims.window > 0 else index
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
+    slot = index % s_full if dims.window > 0 else index
+    owner, off = (0, slot) if sp is None else divmod(slot, s_cache)
+    if owner == r:
+        cache_k[:, off] = k_new[:, 0]
+        cache_v[:, off] = v_new[:, 0]
 
     rep = h // kvh
     qh = q.reshape(b, 1, kvh, rep, hd)
     scores = torch.einsum("bqkrh,bskh->bkrqs", qh, cache_k).to(_F32)
     scores = scores * f32_inv_sqrt(hd)
-    cache_pos = torch.arange(s_cache, device=x.device)
+    cache_pos = r * s_cache + torch.arange(s_cache, device=x.device)
     if dims.window > 0:
         # Ring buffer: once it has wrapped every slot holds one of the last
         # ``window`` positions (ring size == window).
-        mask = cache_pos <= slot if index < s_cache else None
+        mask = cache_pos <= slot if index < s_full else None
     else:
         mask = cache_pos <= index
     if mask is not None:
         scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkrqs,bskh->bqkrh", probs, cache_v).reshape(b, 1, h * hd)
-    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+    if sp is None:
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkrqs,bskh->bqkrh", probs, cache_v)
+    else:
+        out = _sharded_softmax_pv(scores, cache_v, sp).to(x.dtype)
+    return out.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+def _sharded_softmax_pv(scores: torch.Tensor, values: torch.Tensor, sp) -> torch.Tensor:
+    """softmax(scores) V over a sequence split over "model": a local max and
+    one all-reduce of it, then the local exponential sums and P V and one
+    all-reduce of those.  scores: (B, KV, rep, 1, S_local) float32; values:
+    (B, S_local, KV, hd).  Returns (B, 1, KV, rep, hd) float32."""
+    from repro_torch.parallel import collectives as C
+
+    m = C.all_reduce(torch.amax(scores, dim=-1, keepdim=True), sp, ("model",), "max")
+    e = torch.exp(scores - m)
+    pv = torch.einsum("bkrqs,bskh->bqkrh", e, values.to(_F32))
+    total = torch.sum(e, dim=-1)  # (B, KV, rep, 1)
+    n = pv.numel()
+    both = C.all_reduce(torch.cat([pv.reshape(-1), total.reshape(-1)]), sp, ("model",))
+    pv, total = both[:n].reshape(pv.shape), both[n:].reshape(total.shape)
+    return pv / total.permute(0, 3, 1, 2)[..., None]
+
+
+def cross_attention_sharded(params: Params, dims: AttnDims, x: torch.Tensor,
+                            enc_kv: tuple[torch.Tensor, torch.Tensor], sp) -> torch.Tensor:
+    """``cross_attention_apply`` over encoder keys and values whose positions
+    are split over the "model" axis (``params`` whole)."""
+    b, s, _ = x.shape
+    h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, kvh, h // kvh, hd)
+    k, v = enc_kv
+    scores = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(_F32) * f32_inv_sqrt(hd)
+    out = _sharded_softmax_pv(scores, v, sp).to(x.dtype).reshape(b, s, h * hd)
+    return out @ params["wo"].to(x.dtype)
 
 
 def cross_attention_apply(params: Params, dims: AttnDims, x: torch.Tensor,

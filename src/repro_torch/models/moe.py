@@ -21,8 +21,17 @@ and dropped.  On CUDA the combine's ``index_add_`` may sum a token's expert
 outputs in an order that changes from run to run (its last bits move; the
 same note as Lloyd's centroid update).
 
-``mesh=`` must be ``None``: expert parallelism over a mesh (the reference's
-``shard_map`` with one ``psum``) is ROADMAP Queue 1 item 22 (b), part 2.
+Expert parallelism (``mesh=``, a ``DeviceMesh`` or ``parallel.collectives.Spmd``;
+the reference's ``shard_map`` over the batch axes and "model"): every
+"model" rank holds the same tokens (the activations between layers are
+replicated over "model"), owns E / ep experts, routes its data shard's
+tokens with the capacity taken from that shard's token count, runs its own
+experts, and one all-reduce over "model" combines ``out`` and ``aux / ep``.
+No token all-to-all.  ``params`` are the rank's pieces as
+``parallel.sharding.param_specs`` places them (experts over "model", their
+d / f dimension over "data", gathered here); the router is replicated and
+its gradient summed over "model".  A batch the data axes do not divide
+arrives whole on every rank and is routed whole, as the reference's.
 ``router_init_from_ckm`` turns CKM centroids of token activations into
 router weights (the paper tie-in).
 """
@@ -30,6 +39,7 @@ router weights (the paper tie-in).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -139,23 +149,61 @@ def _moe_dense_local(x_flat, gates, ids, w_gate, w_up, w_down, e_start: int) -> 
     return torch.einsum("etd,et->td", y, w.to(x_flat.dtype))
 
 
+def moe_specs(dims: MoEDims, mesh) -> dict:
+    """The specs of the MoE's parameters on ``mesh`` (the rules of
+    ``parallel.sharding`` at these dims' full shapes)."""
+    from repro_torch.parallel import sharding as sh
+
+    return _moe_specs(dims, tuple(sh.axis_sizes(mesh).items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_specs(dims: MoEDims, sizes_key: tuple) -> dict:
+    from repro_torch.parallel import sharding as sh
+
+    e, d, f = dims.n_experts, dims.d_model, dims.d_ff
+    sizes = dict(sizes_key)
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+
+    return {k: sh.leaf_spec(f"mlp/{k}", v, "moe", sizes) for k, v in shapes.items()}
+
+
 def moe_apply(params: Params, dims: MoEDims, x: torch.Tensor, mesh=None,
               dense_path: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN.  x: (B, S, d) -> (out (B, S, d), aux loss scalar)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the MoE runs on one card: mesh must be None (expert parallelism is ROADMAP "
-            "Queue 1 item 22 (b), part 2)"
-        )
+    """MoE FFN.  x: (B, S, d) -> (out (B, S, d), aux loss scalar).  On a
+    mesh, x is this rank's rows and ``params`` its pieces."""
+    from repro_torch.parallel import collectives as C
+
+    sp = C.as_spmd(mesh)
     b, s, d = x.shape
+    e_start, ep = 0, 1
+    if sp is not None:
+        ep = sp.model
+        if dims.n_experts % ep:
+            raise ValueError(f"{dims.n_experts} experts do not divide over {ep} model ranks")
+        specs = moe_specs(dims, sp)
+        params = {k: C.use_param(v, specs[k], sp, tensor_parallel=True)
+                  for k, v in params.items()}
+        # The router is used inside the expert-parallel region: each model
+        # rank's gradient holds its own experts' part, summed here.
+        params["router"] = C.copy_to(params["router"], sp, ("model",))
+        x = C.copy_to(x, sp, ("model",))
+        e_start = sp.rank("model") * (dims.n_experts // ep)
     x_flat = x.reshape(-1, d)
     gates, ids, aux = route(params, dims, x_flat)
     ws = (params["w_gate"], params["w_up"], params["w_down"])
     if dense_path:
-        out = _moe_dense_local(x_flat, gates, ids, *ws, 0)
+        out = _moe_dense_local(x_flat, gates, ids, *ws, e_start)
     else:
-        out = _moe_local(x_flat, gates, ids, *ws, 0, dims.n_experts,
+        out = _moe_local(x_flat, gates, ids, *ws, e_start, dims.n_experts,
                          _capacity(x_flat.shape[0], dims))
+    if sp is not None and ep > 1:
+        # Combine the expert ranks' outputs (and aux / ep) in one float32
+        # collective.
+        n = out.numel()
+        both = C.reduce_from(torch.cat([out.reshape(-1).to(_F32), (aux / ep)[None]]),
+                             sp, ("model",))
+        out, aux = both[:n].reshape(out.shape).to(x.dtype), both[n]
     return out.reshape(b, s, d), aux
 
 

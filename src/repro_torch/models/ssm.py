@@ -23,6 +23,7 @@ convolution window and sLSTM's ``h``, which take the activations' dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -124,12 +125,64 @@ def _ssm_scan_chunked(dt, b_in, c_in, xc, a, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
+def mamba_specs(dims: MambaDims, mesh) -> dict:
+    """The specs of a Mamba mixer's parameters on ``mesh`` (the rules of
+    ``parallel.sharding`` at these dims' full shapes)."""
+    from repro_torch.parallel import sharding as sh
+
+    return _mamba_specs(dims, tuple(sh.axis_sizes(mesh).items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba_specs(dims: MambaDims, sizes_key: tuple) -> dict:
+    from repro_torch.parallel import sharding as sh
+
+    meta = init_mamba(None, dims, torch.device("meta"))
+    return {k: sh.leaf_spec(f"mixer/{k}", tuple(v.shape), "hybrid", dict(sizes_key))
+            for k, v in meta.items()}
+
+
 def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
-                state: Params | None = None) -> tuple[torch.Tensor, Params]:
-    """Full-sequence Mamba mixer.  x: (B, S, d_model) -> (out, final state)."""
+                state: Params | None = None, mesh=None) -> tuple[torch.Tensor, Params]:
+    """Full-sequence Mamba mixer.  x: (B, S, d_model) -> (out, final state).
+
+    On a mesh (``params`` the rank's pieces, ``state`` its channels): the
+    channels (d_inner) go over "model" where it divides them.  Each rank
+    runs the convolution and the scan on its channels; ``x_proj``'s product
+    (dt, B and C read every channel) and ``out_proj``'s each take one
+    all-reduce over "model".  ``in_proj`` is stored as contiguous columns
+    over "model" (the reference's placement), which splits x from z rather
+    than channels, so it is gathered and each rank takes its channels' x
+    and z columns."""
+    from repro_torch.parallel import collectives as C
+
+    sp = C.as_spmd(mesh)
+    if sp is None:
+        return _mamba(params, dims, x, state, dims.d_inner)
+    specs = mamba_specs(dims, sp)
+    m, di = sp.model, dims.d_inner
+    if m == 1 or di % m:
+        used = {k: C.use_param(v, specs[k], sp, tensor_parallel=False) for k, v in params.items()}
+        return _mamba(used, dims, x, state, di)
+    used = {k: C.use_param(v, specs[k], sp, tensor_parallel=True) for k, v in params.items()
+            if k != "in_proj"}
+    full = C.use_param(params["in_proj"], specs["in_proj"], sp, tensor_parallel=False,
+                       model_grad="sum")
+    dl, r = di // m, sp.rank("model")
+    used["in_proj"] = torch.cat([full[:, r * dl:(r + 1) * dl],
+                                 full[:, di + r * dl:di + (r + 1) * dl]], dim=1)
+    out, st = _mamba(used, dims, C.copy_to(x, sp, ("model",)), state, dl,
+                     dbc_hook=lambda t: C.reduce_both(t, sp, ("model",)))
+    return C.reduce_from(out, sp, ("model",)), st
+
+
+def _mamba(params: Params, dims: MambaDims, x: torch.Tensor, state, di: int,
+           dbc_hook=None) -> tuple[torch.Tensor, Params]:
+    """Mamba on ``di`` channels (all of them, or a rank's): ``params["in_proj"]``
+    holds their x columns, then their z columns."""
     b, s, _ = x.shape
     dt_ = x.dtype
-    di, ds, dr = dims.d_inner, dims.d_state, dims.dt_rank
+    ds, dr = dims.d_state, dims.dt_rank
     xz = x @ params["in_proj"].to(dt_)
     xs_, z = torch.split(xz, di, dim=-1)
     conv_state = None if state is None else state["conv"]
@@ -137,6 +190,8 @@ def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
     xc = F.silu(xc)
 
     dbc = xc @ params["x_proj"].to(dt_)
+    if dbc_hook is not None:
+        dbc = dbc_hook(dbc)
     dt_raw, b_ssm, c_ssm = torch.split(dbc, [dr, ds, ds], dim=-1)
     dt = F.softplus(dt_raw @ params["dt_proj"].to(dt_) + params["dt_bias"].to(dt_)).to(_F32)
     a = -torch.exp(params["a_log"])  # (di, ds)
@@ -162,9 +217,9 @@ def mamba_init_state(dims: MambaDims, batch: int, dtype, device) -> Params:
 
 
 def mamba_step(params: Params, dims: MambaDims, x: torch.Tensor,
-               state: Params) -> tuple[torch.Tensor, Params]:
+               state: Params, mesh=None) -> tuple[torch.Tensor, Params]:
     """Single-token decode.  x: (B, 1, d_model)."""
-    return mamba_apply(params, dims, x, state)
+    return mamba_apply(params, dims, x, state, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

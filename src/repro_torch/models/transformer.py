@@ -28,13 +28,30 @@ Modes
 
 The modality frontends are stubs, as in the reference: ``vlm`` takes
 precomputed patch embeddings (``batch["patches"]``), ``audio`` precomputed
-frames into the encoder (``batch["frames"]``).  One card: ``mesh=`` must be
-``None`` (a mesh raises; the LM on a mesh is ROADMAP Queue 1 item 22 (b),
-part 2).
+frames into the encoder (``batch["frames"]``).
+
+On a mesh (``mesh=`` a ``torch.distributed`` ``DeviceMesh`` or a
+``parallel.collectives.Spmd``; one process a rank, SPMD): ``params`` are
+the rank's pieces as ``parallel.sharding.param_specs`` places them, the
+batch is the rank's rows (``batch_specs``) and a cache the rank's pieces
+(``cache_specs``).  A layer's FSDP ("data") dimensions are all-gathered
+before use and their gradients reduce-scattered; its "model" dimensions
+stay local: attention heads and KV heads (where "model" divides both), the
+dense FFN hidden, the MoE's experts and Mamba's channels are
+column-parallel on the way in, ``wo`` / ``w_down`` / ``out_proj``
+row-parallel with one all-reduce over "model" (the kinds the reference's
+``activation_sharder`` pins).  Where "model" does not divide them the
+layer gathers its weights and computes replicated.  The embedding and
+``lm_head`` are gathered whole.  The loss's sums are all-reduced over the
+batch axes.  The decode step reads a KV cache whose sequence is split over
+"model" (``layers.attention_decode`` with ``sp``): it needs ``cache_len``, the
+cache's full length.  A mesh whose axes all have size 1 computes the
+one-card bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Iterator
 
@@ -47,6 +64,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
 
@@ -106,12 +125,102 @@ def _check_cfg(cfg: ModelConfig) -> None:
         _check_kinds(mixer, mlp_kind)
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the LM runs on one card: mesh must be None (the LM on a mesh is ROADMAP "
-            "Queue 1 item 22 (b), part 2)"
-        )
+# ---------------------------------------------------------------------------
+# The mesh: parameter use and tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _layer_specs(cfg: ModelConfig, mixer: str, mlp_kind: str, cross: bool, sp):
+    return None if sp is None else sh.layer_specs(cfg, mixer, mlp_kind, cross,
+                                                  tuple(sp.sizes.items()))
+
+
+def _use(p: Params, specs, sp, tp: bool) -> Params:
+    """A layer part's parameters as its products read them (see
+    ``collectives.use_param``); the part itself on one card."""
+    if sp is None:
+        return p
+    return {k: C.use_param(v, specs[k], sp, tp) for k, v in p.items()}
+
+
+def _attn_tp(cfg: ModelConfig, sp) -> bool:
+    """Attention is tensor-parallel where "model" divides its heads and its
+    KV heads (so each rank's query heads read its own KV heads)."""
+    m = 1 if sp is None else sp.model
+    return m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
+def _local_dims(dims: L.AttnDims, sp) -> L.AttnDims:
+    return dataclasses.replace(dims, n_heads=dims.n_heads // sp.model,
+                               n_kv_heads=dims.n_kv_heads // sp.model)
+
+
+def _top_specs(cfg: ModelConfig, sp) -> dict:
+    sizes = sp.sizes
+    v, d = cfg.vocab_size, cfg.d_model
+    return {"embed": {"table": sh.leaf_spec("embed/table", (v, d), cfg.family, sizes)},
+            "lm_head": {"w": sh.leaf_spec("lm_head/w", (d, v), cfg.family, sizes)},
+            "final_norm": {"scale": sh.P()}}
+
+
+def _with_top(params: Params, cfg: ModelConfig, sp) -> Params:
+    """``params`` with the embedding, ``lm_head`` and final norm gathered
+    whole (every rank computes the same logits; their gradients come back
+    as each rank's block)."""
+    if sp is None:
+        return params
+    specs = _top_specs(cfg, sp)
+    out = dict(params)
+    for name, spec in specs.items():
+        if name in params:
+            out[name] = _use(params[name], spec, sp, tp=False)
+    return out
+
+
+def _self_attention(p: Params, specs, cfg: ModelConfig, mixer: str, h, positions, causal,
+                    collect: bool, sp):
+    """(out, (k, v) or None): tensor-parallel over heads where it can be
+    (k and v then this rank's KV heads)."""
+    dims = attn_dims(cfg, mixer)
+    tp = _attn_tp(cfg, sp)
+    w = _use(p, specs, sp, tp)
+    if tp:
+        h, dims = C.copy_to(h, sp, ("model",)), _local_dims(dims, sp)
+    res = L.attention_apply(w, dims, h, positions, causal, return_kv=collect)
+    out, kv = res if collect else (res, None)
+    if tp:
+        out = C.reduce_from(out, sp, ("model",))
+    return out, kv
+
+
+def _mlp(p: Params, specs, cfg: ModelConfig, h, sp):
+    """The dense SwiGLU MLP, its hidden over "model" where it divides."""
+    tp = sp is not None and sp.model > 1 and cfg.d_ff % sp.model == 0
+    w = _use(p, specs, sp, tp)
+    if not tp:
+        return L.mlp_apply(w, h)
+    return C.reduce_from(L.mlp_apply(w, C.copy_to(h, sp, ("model",))), sp, ("model",))
+
+
+def _cross(p: Params, specs, cfg: ModelConfig, h, enc_kv, sp, decode: bool):
+    """Cross-attention.  In the forward, tensor-parallel over heads like the
+    self-attention (``enc_kv`` then this rank's KV heads); in the decode,
+    whole weights over the cache's keys, their positions split over "model"
+    where ``cache_specs`` splits them."""
+    dims = attn_dims(cfg, "attn")
+    if sp is None:
+        return L.cross_attention_apply(p, dims, h, enc_kv)
+    if decode:
+        w = _use(p, specs, sp, tp=False)
+        if sh.seq_sharded(cfg.frontend_len, sp.model, cfg):
+            return L.cross_attention_sharded(w, dims, h, enc_kv, sp)
+        return L.cross_attention_apply(w, dims, h, enc_kv)
+    tp = _attn_tp(cfg, sp)
+    w = _use(p, specs, sp, tp)
+    if not tp:
+        return L.cross_attention_apply(w, dims, h, enc_kv)
+    out = L.cross_attention_apply(w, _local_dims(dims, sp), C.copy_to(h, sp, ("model",)), enc_kv)
+    return C.reduce_from(out, sp, ("model",))
 
 
 def _device(device) -> torch.device:
@@ -184,20 +293,25 @@ _APPLY = {"mamba": (ssm.mamba_apply, mamba_dims), "mlstm": (ssm.mlstm_apply, mls
 _STEP = {"mamba": ssm.mamba_step, "mlstm": ssm.mlstm_step, "slstm": ssm.slstm_step}
 
 
+def _norm(p: Params, name: str, specs, sp) -> Params:
+    return p[name] if sp is None else _use(p[name], specs[name], sp, tp=False)
+
+
 def _cross_and_mlp(p: Params, cfg: ModelConfig, mlp_kind: str, x: torch.Tensor, enc_kv,
-                   dense_path: bool):
+                   dense_path: bool, sp=None, specs=None):
     """The layer after its mixer: cross-attention over ``enc_kv`` (when
-    given), then the MLP.  Returns (x, aux)."""
+    given), then the MLP.  Returns (x, aux).  ``dense_path`` marks the
+    decode step."""
     if enc_kv is not None:
-        h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-        x = x + L.cross_attention_apply(p["cross"], attn_dims(cfg, "attn"), h, enc_kv)
+        h = L.rmsnorm(_norm(p, "norm_cross", specs, sp), x, cfg.norm_eps)
+        x = x + _cross(p["cross"], specs and specs["cross"], cfg, h, enc_kv, sp, dense_path)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp_kind == "dense":
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h)
+        h = L.rmsnorm(_norm(p, "norm2", specs, sp), x, cfg.norm_eps)
+        x = x + _mlp(p["mlp"], specs and specs["mlp"], cfg, h, sp)
     elif mlp_kind == "moe":
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        out, aux = moe_mod.moe_apply(p["mlp"], moe_dims(cfg), h, dense_path=dense_path)
+        h = L.rmsnorm(_norm(p, "norm2", specs, sp), x, cfg.norm_eps)
+        out, aux = moe_mod.moe_apply(p["mlp"], moe_dims(cfg), h, mesh=sp, dense_path=dense_path)
         x = x + out
     return x, aux
 
@@ -216,24 +330,29 @@ def layer_forward(
 ):
     """Pre-norm residual layer.  Returns (x, aux_loss, cache_or_None): the
     cache is the attention's ``{"k", "v"}`` or a recurrent mixer's final
-    state."""
-    _check_mesh(mesh)
+    state.  On a mesh the attention's keys and values are this rank's KV
+    heads where the attention is tensor-parallel, a Mamba state its
+    channels."""
+    sp = C.as_spmd(mesh)
     _check_kinds(mixer, mlp_kind)
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    specs = _layer_specs(cfg, mixer, mlp_kind, "cross" in p, sp)
+    h = L.rmsnorm(_norm(p, "norm1", specs, sp), x, cfg.norm_eps)
     cache = None
     if mixer in ("attn", "local"):
-        dims = attn_dims(cfg, mixer)
+        out, kv = _self_attention(p["mixer"], specs and specs["mixer"], cfg, mixer, h,
+                                  positions, causal, collect_cache, sp)
         if collect_cache:
-            out, (k, v) = L.attention_apply(p["mixer"], dims, h, positions, causal,
-                                            return_kv=True)
-            cache = {"k": k, "v": v}
-        else:
-            out = L.attention_apply(p["mixer"], dims, h, positions, causal)
+            cache = {"k": kv[0], "v": kv[1]}
     else:
         apply, dims_of = _APPLY[mixer]
-        out, state = apply(p["mixer"], dims_of(cfg), h)
+        if mixer == "mamba":
+            out, state = ssm.mamba_apply(p["mixer"], dims_of(cfg), h, mesh=sp)
+        else:
+            out, state = apply(_use(p["mixer"], specs and specs["mixer"], sp, tp=False),
+                               dims_of(cfg), h)
         cache = state if collect_cache else None
-    x, aux = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=False)
+    x, aux = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=False, sp=sp,
+                            specs=specs)
     return x, aux, cache
 
 
@@ -246,30 +365,78 @@ def layer_step(
     cache: Params,
     index: int,
     mesh=None,
+    cache_len: int | None = None,
 ):
     """Single-token decode.  x: (B, 1, d).  Returns (x, new_cache); the
     cache's tensors (keys and values, recurrent states) are written in
-    place.  The MoE takes its dense path."""
-    _check_mesh(mesh)
+    place.  The MoE takes its dense path.  On a mesh ``cache_len`` is the
+    full length the cache was made for (its sequence may be split over
+    "model"): the attention's weights are gathered whole and its softmax
+    runs over the split sequence."""
+    sp = C.as_spmd(mesh)
     _check_kinds(mixer, mlp_kind)
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    specs = _layer_specs(cfg, mixer, mlp_kind, "cross" in p, sp)
+    h = L.rmsnorm(_norm(p, "norm1", specs, sp), x, cfg.norm_eps)
     enc_kv = (cache["cross_k"], cache["cross_v"]) if "cross_k" in cache else None
     if mixer in ("attn", "local"):
         dims = attn_dims(cfg, mixer)
+        w = _use(p["mixer"], specs and specs["mixer"], sp, tp=False)
         if "ck" in cache:  # CKM-compressed global attention (long_context)
-            from repro_torch.serve.kv_clustering import attention_decode_compressed
-
-            out, kv_cache = attention_decode_compressed(p["mixer"], dims, h, cache, index)
+            out, kv_cache = _compressed_decode(w, dims, h, cache, index, cfg, sp)
         else:
-            out, ck, cv = L.attention_decode(p["mixer"], dims, h, cache["k"], cache["v"], index)
+            s_full = None
+            if sp is not None:
+                if cache_len is None:
+                    raise ValueError("a decode step on a mesh needs cache_len, the cache's "
+                                     "full length")
+                s_full = min(cfg.window, cache_len) if mixer == "local" else cache_len
+            split = sp is not None and sh.seq_sharded(s_full, sp.model, cfg)
+            out, ck, cv = L.attention_decode(w, dims, h, cache["k"], cache["v"], index,
+                                             *((sp, s_full) if split else ()))
             kv_cache = {"k": ck, "v": cv}
         cache = {**cache, **kv_cache}
     else:
-        out, state = _STEP[mixer](p["mixer"], _APPLY[mixer][1](cfg), h, cache["state"])
+        dims = _APPLY[mixer][1](cfg)
+        if mixer == "mamba":
+            out, state = ssm.mamba_step(p["mixer"], dims, h, cache["state"], mesh=sp)
+        else:
+            out, state = _STEP[mixer](_use(p["mixer"], specs and specs["mixer"], sp, tp=False),
+                                      dims, h, cache["state"])
         for name, t in state.items():
             cache["state"][name].copy_(t)
-    x, _ = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=True)
+    x, _ = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=True, sp=sp,
+                          specs=specs)
     return x, cache
+
+
+def _compressed_decode(w: Params, dims: L.AttnDims, h, cache: Params, index: int,
+                       cfg: ModelConfig, sp):
+    """The CKM-compressed decode attention (``serve.kv_clustering``).  On a
+    mesh the centroids and the ring (split over "model" by ``cache_specs``)
+    are gathered, attended to whole, and the new token's ring slot is
+    written back into this rank's block."""
+    from repro_torch.serve.kv_clustering import attention_decode_compressed
+
+    if sp is None or sp.model == 1:
+        return attention_decode_compressed(w, dims, h, cache, index)
+    full = {k: C.all_gather(cache[k], sp, "model", 1) if _cache_split(k, cache[k], cfg, sp)
+            else cache[k] for k in ("ck", "cv", "clogw", "k", "v")}
+    out, ring = attention_decode_compressed(w, dims, h, full, index)
+    for k in ("k", "v"):
+        if _cache_split(k, cache[k], cfg, sp):
+            cache[k].copy_(C.own_slice(ring[k], sp, "model", 1))
+        else:
+            cache[k].copy_(ring[k])
+    return out, {"k": cache["k"], "v": cache["v"]}
+
+
+def _cache_split(name: str, local: torch.Tensor, cfg: ModelConfig, sp) -> bool:
+    """Whether a compressed cache's leaf has its sequence over "model"
+    (its full length is a constant of the mode)."""
+    s_full = CKM_KV_RECENT if name in ("k", "v") else CKM_KV_CENTROIDS
+    if name == "clogw":
+        return s_full % sp.model == 0
+    return sh.seq_sharded(s_full, sp.model, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +445,7 @@ def layer_step(
 
 
 def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT,
-            dtype=torch.float32) -> Params:
+            dtype=torch.float32, place=None) -> Params:
     """Random parameters of the reference's distributions (dense matrices
     normal / sqrt(fan_in), the embedding normal x 0.02, RMSNorm scales 1,
     the mixers' constants), drawn in float32 on ``device`` itself: the
@@ -288,7 +455,9 @@ def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT,
     stored in ``dtype`` as soon as it is drawn: ``dtype=torch.bfloat16``
     gives ``launch.serve.serving_params`` of the float32 model, bitwise,
     without holding it.  ``device="meta"`` gives the shapes and dtypes
-    alone."""
+    alone.  ``place(path, leaf)``, when given, replaces each leaf as soon as
+    its part of the model is drawn (``launch.train.init_sharded_state``
+    keeps a rank's block), so the whole model is never resident."""
     _check_cfg(cfg)
     dev = _device(device)
     cross = cfg.encoder_layers > 0
@@ -297,21 +466,29 @@ def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT,
         return None if dev.type == "meta" else dev_mod.generator(
             dev_mod.derive_seed(seed, *path), dev)
 
+    def put(prefix: str, tree):
+        if place is None:
+            return tree
+        return sh.map_with_path(lambda path, t: place(f"{prefix}/{path}", t), tree)
+
     params: Params = {
-        "embed": L.init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev, dtype),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dev, dtype),
+        "embed": put("embed", L.init_embedding(gen(0), cfg.vocab_size, cfg.d_model, dev, dtype)),
+        "final_norm": put("final_norm", L.init_rmsnorm(cfg.d_model, dev, dtype)),
         **_new_tree(cfg),
     }
     for li, where, g, key in _walk(cfg):
+        prefix = f"groups/{g}/{key}" if where == "groups" else f"rest/{key}"
         _put(params, where, g, key,
-             init_layer(gen(1, li), cfg, *_kind(cfg, li), cross, dev, dtype))
+             put(prefix, init_layer(gen(1, li), cfg, *_kind(cfg, li), cross, dev, dtype)))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.init_lm_head(gen(2), cfg.d_model, cfg.vocab_size, dev, dtype)
+        params["lm_head"] = put("lm_head", L.init_lm_head(gen(2), cfg.d_model, cfg.vocab_size,
+                                                          dev, dtype))
     if cross:
         params["encoder"] = {
-            "groups": [init_layer(gen(3, li), cfg, "attn", "dense", False, dev, dtype)
+            "groups": [put(f"encoder/groups/{li}",
+                           init_layer(gen(3, li), cfg, "attn", "dense", False, dev, dtype))
                        for li in range(cfg.encoder_layers)],
-            "final_norm": L.init_rmsnorm(cfg.d_model, dev, dtype),
+            "final_norm": put("encoder/final_norm", L.init_rmsnorm(cfg.d_model, dev, dtype)),
         }
     return params
 
@@ -339,26 +516,41 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype):
     return x, positions
 
 
-def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor, sp=None) -> torch.Tensor:
     """Whisper's encoder on precomputed (stub) frame features (B, F, d):
     non-causal attention layers, then the encoder's final norm."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     for p in params["encoder"]["groups"]:
-        x, _, _ = layer_forward(p, cfg, "attn", "dense", x, positions, causal=False)
-    return L.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+        x, _, _ = layer_forward(p, cfg, "attn", "dense", x, positions, mesh=sp, causal=False)
+    norm = params["encoder"]["final_norm"]
+    if sp is not None:
+        norm = _use(norm, {"scale": sh.P()}, sp, tp=False)
+    return L.rmsnorm(norm, x, cfg.norm_eps)
 
 
-def _encoder_out(params, cfg: ModelConfig, batch: dict, dtype):
+def _encoder_out(params, cfg: ModelConfig, batch: dict, dtype, sp=None):
     """The encoder's output for an encoder-decoder model, else None."""
     if not cfg.encoder_layers:
         return None
-    return _encoder_forward(params, cfg, batch["frames"].to(dtype))
+    return _encoder_forward(params, cfg, batch["frames"].to(dtype), sp)
 
 
-def _enc_kv(p: Params, cfg: ModelConfig, enc_out):
-    """A decoder layer's cross keys and values of ``enc_out`` (or None)."""
-    return None if enc_out is None else L.encoder_kv(p["cross"], attn_dims(cfg, "attn"), enc_out)
+def _enc_kv(p: Params, cfg: ModelConfig, enc_out, sp=None):
+    """A decoder layer's cross keys and values of ``enc_out`` (or None); on
+    a mesh this rank's KV heads where the attention is tensor-parallel."""
+    if enc_out is None:
+        return None
+    dims = attn_dims(cfg, "attn")
+    if sp is None:
+        return L.encoder_kv(p["cross"], dims, enc_out)
+    specs = _layer_specs(cfg, _kind(cfg, 0)[0], _kind(cfg, 0)[1], True, sp)["cross"]
+    kv = {k: p["cross"][k] for k in ("wk", "wv")}
+    tp = _attn_tp(cfg, sp)
+    w = _use(kv, specs, sp, tp)
+    if not tp:
+        return L.encoder_kv(w, dims, enc_out)
+    return L.encoder_kv(w, _local_dims(dims, sp), C.copy_to(enc_out, sp, ("model",)))
 
 
 # Rematerialisation: "full" recomputes each group's forward in its backward
@@ -399,21 +591,26 @@ def forward(
 ):
     """Full-sequence forward.  Returns (final hidden (B, S_total, d), aux):
     S_total counts the vision prefix; aux is the sum of the MoE layers'
-    load-balance losses.
+    load-balance losses (on a mesh, this rank's data shard's).
 
     ``remat`` (``"none"``, ``"full"``, ``"dots"``) applies to each group of
     ``period`` layers, as the reference's scan body; the ``rest`` layers and
     the encoder run without it, as the reference's do."""
-    _check_mesh(mesh)
+    sp = C.as_spmd(mesh)
+    return _forward(_with_top(params, cfg, sp), cfg, batch, sp, dtype, remat)
+
+
+def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: str):
+    """``forward`` of parameters whose top leaves ``_with_top`` has made."""
     x, positions = _embed_inputs(params, cfg, batch, dtype)
-    enc_out = _encoder_out(params, cfg, batch, dtype)
+    enc_out = _encoder_out(params, cfg, batch, dtype, sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group(gparams, x, aux):
         for i in range(cfg.period):
             p = gparams[str(i)]
             x, a, _ = layer_forward(p, cfg, cfg.mixer_pattern[i], cfg.mlp_pattern[i], x,
-                                    positions, enc_kv=_enc_kv(p, cfg, enc_out))
+                                    positions, mesh=sp, enc_kv=_enc_kv(p, cfg, enc_out, sp))
             aux = aux + a
         return x, aux
 
@@ -422,8 +619,8 @@ def forward(
     for li, where, g, key in _walk(cfg):
         if where == "rest":
             p = params["rest"][key]
-            x, a, _ = layer_forward(p, cfg, *_kind(cfg, li), x, positions,
-                                    enc_kv=_enc_kv(p, cfg, enc_out))
+            x, a, _ = layer_forward(p, cfg, *_kind(cfg, li), x, positions, mesh=sp,
+                                    enc_kv=_enc_kv(p, cfg, enc_out, sp))
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux
@@ -450,14 +647,22 @@ def chunked_ce_loss(
     x: torch.Tensor,
     labels: torch.Tensor,
     chunk: int = 256,
+    mesh=None,
 ) -> torch.Tensor:
     """Cross-entropy over sequence chunks: the (B, S, V) logits never
     materialise, in the forward or the backward (each chunk's float32
     logits are recomputed in its backward; only its input is saved).
 
     labels: (B, S) integers, negative = ignored (padding).  The mean over
-    the counted tokens (``max(count, 1)``).
+    the counted tokens (``max(count, 1)``).  On a mesh (x and labels this
+    rank's rows, ``params`` its pieces) the sum and the count are
+    all-reduced over the batch axes.
     """
+    sp = C.as_spmd(mesh)
+    return _ce(_with_top(params, cfg, sp), cfg, x, labels, chunk, sp)
+
+
+def _ce(params: Params, cfg: ModelConfig, x, labels, chunk: int, sp):
     b, s, _ = x.shape
     pad = (-s) % chunk
     if pad:
@@ -471,6 +676,10 @@ def chunked_ce_loss(
                                labels[:, start:start + chunk])
         total = total + t
         count = count + c
+    if sp is not None:
+        # Each rank's gradient is its rows' part of the global mean's.
+        total = C.reduce_from(total, sp, sp.grad_axes)
+        count = C.all_reduce(count, sp, sp.grad_axes)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -483,14 +692,28 @@ def lm_loss(
     remat: str = "none",
     aux_weight: float = 0.01,
 ) -> torch.Tensor:
-    x, aux = forward(params, cfg, batch, mesh, dtype, remat)
+    return loss_and_hidden(params, cfg, batch, mesh, dtype, remat, aux_weight)[0]
+
+
+def loss_and_hidden(params: Params, cfg: ModelConfig, batch: dict, mesh=None,
+                    dtype=torch.bfloat16, remat: str = "none", aux_weight: float = 0.01):
+    """(``lm_loss``, the final hidden states (B, S_total, d)).
+
+    On a mesh the aux loss is this rank's data shard's (the reference's
+    expert-parallel body returns each shard's own), and its gradient is
+    the mean over the data shards'."""
+    sp = C.as_spmd(mesh)
+    top = _with_top(params, cfg, sp)
+    x, aux = _forward(top, cfg, batch, sp, dtype, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # The patch positions carry no label.
         f = batch["patches"].shape[1]
         labels = F.pad(labels, (f, 0), value=-100)
-    loss = chunked_ce_loss(params, cfg, x, labels)
-    return loss + aux_weight * aux
+    loss = _ce(top, cfg, x, labels, 256, sp)
+    if sp is not None:
+        aux = C.scale_grad(aux, 1.0 / sp.dp)
+    return loss + aux_weight * aux, x
 
 
 # ---------------------------------------------------------------------------
@@ -581,23 +804,34 @@ def prefill(
 ):
     """Process the prompt (behind its vision prefix; the encoder on its
     frames); returns (last-position logits, cache, index), ``index`` the
-    length of the whole sequence."""
-    _check_mesh(mesh)
+    length of the whole sequence.  On a mesh the logits are this rank's
+    rows and the cache its pieces as ``cache_specs`` places them (keys and
+    values of every head, the sequence split over "model")."""
+    sp = C.as_spmd(mesh)
+    params = _with_top(params, cfg, sp)
     x, positions = _embed_inputs(params, cfg, batch, dtype)
     s_total = x.shape[1]
     if cache_len < s_total:
         raise ValueError(f"cache_len {cache_len} < prompt length {s_total}")
-    enc_out = _encoder_out(params, cfg, batch, dtype)
+    enc_out = _encoder_out(params, cfg, batch, dtype, sp)
     cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
         mixer, mlp_kind = _kind(cfg, li)
         p = _at(params, where, g, key)
-        enc_kv = _enc_kv(p, cfg, enc_out)
-        x, _, raw = layer_forward(p, cfg, mixer, mlp_kind, x, positions, enc_kv=enc_kv,
-                                  collect_cache=True)
+        enc_kv = _enc_kv(p, cfg, enc_out, sp)
+        x, _, raw = layer_forward(p, cfg, mixer, mlp_kind, x, positions, mesh=sp,
+                                  enc_kv=enc_kv, collect_cache=True)
+        if mixer in ("attn", "local") and _attn_tp(cfg, sp):
+            raw = {k: C.all_gather(t, sp, "model", 2) for k, t in raw.items()}
         c = _to_cache(cfg, mixer, raw, cache_len)
         if enc_kv is not None:
+            if _attn_tp(cfg, sp):
+                enc_kv = tuple(C.all_gather(t, sp, "model", 2) for t in enc_kv)
             c["cross_k"], c["cross_v"] = enc_kv
+        if sp is not None:
+            c = {k: (C.own_slice(t, sp, "model", 1).clone()
+                     if k != "state" and sh.seq_sharded(t.shape[1], sp.model, cfg) else t)
+                 for k, t in c.items()}
         _put(cache, where, g, key, c)
     x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return logits_fn(params, cfg, x), cache, s_total
@@ -611,18 +845,22 @@ def decode_step(
     index: int,
     mesh=None,
     dtype=torch.bfloat16,
+    cache_len: int | None = None,
 ):
     """One decode step.  token: (B, 1) integers; index: the token's position.
 
     Returns (logits (B, 1, V), new cache).  The cache's tensors are written
-    in place, so the returned cache holds the same tensors.
+    in place, so the returned cache holds the same tensors.  On a mesh the
+    token is this rank's rows, the cache its pieces, and ``cache_len`` the
+    length the cache was made for.
     """
-    _check_mesh(mesh)
+    sp = C.as_spmd(mesh)
+    params = _with_top(params, cfg, sp)
     x = _embed_tokens(params, cfg, token, dtype)
     new_cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
         x, c = layer_step(_at(params, where, g, key), cfg, *_kind(cfg, li), x,
-                          _at(cache, where, g, key), index)
+                          _at(cache, where, g, key), index, mesh=sp, cache_len=cache_len)
         _put(new_cache, where, g, key, c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), new_cache

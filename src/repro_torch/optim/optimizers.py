@@ -18,16 +18,29 @@ device scalars, so nothing waits for the card.  The arithmetic is the
 reference's, in its order: the bias correction from ``count = 1``, the
 int8 state in blocks of 128 rounded half to even (``torch.round``, as
 ``jnp.round``), ``v`` quantised in the square-root domain.
+
+On a mesh (``update(..., mesh=, specs=)``, ``specs`` the parameters'
+``parallel.sharding`` specs) each rank updates its own blocks, its state
+placed by ``opt_state_specs``: AdamW and SGD are elementwise; Adafactor's
+row and column means of a split dimension are all-reduced over its axis;
+AdamW8's int8 state is the whole leaf's (replicated), so its update runs
+on the gathered leaf and keeps this rank's block.  The global norm for
+clipping all-reduces the squared sums of the distinct blocks only: a leaf
+replicated over an axis counts once, not once a rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from repro_torch.parallel.collectives import all_reduce, as_spmd
+from repro_torch.parallel.sharding import gather_leaf, shard_leaf, sharded_axes
 
 Params = Any
 _F32 = torch.float32
@@ -69,11 +82,44 @@ def warmup_cosine(base_lr: float, warmup: int, total: int, floor: float = 0.1):
     return lr
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _global_sq(leaves, spec_leaves, sp) -> torch.Tensor:
+    """The sum of squares of the whole gradient from this rank's blocks:
+    the leaves split over the same axes are summed, all-reduced over those
+    axes, and the classes added in a fixed order."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import sharded_axes
+
+    classes: dict[tuple, list] = {}
+    for g, spec in zip(leaves, spec_leaves, strict=True):
+        classes.setdefault(sharded_axes(spec), []).append(g)
+    total = None
+    for axes in sorted(classes):
+        part = sum(torch.sum(torch.square(g.to(_F32))) for g in classes[axes])
+        part = C.all_reduce(part, sp, axes)
+        total = part if total is None else total + part
+    return total
+
+
+def _spec_leaves(params, specs):
+    """The specs of ``params``' leaves, in ``tree_flatten``'s order."""
+    from repro_torch.parallel.sharding import walk
+
+    by_path = dict(walk(specs))
+    return [by_path[path] for path, _ in walk(params)]
+
+
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """Scale every gradient in place by ``min(1, max_norm / ||grads||)``;
-    returns ``(grads, ||grads||)``, the norm of the unscaled gradients."""
+    returns ``(grads, ||grads||)``, the norm of the unscaled gradients (on
+    a mesh, of the whole gradient)."""
+    from repro_torch.parallel.collectives import as_spmd
+
     leaves = tree_flatten(grads)[0]
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(_F32))) for g in leaves))
+    sp = as_spmd(mesh)
+    if sp is None or sp.world == 1:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(_F32))) for g in leaves))
+    else:
+        gnorm = torch.sqrt(_global_sq(leaves, _spec_leaves(grads, specs), sp))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     with torch.no_grad():
         for g in leaves:
@@ -166,8 +212,9 @@ def _adamw(cfg: OptConfig, quantized: bool) -> Optimizer:
                     "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, _step):
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    def update(grads, state, params, _step, mesh=None, specs=None):
+        sp = as_spmd(mesh)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sp, specs)
         count = state["count"].add_(1)
         lr = lr_fn(count)
         b1c = 1.0 - torch.pow(cfg.b1, count.to(_F32))
@@ -194,8 +241,15 @@ def _adamw(cfg: OptConfig, quantized: bool) -> Optimizer:
 
         pflat, spec = tree_flatten(params)
         trees = (grads, state["m"], state["v"])
-        for p, g, m, v in zip(pflat, *map(spec.flatten_up_to, trees), strict=True):
-            if quantized:
+        pspecs = _spec_leaves(params, specs) if sp is not None else [()] * len(pflat)
+        for p, g, m, v, ps in zip(pflat, *map(spec.flatten_up_to, trees), pspecs, strict=True):
+            if quantized and sharded_axes(ps):
+                # The int8 state is the whole leaf's: update the gathered
+                # leaf and keep this rank's block.
+                full = gather_leaf(p, ps, sp).clone()
+                upd_q8(full, gather_leaf(g, ps, sp), m, v)
+                p.copy_(shard_leaf(full, ps, sp))
+            elif quantized:
                 upd_q8(p, g, m, v)
             else:
                 _chunked_leaf_update(upd, p, g, m, v)
@@ -220,21 +274,34 @@ def _adafactor(cfg: OptConfig) -> Optimizer:
         return {"stats": tree_map(st, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, _step):
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    def update(grads, state, params, _step, mesh=None, specs=None):
+        sp = as_spmd(mesh)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sp, specs)
         count = state["count"].add_(1)
         lr = lr_fn(count)
         decay = 1.0 - torch.pow(count.to(_F32), -0.8)
 
-        def upd(p, g, s):
+        def upd(p, g, s, entries=(None, None)):
+            def mean(t, dim, entry, keepdim=False):
+                # A mean over a dimension split over ``entry``'s axes: the
+                # local means, averaged over the ranks.
+                out = torch.mean(t, dim=dim, keepdim=keepdim)
+                if entry is None:
+                    return out
+                axes = (entry,) if isinstance(entry, str) else tuple(entry)
+                n = 1
+                for a in axes:
+                    n *= sp.size(a)
+                return all_reduce(out, sp, axes) / n
+
             g = g.to(_F32)
             g2 = g * g + 1e-30
             if p.ndim >= 2:
-                vr = decay * s["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-                vc = decay * s["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+                vr = decay * s["vr"] + (1 - decay) * mean(g2, -1, entries[-1])
+                vc = decay * s["vc"] + (1 - decay) * mean(g2, -2, entries[-2])
                 denom = torch.sqrt(
                     vr[..., :, None] * vc[..., None, :]
-                    / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)[..., None]
+                    / torch.clamp(mean(vr, -1, entries[-2], keepdim=True), min=1e-30)[..., None]
                 )
                 step_ = lr * g / torch.clamp(denom, min=1e-30)
                 s["vr"].copy_(vr)
@@ -247,8 +314,10 @@ def _adafactor(cfg: OptConfig) -> Optimizer:
 
         pflat, spec = tree_flatten(params)
         trees = (grads, state["stats"])
-        for p, g, s in zip(pflat, *map(spec.flatten_up_to, trees), strict=True):
-            _chunked_leaf_update(upd, p, g, s)
+        pspecs = _spec_leaves(params, specs) if sp is not None else [()] * len(pflat)
+        for p, g, s, ps in zip(pflat, *map(spec.flatten_up_to, trees), pspecs, strict=True):
+            entries = (tuple(ps) + (None,) * p.ndim)[:p.ndim] if p.ndim >= 2 else (None, None)
+            _chunked_leaf_update(functools.partial(upd, entries=entries), p, g, s)
         return params, state, {"lr": lr, "gnorm": gnorm}
 
     return Optimizer(init, update)
@@ -261,8 +330,8 @@ def _sgd(cfg: OptConfig) -> Optimizer:
         return {"count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, _step):
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    def update(grads, state, params, _step, mesh=None, specs=None):
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, as_spmd(mesh), specs)
         count = state["count"].add_(1)
         lr = lr_fn(count)
         pflat, spec = tree_flatten(params)

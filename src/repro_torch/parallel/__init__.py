@@ -1,9 +1,11 @@
 """Mesh helpers (counterpart of ``repro.parallel``).
 
-``sharding.axis_extent`` (the sharded SketchEngine's) and
-``sharding.tenant_mesh`` (the fleet's ``sharding="mesh"``) are ported; the
-parameter and cache sharding rules and ``parallel/pipeline.py`` belong to
-the LM on a mesh (ROADMAP Queue 1 item 22 (b), part 2).
+``sharding``: ``axis_extent`` (the sharded SketchEngine's), ``tenant_mesh``
+(the fleet's ``sharding="mesh"``) and the LM's placement rules
+(``param_specs``, ``opt_state_specs``, ``batch_specs``, ``cache_specs``,
+``shard_tree`` / ``gather_tree``).  ``collectives``: the explicit,
+differentiable collectives the LM on a mesh is written with.
+``pipeline``: GPipe over a "pipe" axis.
 """
 
 from repro_torch.parallel.sharding import TenantMesh, axis_extent, tenant_mesh

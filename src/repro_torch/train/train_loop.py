@@ -1,5 +1,6 @@
-"""The training loop on one card (counterpart of ``repro.train.train_loop``):
-checkpoint and restart, preemption, monitoring, balancing.
+"""The training loop (counterpart of ``repro.train.train_loop``):
+checkpoint and restart, preemption, monitoring, balancing, on one card or
+over a mesh.
 
 Fault-tolerance model:
 - the state (parameters, optimizer state, step, monitor sketch) checkpoints
@@ -18,6 +19,16 @@ from a decode.  Metrics come back to the host only every ``log_every``
 steps and at the last.  As in the reference, the balancer's sketch and the
 mixture weights are not part of the checkpoint: a run resumed with
 balancing on starts its mixture from uniform again.
+
+Over a mesh (``mesh=`` a ``DeviceMesh``, one process a rank, every rank
+calling ``run``): each rank makes the whole batch (the data is a pure
+function of (seed, step)) and keeps its rows (``batch_specs``); the state
+is the rank's blocks (``init_sharded_state``).  The monitor's sketch of a
+step is folded by each rank from its rows (kernel 4 on the card) and summed
+over the data ranks; the balancer folds the whole batch's document
+embeddings on every rank (kernel 1), so every rank holds the same mixture.
+Checkpoints hold the gathered state, written by global rank 0, so a run
+restores onto any mesh (or none): the reference's claim.
 """
 
 from __future__ import annotations
@@ -36,14 +47,19 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.clustering import CompressiveBalancer
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.core import distributed_sketch as ds
 from repro_torch.launch.train import (
-    _one_card,
     default_opt_config,
+    init_sharded_state,
     init_state,
     loss_and_grads,
+    state_shapes,
+    state_specs,
 )
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as sh
 from repro_torch.train.monitor import ActivationMonitor
 
 
@@ -61,13 +77,24 @@ class LoopConfig:
     remat: str = "none"
 
 
-def _pooled_loss(params, cfg: ModelConfig, batch: dict, dtype, remat: str):
+def _pooled_loss(params, cfg: ModelConfig, batch: dict, dtype, remat: str, mesh=None):
     """(loss, pooled): ``lm_loss``'s value and the mean-pooled final hidden
     states (B, d) in float32."""
-    x, aux = tfm.forward(params, cfg, batch, dtype=dtype, remat=remat)
-    loss = tfm.chunked_ce_loss(params, cfg, x, batch["labels"])
-    pooled = torch.mean(x.to(torch.float32), dim=1)
-    return loss + 0.01 * aux, pooled
+    loss, x = tfm.loss_and_hidden(params, cfg, batch, mesh, dtype, remat)
+    return loss, torch.mean(x.to(torch.float32), dim=1)
+
+
+def _sum_sketch(part: ds.SketchState, sp) -> ds.SketchState:
+    """A sketch state summed over the batch axes (bounds by min and max)."""
+    axes = sp.batch_axes
+    return ds.SketchState(sums=C.all_reduce(part.sums, sp, axes),
+                          count=C.all_reduce(part.count, sp, axes),
+                          lo=C.all_reduce(part.lo, sp, axes, "min"),
+                          hi=C.all_reduce(part.hi, sp, axes, "max"))
+
+
+def _barrier(sp, dev) -> None:
+    C.all_reduce(torch.zeros((1,), device=dev), sp, sp.names)
 
 
 class _StepTimer:
@@ -119,10 +146,12 @@ def run(
     update and decode, and any checkpoint between log points) and, on the
     card, ``peak_bytes`` (``torch.cuda.max_memory_allocated`` after it: the
     peak since the caller last reset it).  ``"balance_s"`` lists the seconds
-    of each balancer decode (CKM and the re-weighting).
+    of each balancer decode (CKM and the re-weighting).  Over a mesh the
+    state is the rank's blocks and ``loss`` its value.
     """
-    _one_card(mesh)
-    dev = dev_mod.resolve(device)
+    sp = C.as_spmd(mesh)
+    dev = dev_mod.resolve(device) if sp is None else sp.device
+    lead = sp is None or torch.distributed.get_rank() == 0
     opt_cfg = opt_cfg or default_opt_config(cfg)
     opt = make_optimizer(opt_cfg)
     data_cfg = data_cfg or DataConfig(seed=seed)
@@ -134,21 +163,52 @@ def run(
     balancer = CompressiveBalancer(k=data_cfg.n_domains, dim=data_cfg.embed_dim,
                                    seed=seed + 3, device=dev) if loop.balance_every else None
 
+    specs = bspecs = None
+    rows_split = False
+    if sp is not None:
+        specs = state_specs(state_shapes(cfg, opt), cfg, sp)
+        bspecs = sh.batch_specs(cfg, shape, sp)
+        rows_split = sh.batch_entry(sp, shape.global_batch) is not None
+
     def step_fn(state, batch):
         (loss, pooled), grads = loss_and_grads(
-            lambda p: _pooled_loss(p, cfg, batch, loop.dtype, loop.remat), state["params"])
-        _, _, metrics = opt.update(grads, state["opt"], state["params"], state["step"])
+            lambda p: _pooled_loss(p, cfg, batch, loop.dtype, loop.remat, sp), state["params"])
+        _, _, metrics = opt.update(grads, state["opt"], state["params"], state["step"],
+                                   mesh=sp, specs=specs and specs["params"])
         state["step"].add_(1)
-        if monitor is not None:
+        if monitor is not None and sp is None:
             state["monitor"] = monitor.update(state["monitor"], pooled)
+        elif monitor is not None:
+            part = monitor.update(monitor.init_state(), pooled)
+            state["monitor"] = ds.merge(state["monitor"], _sum_sketch(part, sp) if rows_split
+                                        else part)
         return state, {"loss": loss.detach(), **metrics}
 
+    def whole(state):
+        """The state as the checkpoint holds it (gathered on a mesh)."""
+        if sp is None:
+            return state
+        out = sh.gather_tree({k: v for k, v in state.items() if k != "monitor"},
+                             {k: specs[k] for k in state if k != "monitor"}, sp)
+        if "monitor" in state:
+            out["monitor"] = state["monitor"]
+        return out
+
     # -- init or resume ---------------------------------------------------------
-    state = init_state(cfg, opt, seed=seed, device=dev)
+    state = init_state(cfg, opt, seed=seed, device=dev) if sp is None \
+        else init_sharded_state(cfg, opt, sp, seed=seed)
     if monitor is not None:
         state["monitor"] = monitor.init_state()
     if ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        if sp is None:
+            state = ckpt.restore(state)
+        else:
+            full = ckpt.restore(whole(state))
+            mon = full.pop("monitor", None)
+            state = sh.shard_tree(full, {k: specs[k] for k in full}, sp)
+            if mon is not None:
+                state["monitor"] = mon
+            del full
         for p in tree_flatten(state["params"])[0]:
             p.requires_grad_(True)
         print(f"[train] resumed from step {ckpt.latest_step()}")
@@ -169,6 +229,8 @@ def run(
             embeds = host.pop("_doc_embeds")
             host.pop("_domains")
             batch = {k: torch.from_numpy(a.copy()).to(dev) for k, a in host.items()}
+            if sp is not None:
+                batch = sh.shard_tree(batch, bspecs, sp)
             logged = (step + 1) % loop.log_every == 0 or step == loop.steps - 1
             timer = _StepTimer(dev) if logged else None
             state, metrics = step_fn(state, batch)
@@ -194,15 +256,24 @@ def run(
             want_ckpt = (step + 1) % loop.ckpt_every == 0
             preempt = preempted["flag"] or bool(
                 loop.preempt_file and Path(loop.preempt_file).exists())
+            if sp is not None and sp.world > 1:
+                # Every rank stops at the same step.
+                flag = torch.tensor([float(preempt)], device=dev)
+                preempt = bool(C.all_reduce(flag, sp, sp.names, "max")[0] > 0)
             if want_ckpt or preempt or step == loop.steps - 1:
                 saved_at = time.perf_counter()
-                (ckpt.save if preempt else ckpt.save_async)(int(state["step"]), state)
+                snap = whole(state)
+                if lead:
+                    (ckpt.save if preempt else ckpt.save_async)(int(state["step"]), snap)
+                del snap
                 if preempt:
                     print("[train] preemption requested: checkpoint flushed, exiting")
                     break
     finally:
         ckpt.wait()
         signal.signal(signal.SIGTERM, old_handler)
+        if sp is not None and sp.world > 1:
+            _barrier(sp, dev)
 
     out = {"history": history, "state": state, "balance_weights": weights,
            "balance_s": balance_s,

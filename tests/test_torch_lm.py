@@ -434,7 +434,16 @@ def test_entry_points_default_to_the_card():
             call()
 
 
-def test_a_mesh_raises():
+def test_a_mesh_raises(tmp_path):
+    """Anything but a DeviceMesh raises TypeError; a (1, 1) mesh of one gloo
+    rank gives the one-card forward, prefill and decode bits (four ranks:
+    tests/test_torch_mesh.py)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from _torch_mesh_ranks import world_of_one
+
     _, tcfg, _, tparams = _setup("llama3.2-1b")
     tok = _t(_tokens(tcfg, 4))
     shape = tbase.SHAPES["decode_32k"]
@@ -444,8 +453,18 @@ def test_a_mesh_raises():
         lambda: tserve.make_serve_step(tcfg, shape, mesh=object()),
         lambda: tserve.make_prefill(tcfg, shape, mesh=object()),
     ):
-        with pytest.raises(NotImplementedError, match="item 22 \\(b\\)"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
+    outs = []
+    with world_of_one(tmp_path) as mesh:
+        for m in (None, mesh):
+            x, _ = ttfm.forward(tparams, tcfg, {"tokens": tok}, mesh=m, dtype=torch.float32)
+            logits, cache, index = ttfm.prefill(tparams, tcfg, {"tokens": tok}, 8, mesh=m,
+                                                dtype=torch.float32)
+            step, _ = ttfm.decode_step(tparams, tcfg, tok[:, :1], cache, index, mesh=m,
+                                       dtype=torch.float32, cache_len=8)
+            outs.append((x, logits, step))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_lm_params_from_numpy_checks_the_head():

@@ -195,7 +195,23 @@ def test_init_moe_shapes_and_scale():
         assert torch.equal(bf[k], p[k].to(torch.bfloat16))
 
 
-def test_moe_apply_refuses_a_mesh():
+def test_moe_apply_refuses_a_mesh(tmp_path):
+    """Anything but a DeviceMesh is refused; a (1, 1) mesh of one gloo rank
+    gives the one-card bits, on both paths (the four-rank parity with the
+    reference's mesh run is tests/test_torch_mesh_moe.py)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from _torch_mesh_ranks import world_of_one
+
     _, td = _dims()
-    with pytest.raises(NotImplementedError, match="item 22 \\(b\\), part 2"):
-        tmoe.moe_apply(_torch(_params()), td, torch.zeros((1, 2, D)), mesh=object())
+    p = _torch(_params())
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 5, D)).astype(np.float32))
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tmoe.moe_apply(p, td, x, mesh=object())
+    with world_of_one(tmp_path) as mesh:
+        for dense in (False, True):
+            want = tmoe.moe_apply(p, td, x, dense_path=dense)
+            got = tmoe.moe_apply(p, td, x, mesh=mesh, dense_path=dense)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -469,7 +469,27 @@ def test_loop_reports_its_wall_time_and_the_balancer_decodes(tmp_path, monkeypat
     assert out["balance_weights"] is not None
 
 
-def test_a_mesh_and_the_compressed_step_raise():
+def test_a_mesh_and_the_compressed_step_raise(tmp_path):
+    """Anything but a DeviceMesh raises TypeError, and the compressed step on
+    a mesh without a "pod" axis ValueError.  On one gloo rank: the (1, 1)
+    mesh's sharded state and train step are the one-card bits, and the
+    compressed step over a (1, 1, 1) ("pod", "data", "model") mesh works:
+    the gradient it hands the optimizer is the plain step's within one
+    int16 step (a leaf's max-abs over 2^13), and its update the plain
+    step's within one AdamW step's size at this lr (four ranks:
+    tests/test_torch_mesh.py)."""
+    import sys
+    from pathlib import Path
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.optim.grad_compression import (error_state_specs, init_error_state,
+                                                    local_error_state)
+    from repro_torch.parallel import sharding as tsh
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from _torch_mesh_ranks import world_of_one
+
     _, tcfg, _ = _setup()
     opt = topt.make_optimizer(topt.OptConfig())
     for call in (
@@ -479,8 +499,41 @@ def test_a_mesh_and_the_compressed_step_raise():
                           tloop.LoopConfig(steps=1)),
         lambda: ttfm.lm_loss({}, tcfg, {}, mesh=object()),
     ):
-        with pytest.raises(NotImplementedError, match="item 22 \\(b\\), part 2"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
+    shape = tbase.ShapeConfig("t", 32, B, "train")
+    host = tpipe.SyntheticLM(tcfg, shape, tpipe.DataConfig(seed=0), device="cpu").batch_numpy(0)
+    batch = {k: torch.from_numpy(v.copy()) for k, v in host.items() if not k.startswith("_")}
+    leaves = lambda state: tree_flatten(state)[0]  # noqa: E731
+    with world_of_one(tmp_path) as mesh:
+        with pytest.raises(ValueError, match="pod"):
+            ttrain.build_compressed_train_step(tcfg, opt, mesh)
+        one = ttrain.init_state(tcfg, opt, seed=2, device="cpu")
+        sharded = ttrain.init_sharded_state(tcfg, opt, mesh, seed=2)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(one), leaves(sharded), strict=True))
+        _, m1 = ttrain.build_train_step(tcfg, opt, dtype=F32)(one, batch)
+        _, m2 = ttrain.build_train_step(tcfg, opt, mesh=mesh, dtype=F32)(sharded, batch)
+        assert float(m1["loss"]) == float(m2["loss"]) and float(m1["gnorm"]) == float(m2["gnorm"])
+        assert all(torch.equal(a, b) for a, b in zip(leaves(one), leaves(sharded), strict=True))
+        pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        comp = ttrain.init_sharded_state(tcfg, opt, pod, seed=2)
+        plain = ttrain.init_sharded_state(tcfg, opt, pod, seed=2)
+        comp["err"] = local_error_state(comp["params"])
+        pspecs = tsh.param_specs(ttrain.state_shapes(tcfg, opt)["params"], tcfg, pod)
+        placed = tsh.shard_tree(init_error_state(ttrain.state_shapes(tcfg, opt)["params"], 1),
+                                error_state_specs(pspecs), pod)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(placed), leaves(comp["err"]),
+                                                     strict=True))
+        _, mc = ttrain.build_compressed_train_step(tcfg, opt, pod, dtype=F32,
+                                                   return_grads=True)(comp, batch)
+        _, mp_ = ttrain.build_train_step(tcfg, opt, mesh=pod, dtype=F32,
+                                         return_grads=True)(plain, batch)
+        assert float(mc["loss"]) == float(mp_["loss"]) and int(comp["step"]) == 1
+        for gc, gp in zip(leaves(mc["grads"]), leaves(mp_["grads"]), strict=True):
+            assert float((gc - gp).abs().max()) <= float(gp.abs().max()) / 2 ** 13
+        for a, b, e in zip(leaves(comp["params"]), leaves(plain["params"]), leaves(comp["err"]),
+                           strict=True):
+            assert torch.allclose(a, b, atol=1e-5) and bool(torch.isfinite(e).all())
 
 
 def test_cli_and_example_train_on_the_cpu(tmp_path, capsys):
