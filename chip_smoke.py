@@ -47,9 +47,12 @@ SketchWindow over 100 ticks; telemetry on and off; the decoders' convergence
 traces, graphed and eager (CLOMPR's at a fifth of the default steps); async ingest of the batches already on the card
 (``stream_device_phase``: no pinned slot, the sync bits); the fleet
 (``fleet_phases``: 1024 tenants at m = 1000, float, 1-bit and decayed,
-routed requests, a fleet window, four decoded tenants, a structured fleet),
-with the tenant-axis entries of kernels 1 and 3 held bitwise to T single
-launches and to their plain versions; the fleet's service (``serve_phases``:
+routed requests, a fleet window, four decoded tenants, a structured fleet of
+the same 1024 tenants, one launch an update), with the tenant-axis entries
+of kernels 1, 3, 4 and 5 held bitwise to T single launches and to their
+plain versions (kernels 4-5 also at d = 32 past the first-stage skip, d =
+64 and d = 2048, few tenants, ragged B, 1 and 4 bits); the fleet's service
+(``serve_phases``:
 FleetService over the same 1024 tenants, 4096 host requests flushed sync and
 async with the bits compared, decodes on demand against a hand-simulated
 LRU, 64 tenants evicted and restored bitwise, drift maintenance on a decayed
@@ -233,6 +236,15 @@ DIST_RTOL = 4e-6
 # kernel's and PyTorch's phases or trig round apart; the flips are held to
 # max |dq| / N <= 1e-4.
 CODE_TOL = 1e-4
+# The structured chain's float32 phase: a rounding of PHASE_ULP of a value of
+# size radius ||x||_2 at each of its 3 log2(d) butterfly levels and two
+# scalings.  A column whose phases that leaves uncertain beyond
+# UNDETERMINED_RAD at some row (a tiny restricted norm, so a huge radius:
+# a few of the fleet's 1024 operators have one) has no float32 value to
+# hold two evaluations to; there the fleet checks count each row's
+# uncertainty, elsewhere they keep the bars above.
+PHASE_ULP = 2.0 ** -24
+UNDETERMINED_RAD = 1e-3
 # sketch_shift score and gradient after the division by m: the engine's
 # 1e-4 bar (the kernel's FMA chain and cuBLAS round the phase apart).
 SHIFT_TOL = 1e-4
@@ -271,11 +283,15 @@ HOST_DATA_SEED, DRIFT_SEED = 3, 4
 # updates of FLEET_B rows a tenant, FLEET_REQUESTS interleaved requests of
 # FLEET_REQUEST_ROWS rows, a W = FLEET_WINDOW window over FLEET_WINDOW_TICKS
 # ticks, FLEET_DECAY_TICKS decayed ticks; FLEET_DECODES tenants decoded; a
-# structured fleet of FLEET_STRUCTURED_T tenants (kernels 4-5 per tenant).
+# structured fleet of the same FLEET_T tenants (the tenant-axis entries of
+# kernels 4-5), and those entries also at the other instances of kernels
+# 4-5, (n, m, T, B) with a ragged B: d = 32 past the first-stage skip
+# (NX = 32), d = 64, and d = 2048 (two-warp rows).
 FLEET_T, FLEET_B, FLEET_UPDATES = 1024, 1000, 4
 FLEET_REQUESTS, FLEET_REQUEST_ROWS = 4096, 256
 FLEET_WINDOW, FLEET_WINDOW_TICKS, FLEET_DECAY_TICKS = 4, 8, 10
-FLEET_DECODES, FLEET_STRUCTURED_T, FLEET_SEED = 4, 64, 5
+FLEET_DECODES, FLEET_SEED = 4, 5
+FLEET_STRUCTURED_SHAPES = ((20, 1000, 8, 1001), (40, 1000, 8, 777), (2048, 20_000, 3, 333))
 # The fleet's service (serve/fleet_service.py) over that fleet: the
 # FLEET_REQUESTS requests arrive as host numpy batches and are flushed sync
 # and async; SERVE_HOT hot tenants get SERVE_HOT_REQUESTS more requests each
@@ -489,20 +505,22 @@ def qsketch_bound(n_pts: int, n: int, m: int) -> tuple[float, str]:
     return bound(n_bytes, n_pts * m * (2 * n + 7))
 
 
-def structured_bound(n_pts: int, n: int, d: int, nblocks: int, quantized: bool):
+def structured_bound(n_pts: int, n: int, d: int, nblocks: int, quantized: bool,
+                     tenants: int = 1):
     # Per (point, frequency) of the (nblocks, d) output: three stages of a
     # sign multiply, the butterfly's log2(d) adds and a scale multiply, then
     # the radius multiply (1), sin and cos (2), and either two weighted FMA
     # accumulates (4) or the dither add, two codes and two integer adds (5).
     # Bytes: x (unpadded), the signs, radii (and dither) read once, beta read
-    # once on the float path, the two outputs written once.
+    # once on the float path, the two outputs written once.  A fleet entry
+    # does that for each of ``tenants`` operators, n_pts rows each.
     width = nblocks * d
     per = 3 * (2 + d.bit_length() - 1) + (8 if quantized else 7)
     if quantized:
         n_bytes = 4 * (n_pts * n + 5 * width) + 8 * width
     else:
         n_bytes = 4 * (n_pts * n + 4 * width + n_pts) + 8 * width
-    return bound(n_bytes, n_pts * width * per)
+    return bound(tenants * n_bytes, tenants * n_pts * width * per)
 
 
 def assign_bound(n_pts: int, n: int, k: int) -> tuple[float, str]:
@@ -565,17 +583,20 @@ _MODES = {"0": "float", "1": "codes", "2": "1bit"}
 
 
 def ptxas_instances(log: str) -> list[str]:
-    """``d/mode/NX: registers, spill stores`` of each instance of the
-    structured kernel in a ptxas report."""
+    """``d/mode/NX[/fleet]: registers, spill stores`` of each instance of
+    the structured kernel in a ptxas report."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         name = chunk.split("'")[1]
         if "structuredILi" not in name:
             continue
-        d, mode, nx = name.split("structuredILi")[1].split("EE")[0].split("ELi")
+        args = name.split("structuredILi")[1].split("EE")[0]
+        args, fleet = args.split("ELb")
+        d, mode, nx = args.split("ELi")
         regs = chunk.split("Used ")[1].split(" registers")[0]
         spill = chunk.split(" bytes spill stores")[0].split(",")[-1].strip()
-        out.append(f"d={d}/{_MODES[mode]}/NX={nx}: {regs} registers, {spill} B spilled")
+        out.append(f"d={d}/{_MODES[mode]}/NX={nx}{'/fleet' if fleet == '1' else ''}: "
+                   f"{regs} registers, {spill} B spilled")
     return out
 
 
@@ -1378,15 +1399,22 @@ def _same_state(a, b) -> bool:
     return type(a) is type(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-def boundary_flips(name, x, w, dither, got, ref, rows=1 << 14):
-    """1-bit code sums ``got`` against ``ref`` ((T, m) int32 pairs) of rows
+def boundary_flips(name, x, w, dither, got, ref, rows=1 << 14, bits=1, chain=None):
+    """Code sums ``got`` against ``ref`` ((T, m) int32 pairs) of rows
     ``x (T, B, n)`` under frequencies ``w (T, n, m)`` and ``dither (T, m)``.
 
     Each entry may differ only by flips of points on a code boundary: by at
     most twice the count of its rows whose float64 phase has |cos| (or |sin|)
-    within float32's rounding of that phase, 1e-6 (1 + sum |x_i w_i| + |d|).
+    within float32's rounding of that phase, 1e-6 (1 + sum |x_i w_i| + |d|)
+    at 1 bit; at b bits, whose S cos (S sin) lies within S times that of a
+    rounding boundary k + 1/2 (S = quantize.quantization_scale(bits)).
+    ``chain`` ((T, m), from ``chain_uncertainty``) widens that window of a
+    structured operator's undetermined columns by ||x_i||_2 chain[t, j].
     Fails otherwise.  Returns (differing entries, boundary points among
     them, max |dq|)."""
+    from repro_torch.core import quantize
+
+    scale = quantize.quantization_scale(bits)
     diff = torch.stack([torch.abs(a.long() - b.long()) for a, b in zip(got, ref)])
     idx = torch.nonzero(diff)  # (k, 3): (cos/sin, tenant, frequency)
     n_near = 0
@@ -1399,7 +1427,14 @@ def boundary_flips(name, x, w, dither, got, ref, rows=1 << 14):
             theta = xs @ ws + ds
             mag = xs.abs() @ ws.abs() + ds.abs()
             trig = torch.where(which == 0, torch.cos(theta), torch.sin(theta))
-            near += (trig.abs() < 1e-6 * (1 + mag)).sum(0)
+            tol = 1e-6 * (1 + mag)
+            if chain is not None:
+                tol = tol + xs.norm(dim=1)[:, None] * chain[t, j].double()[None, :]
+            if bits == 1:
+                near += (trig.abs() < tol).sum(0)
+            else:
+                frac = scale * trig - torch.floor(scale * trig)
+                near += ((frac - 0.5).abs() < scale * tol).sum(0)
         bad = diff[which, t, j] > 2 * near
         check(not bool(bad.any()),
               f"{name}: {int(bad.sum())} entries differ from the plain version by more than "
@@ -1411,11 +1446,18 @@ def boundary_flips(name, x, w, dither, got, ref, rows=1 << 14):
 def structured_w64(op) -> torch.Tensor:
     """The structured operator's (n, nblocks d) frequencies in float64, from
     its signs and radii (every block column, the ragged tail included)."""
+    return stacked_w64(op.diags[None], op.radii[None], op.n)[0]
+
+
+def stacked_w64(diags, radii, n: int) -> torch.Tensor:
+    """(T, n, nblocks d) float64 frequencies of T structured operators'
+    signs ``diags (T, nblocks, 3, d)`` and ``radii (T, nblocks, d)``."""
     from repro_torch.kernels import freq_transform as ft
 
-    eye = torch.eye(op.n, op.d, dtype=torch.float64, device=op.diags.device)
-    cols = ft.hd_chain(eye[:, None, :], op.diags.double()) * op.radii.double()
-    return cols.reshape(op.n, op.nblocks * op.d)
+    tenants, nblocks, _, d = diags.shape
+    eye = torch.eye(n, d, dtype=torch.float64, device=diags.device)
+    cols = ft.hd_chain(eye[None, :, None, :], diags[:, None].double())
+    return (cols * radii[:, None].double()).reshape(tenants, n, nblocks * d)
 
 
 def structured_flips(name, x, op, dither, got, ref):
@@ -1425,16 +1467,157 @@ def structured_flips(name, x, op, dither, got, ref):
                           [q.reshape(1, -1) for q in got], [q.reshape(1, -1) for q in ref])
 
 
+def chain_uncertainty(x, radii) -> torch.Tensor:
+    """(T, nblocks d) float64: for each column of T structured operators
+    whose float32 phases some row of ``x (T, B, n)`` leaves uncertain beyond
+    UNDETERMINED_RAD, that uncertainty per unit of ||x_i||_2 (PHASE_ULP at
+    each of the chain's 3 log2(d) butterfly levels and two scalings, on
+    values of size radius ||x_i||_2); 0 at every other column."""
+    tenants, _, d = radii.shape
+    coef = PHASE_ULP * (3 * (d.bit_length() - 1) + 2) * radii.reshape(tenants, -1).double()
+    worst = coef * x.double().norm(dim=2).amax(dim=1)[:, None]
+    return torch.where(worst > UNDETERMINED_RAD, coef, torch.zeros_like(coef))
+
+
+def check_structured_fleet(ft, x, diags, radii, beta, label, time_it=True):
+    """Kernel 4's tenant-axis entry on ``x (T, B, n)``: bitwise two of its
+    launches and the loop of T single launches, within SKETCH_TOL of its
+    plain version on sums / B (at undetermined columns, ``chain_uncertainty``,
+    plus each row's |beta| min(2, 2 uncertainty)); timed beside that loop
+    when ``time_it``."""
+    tenants, rows, n = x.shape
+    _, nblocks, _, d = diags.shape
+    args = (x, diags, radii, beta)
+
+    def loop():
+        return [ft.structured_sketch_sums(x[t], diags[t], radii[t], beta[t])
+                for t in range(tenants)]
+
+    c, s_ = ft.structured_sketch_sums_fleet(*args)
+    c2, s2 = ft.structured_sketch_sums_fleet(*args)
+    singles = loop()
+    torch.cuda.synchronize()
+    bitwise = (torch.equal(c, torch.stack([a for a, _ in singles]))
+               and torch.equal(s_, torch.stack([b for _, b in singles])))
+    pc, ps = ft.structured_sketch_sums_fleet_plain(*args)
+    # Each (t, j) entry sums the B rows of one tenant: the error is per B.
+    diff = torch.maximum((c - pc).abs(), (s_ - ps).abs()).reshape(tenants, -1).double()
+    coef = chain_uncertainty(x, radii)
+    und = coef > 0
+    slack = torch.zeros_like(diff)
+    ti, ji = torch.nonzero(und).unbind(1)
+    if ti.numel():
+        delta = coef[ti, ji][:, None] * x.double().norm(dim=2)[ti]  # (columns, B)
+        slack[ti, ji] = (beta[ti].double().abs() * torch.clamp(2 * delta, max=2.0)).sum(1)
+    err = float(diff[~und].max()) / rows
+    und_err = float(diff[und].max()) / rows if ti.numel() else 0.0
+    check(bitwise, f"structured_sketch_fleet {label}: differs from T single launches")
+    check(torch.equal(c, c2) and torch.equal(s_, s2),
+          f"structured_sketch_fleet {label}: two launches differ bitwise")
+    check(bool((diff <= SKETCH_TOL * rows + slack).all()),
+          f"structured_sketch_fleet {label}: max|d(sums/B)| {err:.3e}, at undetermined "
+          f"columns {und_err:.3e}")
+    line = (f"[structured_sketch_fleet {label}] T={tenants} B={rows} n={n} d={d} "
+            f"nblocks={nblocks}: bitwise T single launches and repeatable {bitwise}; "
+            f"max|d(sums/B)|={err:.3e} (tol {SKETCH_TOL}); {ti.numel()} undetermined columns "
+            f"(float32 phases uncertain beyond {UNDETERMINED_RAD} rad) within their rows' "
+            f"uncertainty, max|d(sums/B)| there {und_err:.3e}")
+    if not time_it:
+        print(line, flush=True)
+        return {"max_abs_err": err}
+    loop_ms = median_ms(loop)
+    return _timed(
+        {"max_abs_err": err, "loop_ms": loop_ms, "library_ms": None},
+        lambda: ft.structured_sketch_sums_fleet(*args),
+        lambda: ft.structured_sketch_sums_fleet_plain(*args),
+        lambda: structured_bound(rows, n, d, nblocks, False, tenants),
+        f"{line}; T single launches {loop_ms:.3f} ms",
+    )
+
+
+def check_structured_codes_fleet(ft, x, diags, radii, dither, bits, label, time_it=True):
+    """Kernel 5's tenant-axis entry on ``x (T, B, n)`` at ``bits``: equal to
+    two of its launches and to the loop of T single launches, every entry
+    within ``boundary_flips``' rule of its plain version; timed beside that
+    loop when ``time_it``."""
+    tenants, rows, n = x.shape
+    _, nblocks, _, d = diags.shape
+    args = (x, diags, radii, dither, bits)
+
+    def loop():
+        return [ft.quantized_structured_sketch_sums(x[t], diags[t], radii[t], dither[t], bits)
+                for t in range(tenants)]
+
+    q = ft.quantized_structured_sketch_sums_fleet(*args)
+    q2 = ft.quantized_structured_sketch_sums_fleet(*args)
+    singles = loop()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(q[i], torch.stack([p[i] for p in singles])) for i in (0, 1))
+    qp = ft.quantized_structured_sketch_sums_fleet_plain(*args)
+    flat = [[a.reshape(tenants, -1) for a in pair] for pair in (q, qp)]
+    # One flip moves an entry's sum by 2 (1 bit) or 1 (b bits) of B rows,
+    # so the bar is the boundary rule itself, per entry (boundary_flips).
+    chain = chain_uncertainty(x, radii)
+    n_diff, n_near, _ = boundary_flips(
+        f"quantized_structured_sketch_fleet {label}", x, stacked_w64(diags, radii, n),
+        dither.reshape(tenants, -1), *flat, bits=bits, chain=chain)
+    und = chain > 0
+    dq = torch.maximum(*((a.long() - b.long()).abs() for a, b in zip(*flat)))
+    qerr = float(dq[~und].max()) / rows
+    und_err = float(dq[und].max()) / rows if bool(und.any()) else 0.0
+    check(equal, f"quantized_structured_sketch_fleet {label}: differs from T single launches")
+    check(all(torch.equal(a, b) for a, b in zip(q, q2)),
+          f"quantized_structured_sketch_fleet {label}: two launches differ")
+    line = (f"[quantized_structured_sketch_fleet {label}] T={tenants} B={rows} n={n} d={d} "
+            f"{bits}bit: equal to T single launches and repeatable {equal}; differing entries "
+            f"against the plain version {n_diff} of {2 * q[0].numel()}, each within twice "
+            f"its boundary points ({n_near} in all), max|dq|/B={qerr:.3e}; "
+            f"{int(und.sum())} undetermined columns, max|dq|/B there {und_err:.3e}")
+    if not time_it:
+        print(line, flush=True)
+        return {"max_abs_err": qerr}
+    loop_ms = median_ms(loop)
+    return _timed(
+        {"max_abs_err": qerr, "loop_ms": loop_ms, "library_ms": None},
+        lambda: ft.quantized_structured_sketch_sums_fleet(*args),
+        lambda: ft.quantized_structured_sketch_sums_fleet_plain(*args),
+        lambda: structured_bound(rows, n, d, nblocks, True, tenants),
+        f"{line}; T single launches {loop_ms:.3f} ms",
+    )
+
+
+def structured_fleet_instances(ft, dev, gen, shapes=FLEET_STRUCTURED_SHAPES):
+    """Kernels 4-5's fleet entries at the other instances, few tenants and
+    a ragged B (``shapes`` of (n, m, T, B)): float, 1 bit and 4 bits each."""
+    from repro_torch.core import FleetEngine, fleet_specs
+    from repro_torch.core import quantize
+
+    for n, m, tenants, rows in shapes:
+        op = FleetEngine(fleet_specs(FLEET_SEED, tenants, "structured", m, n, 1.0),
+                         device=dev)._stacked_op
+        diags, radii = op.leaves[:2]
+        _, nblocks, _, d = diags.shape
+        x = torch.randn((tenants, rows, n), generator=gen, device=dev)
+        beta = torch.rand((tenants, rows), generator=gen, device=dev)
+        dither = torch.stack([quantize.draw_dither(gen, nblocks * d) for _ in range(tenants)])
+        label = f"instance d={d} n={n}"
+        check_structured_fleet(ft, x, diags, radii, beta, label, time_it=False)
+        for bits in (1, 4):
+            check_structured_codes_fleet(ft, x, diags, radii, dither.reshape(tenants, nblocks, d),
+                                         bits, label, time_it=False)
+
+
 def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, rows=FLEET_B,
-                 requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS,
-                 structured_tenants=FLEET_STRUCTURED_T, m=M, k=K, dim=DIM):
+                 requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS, m=M, k=K, dim=DIM,
+                 shapes=FLEET_STRUCTURED_SHAPES):
     """[fleet]: the multi-tenant fleet on one card, through the entry points a
     user calls (fleet_specs, FleetEngine update / merge / finalize /
     finalize_tenant / ingest / decay_to, a fleet SketchWindow, decode of a
-    tenant's sketch).  Every tenant's rows are held bitwise to its isolated
-    engine's; the tenant-axis entries of kernels 1 and 3 bitwise to T single
-    launches and to their plain versions within the bars; their numbers go
-    to ``results``."""
+    tenant's sketch), dense and structured.  Every tenant's rows are held
+    bitwise to its isolated engine's; the tenant-axis entries of kernels 1,
+    3, 4 and 5 bitwise to T single launches and to their plain versions
+    within the bars (kernels 4-5 also at ``shapes``); their numbers go to
+    ``results``."""
     from repro_torch import device as device_mod
     from repro_torch.core import FleetEngine, SketchWindow, ckm, fleet_quantizers, fleet_specs
     from repro_torch.core import lloyd
@@ -1459,17 +1642,18 @@ def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, row
     make_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     specs = fleet_specs(FLEET_SEED, tenants, "dense", m, dim, sigma2)
-    engines = {
-        "float": FleetEngine(specs, device=dev),
-        "1bit": FleetEngine(specs, quantizers=fleet_quantizers(FLEET_SEED, tenants, m, "1bit",
-                                                               device=dev), device=dev),
-    }
+    sspecs = fleet_specs(FLEET_SEED, tenants, "structured", m, dim, sigma2)
+    quants = fleet_quantizers(FLEET_SEED, tenants, m, "1bit", device=dev)
+    engines = {"float": FleetEngine(specs, device=dev),
+               "1bit": FleetEngine(specs, quantizers=quants, device=dev)}
+    sengines = {"float": FleetEngine(sspecs, device=dev),
+                "1bit": FleetEngine(sspecs, quantizers=quants, device=dev)}
     sync(dev)
     build_s = time.perf_counter() - t0
     print(f"[fleet data] T={tenants} tenants, each its own {k}-cluster mixture in R^{dim} "
           f"({per_tenant} rows a tenant, {data.numel() * 4 / 1e6:.0f} MB) made on the card in "
-          f"{make_s:.2f}s; specs and two fleets (float, 1-bit) built in {build_s:.2f}s; "
-          f"m={m}, sigma2={float(sigma2):.4f}", flush=True)
+          f"{make_s:.2f}s; specs and four fleets (dense and structured, float and 1-bit) "
+          f"built in {build_s:.2f}s; m={m}, sigma2={float(sigma2):.4f}", flush=True)
 
     def timed(fn, reps=5):
         """Median host seconds of ``fn`` over ``reps`` synchronised calls, and
@@ -1536,6 +1720,19 @@ def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, row
         f"{qloop_ms:.3f} ms",
     )
     del c, s_, singles, pc, ps, q, qs, qp
+
+    # 1b. The tenant-axis entries of kernels 4 and 5 the same way, on the
+    # structured fleet's stacked operators (d = 32, 32 blocks), then at the
+    # other instances with few tenants.
+    diags, radii = sengines["float"]._stacked_op.leaves[:2]
+    _, nblocks, _, d = diags.shape
+    sdith = torch.nn.functional.pad(sengines["1bit"].dither, (0, nblocks * d - m))
+    results["structured_sketch_fleet"] = check_structured_fleet(
+        ft, blk, diags, radii, ones, "fleet shape")
+    results["quantized_structured_sketch_fleet"] = check_structured_codes_fleet(
+        ft, blk, diags, radii, sdith.reshape(tenants, nblocks, d).contiguous(), 1, "fleet shape")
+    structured_fleet_instances(ft, dev, torch.Generator(device=dev).manual_seed(FLEET_SEED),
+                               shapes)
 
     # 2. Updates, merge, finalize, finalize_tenant: float and 1-bit, each
     # tenant's rows bitwise its isolated engine's (the reference's run_fleet
@@ -1686,38 +1883,50 @@ def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, row
     check(all(r <= MAX_RELATIVE_SSE for r in rels), f"fleet decode: relative SSE {rels}")
     del lifetime
 
-    # 7. A structured fleet: kernels 4-5 once per tenant.
-    s_t = structured_tenants
-    sspecs = fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2)
-    sblocks = [b[:s_t].contiguous() for b in blocks[:2]]
-    for label, quant, kernel in (("float", None, "structured_sketch"),
-                                 ("1bit", "1bit", "quantized_structured_sketch")):
-        se = FleetEngine(sspecs, quantizers=None if quant is None else fleet_quantizers(
-            FLEET_SEED, s_t, m, quant, device=dev), device=dev)
+    # 7. The structured fleet: one launch of kernel 4's (5's) tenant-axis
+    # entry an update, each tenant bitwise its isolated engine.
+    for label, kernel, counter in (
+            ("float", "structured_sketch_fleet", "STRUCTURED_FLEET_LAUNCHES"),
+            ("1bit", "quantized_structured_sketch_fleet", "QUANTIZED_STRUCTURED_FLEET_LAUNCHES")):
+        se = sengines[label]
         sst = run(f"fleet structured {label}", lambda se=se: se.update(
-            se.update(se.init_state(), sblocks[0]), sblocks[1]), kernel)
-        srefs = [se.tenant_engine(t) for t in range(s_t)]
-        swant = [r.update(r.update(r.init_state(), sblocks[0][t]), sblocks[1][t])
+            se.update(se.init_state(), blocks[0]), blocks[1]), kernel)
+        n_fleet = getattr(ft, counter)
+        n_single = ft.STRUCTURED_LAUNCHES + ft.QUANTIZED_STRUCTURED_LAUNCHES
+        srefs = [se.tenant_engine(t) for t in range(tenants)]
+        swant = [r.update(r.update(r.init_state(), blocks[0][t]), blocks[1][t])
                  for t, r in enumerate(srefs)]
         ok_s = (_same_state(sst, _stack_states(swant))
                 and torch.equal(se.finalize(sst)[0],
                                 torch.stack([r.finalize(st)[0] for r, st in zip(srefs, swant)])))
-        upd_s, _ = timed(lambda se=se, sst=sst: se.update(sst, sblocks[0]))
-        print(f"[fleet structured {label}] T={s_t}, d={se.operator(0).d}: one update "
-              f"({s_t} launches of {kernel}) {upd_s * 1e3:.3f} ms; each tenant bitwise its "
-              f"isolated engine: {ok_s}", flush=True)
+        upd_s, _ = timed(lambda se=se, sst=sst: se.update(sst, blocks[0]))
+        loop_s, _ = timed(lambda: [r.update(st, blocks[0][t])
+                                   for t, (r, st) in enumerate(zip(srefs, swant))], reps=3)
+        print(f"[fleet structured {label}] T={tenants}, d={se.operator(0).d}: two updates, "
+              f"{n_fleet} launches of {kernel} and {n_single} single launches; one update "
+              f"{upd_s * 1e3:.3f} ms against the Python loop of tenant_engine(t).update "
+              f"{loop_s * 1e3:.3f} ms ({loop_s / upd_s:.1f}x); each tenant bitwise its isolated "
+              f"engine: {ok_s}", flush=True)
         check(ok_s, f"fleet structured {label}: differs from the isolated engines")
+        check(n_fleet == 2 and n_single == 0,
+              f"fleet structured {label}: {n_fleet} fleet and {n_single} single launches for "
+              "two updates, not 2 and 0")
+        del srefs, swant
     peak = _peak_since(dev, base_mem)
     base = _reset_peak(dev)
     fs.fourier_sketch_sums_fleet(blocks[0], w_all, ones)
     scratch = _peak_since(dev, base)
+    base = _reset_peak(dev)
+    ft.structured_sketch_sums_fleet(blocks[0], diags, radii, ones)
+    sscratch = _peak_since(dev, base)
     print(f"[fleet] {time.perf_counter() - t_phase:.1f}s; peak device memory {peak / 1e6:.1f} MB "
           f"over the phase's start (data {data.numel() * 4 / 1e6:.1f} MB, {FLEET_UPDATES} "
           f"update blocks {FLEET_UPDATES * blocks[0].numel() * 4 / 1e6:.1f} MB, one stacked "
           f"float state {eng.state_bytes() / 1e6:.1f} MB, each fleet's stacked operators "
           f"{w_all.numel() * 4 / 1e6:.1f} MB; one fleet launch of kernel 1 at an update "
           f"block's shape takes {scratch / 1e6:.1f} MB of scratch and outputs, its double "
-          f"partials 2 x T x groups x m x 8 B)", flush=True)
+          f"partials 2 x T x groups x m x 8 B; one of kernel 4 {sscratch / 1e6:.1f} MB, "
+          f"2 x T x groups x nblocks d x 8 B)", flush=True)
 
 
 def _lru_expect(script, versions, capacity):
@@ -1739,8 +1948,7 @@ def _lru_expect(script, versions, capacity):
 
 def serve_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, requests=FLEET_REQUESTS,
                  request_rows=FLEET_REQUEST_ROWS, hot=SERVE_HOT, hot_requests=SERVE_HOT_REQUESTS,
-                 evict=SERVE_EVICT, structured_tenants=FLEET_STRUCTURED_T, m=M, k=K, dim=DIM,
-                 root=None):
+                 evict=SERVE_EVICT, m=M, k=K, dim=DIM, root=None):
     """[serve]: FleetService over the fleet, through the calls a user makes
     (submit, flush sync and async, decode, evict, restore, drift and its
     maintenance), float, 1-bit, windowed and structured.  Requests arrive as
@@ -2069,25 +2277,31 @@ def serve_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, requests=FLE
     check(all(a and b for a, b in w_ok.values()), f"serve window: {w_ok}")
     del wsvc, read
 
-    # 7. A structured service (kernel 4 per tenant).
-    s_t = structured_tenants
-    seng = FleetEngine(fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2), device=dev)
-    s_reqs = [(t, c) for t, c in reqs if t < s_t]
-    ssvc, s_wall = run("serve structured flush", lambda: flushed(service(seng), s_reqs, False),
-                       "structured_sketch")
-    s_want = seng.ingest(seng.init_state(), [t for t, _ in s_reqs],
-                         torch.stack([torch.as_tensor(chunk(t, c)).to(dev) for t, c in s_reqs]))
+    # 7. A structured service over the same tenants: one launch of kernel
+    # 4's tenant-axis entry a flush.
+    from repro_torch.kernels import freq_transform as ft
+
+    seng = FleetEngine(fleet_specs(FLEET_SEED, tenants, "structured", m, dim, sigma2), device=dev)
+    ssvc, s_wall = run("serve structured flush", lambda: flushed(service(seng), reqs, False),
+                       "structured_sketch_fleet")
+    s_launches = (ft.STRUCTURED_FLEET_LAUNCHES, ft.STRUCTURED_LAUNCHES)
+    s_want = seng.ingest(seng.init_state(), [t for t, _ in reqs],
+                         torch.stack([torch.as_tensor(chunk(t, c)).to(dev) for t, c in reqs]))
     s_row = seng.tenant_state(ssvc.state, 1)
     ssvc.evict(1)
     ssvc.restore(1)
     s_ok = {"engine": _same_state(ssvc.state, s_want),
             "evict/restore": _same_state(seng.tenant_state(ssvc.state, 1), s_row)}
     s_dec = run("serve structured decode", lambda: ssvc.decode(1), "sketch_shift")
-    print(f"[serve structured] T={s_t}, {len(s_reqs)} requests: flush {s_wall * 1e3:.2f} ms; the "
-          f"engine's bits {s_ok}; a decode finite: {bool(torch.isfinite(s_dec.centroids).all())}",
-          flush=True)
+    print(f"[serve structured] T={tenants}, {len(reqs)} requests of {request_rows} rows: flush "
+          f"{s_wall * 1e3:.2f} ms ({ssvc.stats.flushes} dispatch; launches of the fleet entry and "
+          f"of the single kernel 4: {s_launches}); the engine's bits {s_ok}; a decode finite: "
+          f"{bool(torch.isfinite(s_dec.centroids).all())}", flush=True)
     check(all(s_ok.values()) and bool(torch.isfinite(s_dec.centroids).all()),
           f"serve structured: {s_ok}")
+    check(s_launches == (ssvc.stats.flushes, 0) and ssvc.stats.flushes == 1,
+          f"serve structured: {s_launches} launches (fleet entry, single) for "
+          f"{ssvc.stats.flushes} dispatches, not (1, 0)")
     peak = _peak_since(dev, base_mem)
     shutil.rmtree(root, ignore_errors=True)
     print(f"[serve] {time.perf_counter() - t_phase:.1f}s; peak device memory {peak / 1e6:.1f} MB "
@@ -2386,8 +2600,7 @@ def _copy_events(prof) -> dict:
 
 def fleet_mesh_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, rows=FLEET_B,
                       requests=FLEET_REQUESTS, request_rows=FLEET_REQUEST_ROWS,
-                      structured_tenants=FLEET_STRUCTURED_T, shards=MESH_SHARDS, m=M, k=K,
-                      dim=DIM, default_mesh=True):
+                      shards=MESH_SHARDS, m=M, k=K, dim=DIM, default_mesh=True):
     """[fleet-mesh]: FleetEngine(sharding="mesh") at [fleet]'s width: float,
     1-bit and decayed fleets at p = ``shards`` (blocks on ``[dev] * p``,
     explicitly) and at p = 1 (``tenant_mesh(1)``, the default path); update,
@@ -2396,7 +2609,8 @@ def fleet_mesh_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, rows=FL
     kernel 1 (3) launched exactly p times an update and once a block an
     ingest, with no peer copy and no ``torch.distributed`` call (its
     collectives raise, and a profiler window counts copies and NCCL kernels);
-    a structured mesh fleet; the update timed against the unsharded one's.
+    a structured mesh fleet at the same width, kernel 4's fleet entry once a
+    block an update; the update timed against the unsharded one's.
     Returns what [serve-mesh] reuses.  ``default_mesh=False`` (a CPU
     rehearsal) gives p = 1 an explicit one-device mesh."""
     import numpy as np
@@ -2505,26 +2719,26 @@ def fleet_mesh_phases(dev, run, cfg, sigma2, sync=None, tenants=FLEET_T, rows=FL
             times.setdefault((label, key, "ingest"), []).append(median_ms(timed_in[key]))
         del timed, timed_in, p_a, p_m, p_fin, p_in
 
-    # A structured mesh fleet: kernel 4 once per tenant, in its block.
-    s_t = structured_tenants
-    sspecs = fleet_specs(FLEET_SEED, s_t, "structured", m, dim, sigma2)
+    # A structured mesh fleet: kernel 4's tenant-axis entry once a block.
+    sspecs = fleet_specs(FLEET_SEED, tenants, "structured", m, dim, sigma2)
     splain = FleetEngine(sspecs, device=dev)
     seng = FleetEngine(sspecs, sharding="mesh", mesh=tenant_mesh(shards, devices=[dev] * shards))
-    sblocks = [b[:s_t].contiguous() for b in blocks]
     sst = run(f"fleet-mesh structured p={shards}", lambda: seng.update(
-        seng.update(seng.init_state(), sblocks[0]), sblocks[1]), "structured_sketch")
-    launches = ft.STRUCTURED_LAUNCHES
-    want = splain.update(splain.update(splain.init_state(), sblocks[0]), sblocks[1])
+        seng.update(seng.init_state(), blocks[0]), blocks[1]), "structured_sketch_fleet")
+    launches = (ft.STRUCTURED_FLEET_LAUNCHES, ft.STRUCTURED_LAUNCHES)
+    want = splain.update(splain.update(splain.init_state(), blocks[0]), blocks[1])
     s_ok = (_same_state(fleet_mod.gather_rows(sst, dev), want)
             and torch.equal(fleet_mod.gather_rows(seng.finalize(sst)[0], dev),
                             splain.finalize(want)[0]))
-    s_ms = [median_ms(lambda: (splain.update(want, sblocks[0]) if turn in (0, 3)
-                               else seng.update(sst, sblocks[0]))) for turn in range(4)]
-    print(f"[fleet-mesh structured p={shards}] T={s_t}: two updates, {launches} launches of "
-          f"structured_sketch (one a tenant an update); bitwise the unsharded fleet (state and "
-          f"z): {s_ok}; one update (unsharded, mesh, mesh, unsharded) "
+    s_ms = [median_ms(lambda: (splain.update(want, blocks[0]) if turn in (0, 3)
+                               else seng.update(sst, blocks[0]))) for turn in range(4)]
+    print(f"[fleet-mesh structured p={shards}] T={tenants}: two updates, {launches} launches "
+          f"of the fleet entry and of the single kernel 4 (one a block an update, none); "
+          f"bitwise the unsharded fleet (state and z): {s_ok}; one update (unsharded, mesh, "
+          f"mesh, unsharded) "
           f"{[round(t, 3) for t in s_ms]} ms", flush=True)
-    check(s_ok and launches == 2 * s_t, f"fleet-mesh structured: bits {s_ok}, launches {launches}")
+    check(s_ok and launches == (2 * shards, 0),
+          f"fleet-mesh structured: bits {s_ok}, launches {launches}, not {(2 * shards, 0)}")
     print(f"[fleet-mesh] {time.perf_counter() - t_phase:.1f}s; one update (ms, CUDA-event median "
           f"of {TIMED_LAUNCHES}, two turns each, in the order unsharded, p={shards}, p=1, p=1, "
           f"p={shards}, unsharded): " + "; ".join(
@@ -3811,7 +4025,7 @@ def main() -> None:
     for name, log in sorted(_build.PTXAS.items()):
         print(f"[ptxas {name}] {ptxas_summary(log)}", flush=True)
     instances = ptxas_instances(_build.PTXAS.get("structured_sketch", ""))
-    check(len(instances) == 24, f"ptxas reported {len(instances)} structured instances, not 24")
+    check(len(instances) == 48, f"ptxas reported {len(instances)} structured instances, not 48")
     print("[ptxas structured_sketch] " + "; ".join(instances), flush=True)
 
     # 3. The data.
@@ -4063,6 +4277,8 @@ def main() -> None:
         "flash_attention": (fa, "LAUNCHES"),
         "fourier_sketch_fleet": (fs, "FLEET_LAUNCHES"),
         "quantized_fourier_sketch_fleet": (fs, "QUANTIZED_FLEET_LAUNCHES"),
+        "structured_sketch_fleet": (ft, "STRUCTURED_FLEET_LAUNCHES"),
+        "quantized_structured_sketch_fleet": (ft, "QUANTIZED_STRUCTURED_FLEET_LAUNCHES"),
     }
     launches = dict.fromkeys(counters, 0)
     phase_s, phase_counts = {}, {}
@@ -4422,6 +4638,10 @@ def main() -> None:
         "quantized_fourier_sketch_fleet": (
             "src/repro_torch/kernels/csrc/quantized_fourier_sketch.cu",
             "src/repro/core/fleet.py:481"),
+        "structured_sketch_fleet": ("src/repro_torch/kernels/csrc/structured_sketch.cu",
+                                    "src/repro/core/fleet.py:450"),
+        "quantized_structured_sketch_fleet": ("src/repro_torch/kernels/csrc/structured_sketch.cu",
+                                              "src/repro/core/fleet.py:481"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -8,10 +8,10 @@ where one Lloyd-Max run would not.  :class:`FleetEngine` holds per-tenant
 leading tenant axis** (``cos_acc (T, m)``, ``lower (T, n)``, ...) and runs
 every monoid op over the whole stack at once.  The reference ``vmap`` s its
 per-tenant trace; here the batch dimension is written out: the engine's
-merge and finalize helpers are rank-generic, and a dense fleet's batch sums
-come from the tenant-axis entries of kernels 1 and 3, one launch for the
-fleet (``kernels.ops.fleet_fourier_sketch_sums``).  A structured fleet
-launches kernel 4 or 5 once per tenant.
+merge and finalize helpers are rank-generic, and a fleet's batch sums come
+from the tenant-axis entries of kernels 1 and 3 (dense) or 4 and 5
+(structured), one launch for the fleet
+(``kernels.ops.fleet_fourier_sketch_sums``).
 
 Contract: for every tenant t, ``update``/``merge``/``finalize``/``ingest``
 give **bitwise** the rows of an isolated

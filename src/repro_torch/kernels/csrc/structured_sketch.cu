@@ -71,6 +71,21 @@
 //  * The radius multiply and the dither add are explicit _rn operations
 //    (the reference rounds each); the stage scales too, so that no multiply
 //    is fused into the butterfly's adds.
+//  * The fleet entries (structured_sketch_sums_fleet,
+//    quantized_structured_sketch_sums_fleet) sketch T tenants' batches,
+//    each against its own signs, radii and beta or dither, in one launch:
+//    the counterpart of the reference's vmap of the Pallas kernels over the
+//    tenant axis (src/repro/core/fleet.py:_tenant_part, _tenant_qpart).  The
+//    tenant rides in the grid's x axis, blockIdx.x = tenant * groups +
+//    group, with groups = ceil(n_pts / rows_per_group), and each CTA offsets
+//    its pointers by its tenant's strides, which follow from n_pts, n,
+//    nblocks and groups.  Each tenant gets the grid that an isolated call of
+//    B rows gets (the wrapper asks structured_grid for B, never for T B,
+//    with the single kernel's occupancy), the float pass adds its partials
+//    in group order and the codes are exact integer sums, so every tenant's
+//    sums are bitwise those of its own launch.  The offsets sit behind a
+//    template flag (FLEET): a single call runs instances whose signature and
+//    code are those the kernel had before the fleet entries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -216,8 +231,8 @@ __device__ __forceinline__ float comp(const float4& a, int j) {
 }
 
 // D: block width; MODE: kFloat, kCodes or kSigns; NX: the first stage's
-// nonzero width (d = 32 only; kEpt elsewhere).
-template <int D, int MODE, int NX>
+// nonzero width (d = 32 only; kEpt elsewhere); FLEET: the tenant axis.
+template <int D, int MODE, int NX, bool FLEET>
 __global__ void __launch_bounds__(kThreads, 2)
 structured(const float* __restrict__ x, const float* __restrict__ diags,
            const float* __restrict__ radii, const float* __restrict__ dither,
@@ -234,6 +249,26 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
   double* dacc = reinterpret_cast<double*>(ws + L::WS + L::CS);
   float* ex = ws + L::WS + L::CS + L::DA;
 
+  // FLEET: this CTA's row group within its tenant, and every pointer moved
+  // to that tenant's operand (a single call reads blockIdx.x as before).
+  [[maybe_unused]] int64_t fleet_group = 0;
+  if constexpr (FLEET) {
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = blockIdx.x / groups, width = (int64_t)nblocks * D;
+    fleet_group = blockIdx.x - tenant * groups;
+    x += tenant * n_pts * n;
+    diags += tenant * 3 * width;
+    radii += tenant * width;
+    if (rowv) rowv += tenant * n_pts;
+    if (MODE == kFloat) {
+      part_c += tenant * groups * width;
+      part_s += tenant * groups * width;
+    } else {
+      dither += tenant * width;
+      qcos += tenant * width;
+      qsin += tenant * width;
+    }
+  }
   const int tid = threadIdx.x;
   const int unit = tid / TPF, t = tid % TPF;
   const int fbl = unit / RSB, slot = unit % RSB;
@@ -266,7 +301,7 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
   const int row_len = n + (n - 1) / 32;
   const int stride = ((row_len + TPF - 1) / TPF | 1) * TPF;
   const int tile_rows = min(kMaxTileRows, kTileFloats / stride);
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_group;
+  const int64_t r0 = (FLEET ? fleet_group : (int64_t)blockIdx.x) * rows_per_group;
   const int64_t r1 = min(n_pts, r0 + rows_per_group);
 
   // Stage rows [a, a + rows) into buffer b, one float per thread and step
@@ -401,7 +436,8 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
       const int e = i % D, cs_ = i / D % 2, fb = fb0 + i / D / 2;
       if (fb < nblocks) {
         double* part = cs_ ? part_s : part_c;
-        part[(int64_t)blockIdx.x * width + (int64_t)fb * D + e] = dacc[i];
+        const int64_t group = FLEET ? fleet_group : (int64_t)blockIdx.x;
+        part[group * width + (int64_t)fb * D + e] = dacc[i];
       }
     }
     return;
@@ -434,13 +470,20 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
   }
 }
 
-// Second pass of the float sums: partials summed in group order, in double.
+// Second pass of the float sums: partials summed in group order, in double;
+// a tenant's (groups, width) partials and (width,) outputs follow the
+// previous tenant's, blockIdx.x = tenant * col_blocks + column block.
 __global__ void reduce_partials(const double* __restrict__ part_c,
                                 const double* __restrict__ part_s, int groups,
-                                int64_t width, float* __restrict__ out_c,
+                                int64_t width, int col_blocks, float* __restrict__ out_c,
                                 float* __restrict__ out_s) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int tenant = blockIdx.x / col_blocks;
+  const int64_t j = (int64_t)(blockIdx.x - tenant * col_blocks) * blockDim.x + threadIdx.x;
   if (j >= width) return;
+  part_c += (int64_t)tenant * groups * width;
+  part_s += (int64_t)tenant * groups * width;
+  out_c += (int64_t)tenant * width;
+  out_s += (int64_t)tenant * width;
   double c = 0.0, s = 0.0;
   for (int b = 0; b < groups; ++b) {
     c += part_c[(int64_t)b * width + j];
@@ -463,65 +506,115 @@ struct Instance {
 // Lifts an instance's dynamic shared-memory limit to its size, once per
 // device (a cudaFuncSetAttribute per launch would cost more than a small
 // launch).
-template <int D, int MODE, int NX>
+template <int D, int MODE, int NX, bool FLEET>
 cudaError_t allow_smem() {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(structured<D, MODE, NX>,
+  err = cudaFuncSetAttribute(structured<D, MODE, NX, FLEET>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)Layout<D, MODE>::BYTES);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-template <int D, int MODE, int NX>
+template <int D, int MODE, int NX, bool FLEET>
 cudaError_t instance(Instance* out) {
-  out->fn = structured<D, MODE, NX>;
+  out->fn = structured<D, MODE, NX, FLEET>;
   out->smem = Layout<D, MODE>::BYTES;
   out->freq_blocks = Layout<D, MODE>::FB;
-  return allow_smem<D, MODE, NX>();
+  return allow_smem<D, MODE, NX, FLEET>();
 }
 
-template <int MODE>
+template <int MODE, bool FLEET>
 cudaError_t pick_mode(int d, int n, Instance* out) {
   switch (d) {
     case 32:
-      if (n <= 16) return instance<32, MODE, 16>(out);
-      return instance<32, MODE, kEpt>(out);
-    case 64: return instance<64, MODE, kEpt>(out);
-    case 128: return instance<128, MODE, kEpt>(out);
-    case 256: return instance<256, MODE, kEpt>(out);
-    case 512: return instance<512, MODE, kEpt>(out);
-    case 1024: return instance<1024, MODE, kEpt>(out);
-    case 2048: return instance<2048, MODE, kEpt>(out);
+      if (n <= 16) return instance<32, MODE, 16, FLEET>(out);
+      return instance<32, MODE, kEpt, FLEET>(out);
+    case 64: return instance<64, MODE, kEpt, FLEET>(out);
+    case 128: return instance<128, MODE, kEpt, FLEET>(out);
+    case 256: return instance<256, MODE, kEpt, FLEET>(out);
+    case 512: return instance<512, MODE, kEpt, FLEET>(out);
+    case 1024: return instance<1024, MODE, kEpt, FLEET>(out);
+    case 2048: return instance<2048, MODE, kEpt, FLEET>(out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // mode: 0 float sums, 1 b-bit codes, 2 1-bit codes.
+template <bool FLEET>
 cudaError_t pick(int d, int n, int mode, Instance* out) {
   if (n < 1 || n > d) return cudaErrorInvalidValue;
-  if (mode == kFloat) return pick_mode<kFloat>(d, n, out);
-  if (mode == kCodes) return pick_mode<kCodes>(d, n, out);
-  if (mode == kSigns) return pick_mode<kSigns>(d, n, out);
+  if (mode == kFloat) return pick_mode<kFloat, FLEET>(d, n, out);
+  if (mode == kCodes) return pick_mode<kCodes, FLEET>(d, n, out);
+  if (mode == kSigns) return pick_mode<kSigns, FLEET>(d, n, out);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch(const Instance& in, int nblocks, int64_t rows_per_group, int groups,
-                   cudaStream_t stream, const float* x, const float* diags,
-                   const float* radii, const float* dither, const float* rowv,
-                   int64_t n_pts, int n, float cscale, float qscale, double* part_c,
-                   double* part_s, int* qcos, int* qsin) {
-  if (groups < 1 || rows_per_group < 1 || (int64_t)groups * rows_per_group < n_pts)
+cudaError_t pick(bool fleet, int d, int n, int mode, Instance* out) {
+  return fleet ? pick<true>(d, n, mode, out) : pick<false>(d, n, mode, out);
+}
+
+// The first pass over `tenants` tenants of n_pts rows each; fleet selects
+// the FLEET instances, whose groups must be ceil(n_pts / rows_per_group).
+cudaError_t launch(const Instance& in, bool fleet, int tenants, int nblocks,
+                   int64_t rows_per_group, int groups, cudaStream_t stream, const float* x,
+                   const float* diags, const float* radii, const float* dither,
+                   const float* rowv, int64_t n_pts, int n, float cscale, float qscale,
+                   double* part_c, double* part_s, int* qcos, int* qsin) {
+  if (tenants < 1 || groups < 1 || rows_per_group < 1 ||
+      (int64_t)groups * rows_per_group < n_pts)
     return cudaErrorInvalidValue;
-  const dim3 grid(groups, (nblocks + in.freq_blocks - 1) / in.freq_blocks);
+  const int col_blocks = (nblocks + in.freq_blocks - 1) / in.freq_blocks;
+  if ((int64_t)tenants * groups > INT32_MAX || col_blocks > 65535 ||
+      (fleet && (n_pts < 1 || groups != (n_pts + rows_per_group - 1) / rows_per_group)) ||
+      (!fleet && tenants != 1))
+    return cudaErrorInvalidValue;
+  const dim3 grid(tenants * groups, col_blocks);
   in.fn<<<grid, kThreads, in.smem, stream>>>(x, diags, radii, dither, rowv, n_pts, n, nblocks,
                                              cscale, qscale, rows_per_group, part_c, part_s,
                                              qcos, qsin);
   return cudaGetLastError();
+}
+
+constexpr int kReduceThreads = 256;
+
+// Both passes of the float sums (see the entry points below).
+int float_sums(bool fleet, const float* x, const float* diags, const float* radii,
+               const float* beta, int tenants, int64_t n_pts, int n, int d, int nblocks,
+               float cscale, int64_t rows_per_group, int groups, double* part_c,
+               double* part_s, float* out_c, float* out_s, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Instance in;
+  cudaError_t err = pick(fleet, d, n, kFloat, &in);
+  const int64_t width = (int64_t)nblocks * d;
+  const int64_t reduce_blocks = (width + kReduceThreads - 1) / kReduceThreads;
+  if (err == cudaSuccess && (int64_t)tenants * reduce_blocks > INT32_MAX)
+    err = cudaErrorInvalidValue;
+  if (err == cudaSuccess)
+    err = launch(in, fleet, tenants, nblocks, rows_per_group, groups, stream, x, diags, radii,
+                 nullptr, beta, n_pts, n, cscale, 1.0f, part_c, part_s, nullptr, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials<<<(unsigned)(tenants * reduce_blocks), kReduceThreads, 0, stream>>>(
+      part_c, part_s, groups, width, (int)reduce_blocks, out_c, out_s);
+  return (int)cudaGetLastError();
+}
+
+// The integer code sums (see the entry points below).
+int code_sums(bool fleet, const float* x, const float* diags, const float* radii,
+              const float* dither, const float* valid, int tenants, int64_t n_pts, int n,
+              int d, int nblocks, float cscale, int one_bit, float scale,
+              int64_t rows_per_group, int groups, int* qcos, int* qsin, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Instance in;
+  cudaError_t err = pick(fleet, d, n, one_bit ? kSigns : kCodes, &in);
+  if (err == cudaSuccess)
+    err = launch(in, fleet, tenants, nblocks, rows_per_group, groups, stream, x, diags, radii,
+                 dither, valid, n_pts, n, cscale, scale, nullptr, nullptr, qcos, qsin);
+  return (int)err;
 }
 
 }  // namespace
@@ -534,7 +627,7 @@ extern "C" {
 // Returns a cudaError_t code.
 int structured_sketch_resident(int d, int n, int mode, int* blocks_per_sm, int* freq_blocks) {
   Instance in;
-  cudaError_t err = pick(d, n, mode, &in);
+  cudaError_t err = pick(false, d, n, mode, &in);
   if (err != cudaSuccess) return (int)err;
   *freq_blocks = in.freq_blocks;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, kThreads,
@@ -552,17 +645,24 @@ int structured_sketch_sums(const float* x, const float* diags,
                            float cscale, int64_t rows_per_group, int groups,
                            double* part_c, double* part_s, float* out_c,
                            float* out_s, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Instance in;
-  cudaError_t err = pick(d, n, kFloat, &in);
-  if (err == cudaSuccess)
-    err = launch(in, nblocks, rows_per_group, groups, stream, x, diags, radii, nullptr, beta,
-                 n_pts, n, cscale, 1.0f, part_c, part_s, nullptr, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t width = (int64_t)nblocks * d;
-  reduce_partials<<<(unsigned)((width + 255) / 256), 256, 0, stream>>>(
-      part_c, part_s, groups, width, out_c, out_s);
-  return (int)cudaGetLastError();
+  return float_sums(false, x, diags, radii, beta, 1, n_pts, n, d, nblocks, cscale,
+                    rows_per_group, groups, part_c, part_s, out_c, out_s, stream_ptr);
+}
+
+// The fleet: x (tenants, n_pts, n), diags (tenants, nblocks, 3, d), radii
+// (tenants, nblocks, d), beta (tenants, n_pts) float32, contiguous, on the
+// device; each tenant's rows against its own operator.  part_c / part_s:
+// (tenants, groups, nblocks * d) double scratch; out_c / out_s: (tenants,
+// nblocks * d).  rows_per_group and groups are one tenant's, as for an
+// isolated call of n_pts >= 1 rows (groups = ceil(n_pts / rows_per_group));
+// tenants * groups <= 2^31 - 1.  Returns a cudaError_t code.
+int structured_sketch_sums_fleet(const float* x, const float* diags, const float* radii,
+                                 const float* beta, int tenants, int64_t n_pts, int n, int d,
+                                 int nblocks, float cscale, int64_t rows_per_group, int groups,
+                                 double* part_c, double* part_s, float* out_c, float* out_s,
+                                 void* stream_ptr) {
+  return float_sums(true, x, diags, radii, beta, tenants, n_pts, n, d, nblocks, cscale,
+                    rows_per_group, groups, part_c, part_s, out_c, out_s, stream_ptr);
 }
 
 // As structured_sketch_sums, plus dither (nblocks, d) float32 and the code
@@ -575,13 +675,21 @@ int quantized_structured_sketch_sums(const float* x, const float* diags,
                                      int one_bit, float scale,
                                      int64_t rows_per_group, int groups,
                                      int* qcos, int* qsin, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Instance in;
-  cudaError_t err = pick(d, n, one_bit ? kSigns : kCodes, &in);
-  if (err == cudaSuccess)
-    err = launch(in, nblocks, rows_per_group, groups, stream, x, diags, radii, dither, valid,
-                 n_pts, n, cscale, scale, nullptr, nullptr, qcos, qsin);
-  return (int)err;
+  return code_sums(false, x, diags, radii, dither, valid, 1, n_pts, n, d, nblocks, cscale,
+                   one_bit, scale, rows_per_group, groups, qcos, qsin, stream_ptr);
+}
+
+// The fleet of quantized_structured_sketch_sums: x, diags, radii as for
+// structured_sketch_sums_fleet, dither (tenants, nblocks, d) float32, no
+// row mask; qcos / qsin: (tenants, nblocks * d) int32, zeroed by the caller.
+int quantized_structured_sketch_sums_fleet(const float* x, const float* diags,
+                                           const float* radii, const float* dither,
+                                           int tenants, int64_t n_pts, int n, int d,
+                                           int nblocks, float cscale, int one_bit,
+                                           float scale, int64_t rows_per_group, int groups,
+                                           int* qcos, int* qsin, void* stream_ptr) {
+  return code_sums(true, x, diags, radii, dither, nullptr, tenants, n_pts, n, d, nblocks,
+                   cscale, one_bit, scale, rows_per_group, groups, qcos, qsin, stream_ptr);
 }
 
 const char* structured_sketch_error_string(int code) {

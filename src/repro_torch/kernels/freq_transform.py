@@ -24,10 +24,18 @@ Kernels (``csrc/structured_sketch.cu``), for ``x (N, n)`` with ``n <= d``,
 The CUDA kernels run the ``O(d log d)`` butterfly, a thread holding 32
 coordinates of a block, on a grid of one wave of resident CTAs
 (:func:`structured_grid`); the plain versions run :func:`hd_chain` in the
-Kronecker form over chunks of rows.  Each kernel launch adds one to its
-count (``STRUCTURED_LAUNCHES``, ``QUANTIZED_STRUCTURED_LAUNCHES``);
-``kernels.ops`` picks between kernel and plain version by the tensor's
-device.
+Kronecker form over chunks of rows.
+
+The fleet entries :func:`structured_sketch_sums_fleet` and
+:func:`quantized_structured_sketch_sums_fleet` take a tenant axis (``x (T,
+B, n)``, ``diags (T, nblocks, 3, d)``, ...) and sketch every tenant in one
+launch, each tenant's sums bitwise those of its own single launch (the
+reference ``vmap`` s its kernels over the tenants).
+
+Each kernel launch adds one to its count (``STRUCTURED_LAUNCHES``,
+``QUANTIZED_STRUCTURED_LAUNCHES``, ``STRUCTURED_FLEET_LAUNCHES``,
+``QUANTIZED_STRUCTURED_FLEET_LAUNCHES``); ``kernels.ops`` picks between
+kernel and plain version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from repro_torch.kernels._launch import check_cuda, grid_rows, on_device, sm_cou
 # Kernel launches since the counts were last reset (plain calls do not count).
 STRUCTURED_LAUNCHES = 0
 QUANTIZED_STRUCTURED_LAUNCHES = 0
+STRUCTURED_FLEET_LAUNCHES = 0
+QUANTIZED_STRUCTURED_FLEET_LAUNCHES = 0
 
 # Widest block the kernels take (their shared-memory layout is sized for it).
 MAX_KERNEL_D = 2048
@@ -137,10 +147,15 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i64, i32,
                        ptr, ptr, ptr, ptr, ptr]
-        fn.restype = i32
         qfn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32,
                         f32, i64, i32, ptr, ptr, ptr]
-        qfn.restype = i32
+        lib.structured_sketch_sums_fleet.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, f32, i64, i32, ptr, ptr, ptr, ptr, ptr]
+        lib.quantized_structured_sketch_sums_fleet.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, f32, i32, f32, i64, i32, ptr, ptr, ptr]
+        for entry in (fn, qfn, lib.structured_sketch_sums_fleet,
+                      lib.quantized_structured_sketch_sums_fleet):
+            entry.restype = i32
         lib.structured_sketch_resident.argtypes = [i32, i32, i32, ctypes.POINTER(i32),
                                                    ctypes.POINTER(i32)]
         lib.structured_sketch_resident.restype = i32
@@ -303,6 +318,10 @@ def structured_sketch_sums_plain(
     per-chunk sums are added up in float64: at N = 10^7 there are hundreds of
     chunks, and float32 running sums would lose more than the kernel."""
     _check_inputs(x, diags, radii, beta)
+    return _plain_sums(x, diags, radii, beta)
+
+
+def _plain_sums(x, diags, radii, beta):
     cos_s = torch.zeros(radii.shape, dtype=torch.float64, device=x.device)
     sin_s = torch.zeros_like(cos_s)
     for start, stop, proj in _plain_phases(x, diags, radii):
@@ -323,6 +342,10 @@ def quantized_structured_sketch_sums_plain(
     """Plain PyTorch version of :func:`quantized_structured_sketch_sums`:
     chunked :func:`hd_chain` phases through ``quantize.quantize_codes``."""
     _check_inputs(x, diags, radii, valid, (("dither", dither),))
+    return _plain_codes(x, diags, radii, dither, bits, valid)
+
+
+def _plain_codes(x, diags, radii, dither, bits, valid=None):
     qcos = torch.zeros(radii.shape, dtype=torch.int32, device=x.device)
     qsin = torch.zeros_like(qcos)
     for start, stop, proj in _plain_phases(x, diags, radii):
@@ -331,3 +354,123 @@ def quantized_structured_sketch_sums_plain(
         qcos += qc.sum(dim=0, dtype=torch.int32)
         qsin += qs.sum(dim=0, dtype=torch.int32)
     return qcos, qsin
+
+
+# -- the fleet entries: a tenant axis, one launch ------------------------------
+
+
+def _check_fleet(x, diags, radii, name: str, v: torch.Tensor) -> None:
+    """``x (T, B, n)`` with ``B >= 1``, ``diags (T, nblocks, 3, d)``,
+    ``radii (T, nblocks, d)`` and ``v``: ``beta (T, B)`` or ``dither (T,
+    nblocks, d)`` by ``name``; all float32, ``d`` a power of two ``>= n``."""
+    ok = x.ndim == 3 and x.shape[1] >= 1 and diags.ndim == 4 and diags.shape[2] == 3
+    if ok:
+        tenants, n_pts = x.shape[:2]
+        _, nblocks, _, d = diags.shape
+        want = (tenants, n_pts) if name == "beta" else (tenants, nblocks, d)
+        ok = (diags.shape[0] == tenants and tuple(radii.shape) == (tenants, nblocks, d)
+              and tuple(v.shape) == want)
+    if not ok:
+        raise ValueError(
+            f"expected x (T, B >= 1, n), diags (T, nblocks, 3, d), radii (T, nblocks, d) and "
+            f"beta (T, B) or dither (T, nblocks, d); got {tuple(x.shape)}, {tuple(diags.shape)}, "
+            f"{tuple(radii.shape)}, {name} {tuple(v.shape)}"
+        )
+    if d & (d - 1) or x.shape[2] > d:
+        raise ValueError(f"block width d = {d} must be a power of two >= n = {x.shape[2]}")
+    for label, t in (("x", x), ("diags", diags), ("radii", radii), (name, v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{label} must be float32, got {t.dtype}")
+
+
+def _fleet_grid(lib, dev, tenants: int, n_pts: int, n: int, d: int, nblocks: int, mode: int):
+    """One tenant's ``(rows_per_group, groups)``: the grid of an isolated
+    call of ``n_pts`` rows, never one sized for ``T * n_pts``."""
+    per_sm, fb = _resident(lib, dev, d, n, mode)
+    rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+    if tenants * groups > 2**31 - 1:
+        raise ValueError(f"T = {tenants} tenants of {groups} row groups exceed the grid limit")
+    return rows, groups
+
+
+def structured_sketch_sums_fleet(
+    x: torch.Tensor, diags: torch.Tensor, radii: torch.Tensor, beta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel over a fleet: ``(cos_sums, sin_sums)``, each ``(T,
+    nblocks, d)``, for CUDA tensors ``x (T, B, n)``, ``diags (T, nblocks, 3,
+    d)``, ``radii (T, nblocks, d)``, ``beta (T, B)``, in one launch.  Tenant
+    t's sums are bitwise ``structured_sketch_sums(x[t], diags[t], radii[t],
+    beta[t])``: each tenant gets that call's grid and reduction order.
+    Raises for anything the kernel does not take."""
+    global STRUCTURED_FLEET_LAUNCHES
+    _check_fleet(x, diags, radii, "beta", beta)
+    dev = check_cuda((("x", x), ("diags", diags), ("radii", radii), ("beta", beta)))
+    tenants, n_pts, n = x.shape
+    _, nblocks, _, d = diags.shape
+    _check_kernel_widths(d, n)
+    lib = _lib()
+    with on_device(dev):
+        rows, groups = _fleet_grid(lib, dev, tenants, n_pts, n, d, nblocks, _MODE_FLOAT)
+        part = torch.empty((2, tenants, groups, nblocks * d), dtype=torch.float64, device=dev)
+        out = torch.empty((2, tenants, nblocks, d), dtype=torch.float32, device=dev)
+        status = lib.structured_sketch_sums_fleet(
+            x.data_ptr(), diags.data_ptr(), radii.data_ptr(), beta.data_ptr(), tenants,
+            n_pts, n, d, nblocks, inv_sqrt(d), rows, groups,
+            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            stream_ptr(dev),
+        )
+    _launch_check(lib, status, "structured_sketch fleet")
+    STRUCTURED_FLEET_LAUNCHES += 1
+    return out[0], out[1]
+
+
+def structured_sketch_sums_fleet_plain(
+    x: torch.Tensor, diags: torch.Tensor, radii: torch.Tensor, beta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: :func:`structured_sketch_sums_plain` per
+    tenant, stacked."""
+    _check_fleet(x, diags, radii, "beta", beta)
+    sums = [_plain_sums(x[t], diags[t], radii[t], beta[t]) for t in range(x.shape[0])]
+    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])
+
+
+def quantized_structured_sketch_sums_fleet(
+    x: torch.Tensor, diags: torch.Tensor, radii: torch.Tensor, dither: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel over a fleet: int32 ``(qcos_sums, qsin_sums)``, each
+    ``(T, nblocks, d)``, for CUDA tensors ``x (T, B, n)``, ``diags``,
+    ``radii`` as :func:`structured_sketch_sums_fleet` and ``dither (T,
+    nblocks, d)`` (each tenant's ``(m,)`` dither zero-padded), in one
+    launch; tenant t's sums are those of ``quantized_structured_sketch_sums(
+    x[t], diags[t], radii[t], dither[t], bits)``.  Raises for anything the
+    kernel does not take."""
+    global QUANTIZED_STRUCTURED_FLEET_LAUNCHES
+    _check_fleet(x, diags, radii, "dither", dither)
+    dev = check_cuda((("x", x), ("diags", diags), ("radii", radii), ("dither", dither)))
+    tenants, n_pts, n = x.shape
+    _, nblocks, _, d = diags.shape
+    _check_kernel_widths(d, n)
+    lib = _lib()
+    with on_device(dev):
+        mode = _MODE_SIGNS if bits == 1 else _MODE_CODES
+        rows, groups = _fleet_grid(lib, dev, tenants, n_pts, n, d, nblocks, mode)
+        q = torch.zeros((2, tenants, nblocks, d), dtype=torch.int32, device=dev)
+        status = lib.quantized_structured_sketch_sums_fleet(
+            x.data_ptr(), diags.data_ptr(), radii.data_ptr(), dither.data_ptr(), tenants,
+            n_pts, n, d, nblocks, inv_sqrt(d), int(bits == 1),
+            float(qz.quantization_scale(bits)), rows, groups, q[0].data_ptr(), q[1].data_ptr(),
+            stream_ptr(dev),
+        )
+    _launch_check(lib, status, "quantized_structured_sketch fleet")
+    QUANTIZED_STRUCTURED_FLEET_LAUNCHES += 1
+    return q[0], q[1]
+
+
+def quantized_structured_sketch_sums_fleet_plain(
+    x: torch.Tensor, diags: torch.Tensor, radii: torch.Tensor, dither: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: :func:`quantized_structured_sketch_sums_plain`
+    per tenant, stacked."""
+    _check_fleet(x, diags, radii, "dither", dither)
+    sums = [_plain_codes(x[t], diags[t], radii[t], dither[t], bits) for t in range(x.shape[0])]
+    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])

@@ -21,9 +21,9 @@ entry point does.
 The fleet entry points (``fleet_fourier_sketch_sums``,
 ``quantized_fleet_fourier_sketch_sums``) take ``x (T, B, n)`` and a
 ``freq_ops.StackedOperator`` of T tenants and return ``(T, m)`` sums.  A
-dense fleet goes to the tenant-axis entries of kernels 1 and 3: one launch
-for the whole fleet.  A structured fleet launches kernel 4 or 5 once per
-tenant, through the single entry points above: T launches.
+dense fleet goes to the tenant-axis entries of kernels 1 and 3, a
+structured fleet to those of kernels 4 and 5: one launch for the whole
+fleet either way.
 """
 
 from __future__ import annotations
@@ -54,11 +54,11 @@ def _no_kernel(op) -> TypeError:
     )
 
 
-def _pad_dither(dither: torch.Tensor, op: fo.StructuredOperator) -> torch.Tensor:
-    """The ``(m,)`` dither zero-padded to the block tail, as ``(nblocks, d)``
-    (the tail's codes are sliced off)."""
-    pad = op.nblocks * op.d - dither.shape[0]
-    return torch.nn.functional.pad(dither, (0, pad)).reshape(op.nblocks, op.d)
+def _pad_dither(dither: torch.Tensor, nblocks: int, d: int) -> torch.Tensor:
+    """The ``(..., m)`` dither zero-padded to the block tail, as ``(...,
+    nblocks, d)`` (the tail's codes are sliced off)."""
+    pad = nblocks * d - dither.shape[-1]
+    return torch.nn.functional.pad(dither, (0, pad)).reshape(*dither.shape[:-1], nblocks, d)
 
 
 def fourier_sketch_sums(x: torch.Tensor, w, beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +91,7 @@ def quantized_fourier_sketch_sums(
     if isinstance(op, fo.StructuredOperator):
         fn = (_ft.quantized_structured_sketch_sums if cuda
               else _ft.quantized_structured_sketch_sums_plain)
-        qc, qs = fn(x, op.diags, op.radii, _pad_dither(dither, op), bits, valid)
+        qc, qs = fn(x, op.diags, op.radii, _pad_dither(dither, op.nblocks, op.d), bits, valid)
         return qc.reshape(-1)[: op.m], qs.reshape(-1)[: op.m]
     if isinstance(op, fo.DenseOperator):
         fn = (_sketch.quantized_fourier_sketch_sums if cuda
@@ -100,11 +100,9 @@ def quantized_fourier_sketch_sums(
     raise _no_kernel(op)
 
 
-def _per_tenant(fn, x: torch.Tensor, op: fo.StackedOperator, *rows):
-    """``fn(x[t], tenant t's operator, *(r[t] for r in rows))`` stacked over
-    the tenants: a structured fleet's T launches."""
-    sums = [fn(x[t], op.tenant(t), *(r[t] for r in rows)) for t in range(x.shape[0])]
-    return torch.stack([c for c, _ in sums]), torch.stack([s for _, s in sums])
+def _fleet_columns(sums, m: int):
+    """``(T, nblocks, d)`` structured fleet sums as contiguous ``(T, m)``."""
+    return tuple(v.reshape(v.shape[0], -1)[:, :m].contiguous() for v in sums)
 
 
 def fleet_fourier_sketch_sums(
@@ -113,7 +111,10 @@ def fleet_fourier_sketch_sums(
     """Each tenant's raw fused sums: ``x (T, B, n)`` against tenant t's
     operator with weights ``beta (T, B)`` -> ``(T, m)``, ``(T, m)``."""
     if op.name == "structured":
-        return _per_tenant(fourier_sketch_sums, x, op, beta)
+        diags, radii = op.leaves[:2]
+        fn = (_ft.structured_sketch_sums_fleet if _on_cuda(x)
+              else _ft.structured_sketch_sums_fleet_plain)
+        return _fleet_columns(fn(x, diags, radii, beta), op.m)
     if op.name == "dense":
         fn = (_sketch.fourier_sketch_sums_fleet if _on_cuda(x)
               else _sketch.fourier_sketch_sums_fleet_plain)
@@ -127,8 +128,11 @@ def quantized_fleet_fourier_sketch_sums(
     """Each tenant's int32 code sums: ``x (T, B, n)`` against tenant t's
     operator and ``dither (T, m)`` -> ``(T, m)``, ``(T, m)``."""
     if op.name == "structured":
-        return _per_tenant(lambda xt, ot, dt: quantized_fourier_sketch_sums(xt, ot, dt, bits),
-                           x, op, dither)
+        diags, radii = op.leaves[:2]
+        fn = (_ft.quantized_structured_sketch_sums_fleet if _on_cuda(x)
+              else _ft.quantized_structured_sketch_sums_fleet_plain)
+        dth = _pad_dither(dither, diags.shape[1], diags.shape[3])
+        return _fleet_columns(fn(x, diags, radii, dth, bits), op.m)
     if op.name == "dense":
         fn = (_sketch.quantized_fourier_sketch_sums_fleet if _on_cuda(x)
               else _sketch.quantized_fourier_sketch_sums_fleet_plain)

@@ -4,12 +4,12 @@
 ``FleetService`` is the request-facing wrapper around
 :class:`repro_torch.core.fleet.FleetEngine`: it buffers interleaved
 ``(tenant_id, batch)`` requests, flushes them into the stacked state through
-the engine's routed ``ingest`` (the tenant-axis entry of kernel 1 or 3 on
-the card, kernel 4 or 5 per tenant for a structured fleet), and serves
-**decode-on-demand**: a tenant's centroids are only computed when asked for,
-and memoised in an LRU keyed on ``(tenant, state_version)`` — traffic for
-other tenants never invalidates a cached decode, and any write to a tenant
-bumps its version so a stale decode can never be served.
+the engine's routed ``ingest`` (on the card one launch of the tenant-axis
+entry of kernel 1 or 3, or of kernel 4 or 5 for a structured fleet), and
+serves **decode-on-demand**: a tenant's centroids are only computed when
+asked for, and memoised in an LRU keyed on ``(tenant, state_version)`` —
+traffic for other tenants never invalidates a cached decode, and any write
+to a tenant bumps its version so a stale decode can never be served.
 
 Async flush: ``flush(async_ingest=True)`` threads the requests through
 ``core.ingest.prefetched``.  On the card each host batch goes through the

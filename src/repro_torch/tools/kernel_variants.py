@@ -129,7 +129,7 @@ STRUCTURED_VARIANTS = {
     "no butterfly (scales only)": {"structured_sketch.cu": {
         "  butterfly_regs<NX>(v);\n  butterfly_lanes<TPF>(v, t, ex);\n": ""}},
     NO_SKIP: {"structured_sketch.cu": {
-        "      if (n <= 16) return instance<32, MODE, 16>(out);\n": ""}},
+        "      if (n <= 16) return instance<32, MODE, 16, FLEET>(out);\n": ""}},
 }
 FLASH_VARIANTS = {
     "as is": {},

@@ -379,7 +379,7 @@ def _port_of(jeng, name):
 
 
 @pytest.mark.parametrize("backend,name", [("xla", "dense"), ("pallas", "dense"),
-                                          ("xla", "structured")])
+                                          ("xla", "structured"), ("pallas", "structured")])
 @pytest.mark.parametrize("quant", QUANTS)
 def test_parity_with_the_reference_fleet(backend, name, quant):
     jeng = _reference_fleet(backend, quant, name)

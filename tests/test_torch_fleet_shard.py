@@ -112,8 +112,8 @@ def test_update_merge_finalize_parity(p, quant):
 
 @pytest.mark.parametrize("quant", QUANTS)
 def test_structured_mesh_parity(quant):
-    """A structured fleet's blocks launch kernels 4-5 per tenant: the same
-    bits as the unsharded fleet."""
+    """A structured fleet's blocks launch the tenant-axis entry of kernel 4
+    or 5 once a block: the same bits as the unsharded fleet."""
     ref, eng = _engine(quant, name="structured"), _engine(quant, 2, name="structured")
     xs = _batches(2, rounds=2)
     s_ref = ref.update(ref.update(ref.init_state(), xs[0]), xs[1])

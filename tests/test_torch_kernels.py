@@ -289,7 +289,8 @@ def _structured(n=3, m=40):
 @pytest.mark.parametrize(
     "kernel",
     ["fourier_sketch", "assign_argmin", "quantized_fourier_sketch", "structured_sketch",
-     "quantized_structured_sketch", "sketch_shift", "amp_denoise"],
+     "quantized_structured_sketch", "sketch_shift", "amp_denoise", "structured_sketch_fleet",
+     "quantized_structured_sketch_fleet"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """The kernel wrappers launch on CUDA tensors or raise: no fallback."""
@@ -306,6 +307,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
             x, op.diags, op.radii, dth, 4),
         "sketch_shift": lambda: kss.sketch_shift_sums(x, w, w[0], w[1]),
         "amp_denoise": lambda: kamp.amp_denoise(x, torch.tensor(1.0), x[0], x[1]),
+        "structured_sketch_fleet": lambda: ft.structured_sketch_sums_fleet(
+            x[None], op.diags[None], op.radii[None], beta[None]),
+        "quantized_structured_sketch_fleet": lambda: ft.quantized_structured_sketch_sums_fleet(
+            x[None], op.diags[None], op.radii[None], dth[None], 1),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[kernel]()
