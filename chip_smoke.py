@@ -9,11 +9,14 @@ Gaussian mixture in R^10, m = 1000 frequencies); each kernel held against its
 plain PyTorch version at the main path's shapes and at ragged ones (the
 quantized and structured kernels also for bitwise repeatability over two
 launches and, for integer sums, exact split invariance), and the structured
-kernels again at the wide shape n = d = 2048, m = 20,000; the decoder
-kernels (sketch_shift's score step at the decoder's swarm, a ragged and the
-wide shape, with the plain version's time beside the wide one, and at
-n = 3, 40, 64 and 100; amp_denoise at the decoder's shape, a wide one, the
-deep tail and open boxes); the sweep of the sketch kernels' widths at
+kernels again at the wide shape n = d = 2048, m = 20,000 and at the
+monitor's wide blocks (``wide_block_checks``: kernel 4 at d = 4096 and
+16384 on 20,001 rows, kernels 4-5 at 8192 on 200,003 rows, 4f-5f at 8192);
+the decoder kernels (sketch_shift's score step at the decoder's swarm, a
+ragged and the wide shape, with the plain version's time beside the wide
+one, and at n = 3, 40, 64 and 100; amp_denoise at the decoder's shape, a
+wide one, the deep tail, open boxes, the collapse at Z <= 1e-12 and NaN
+pseudo-data); the sweep of the sketch kernels' widths at
 N = 20,001 (kernels 1-3 at n = 3 to 100, kernel 1 also at phases of
 10^3-10^4 radians, kernels 4-5 at d = 64 to 1024); kernels 1 and 2 at the
 CKM-compressed KV cache's shapes (8129 keys at head_dim 256; K = 64 and 16,
@@ -37,7 +40,8 @@ the default steps): bits, launch counts, seconds; where fit's time
 goes (the sketch pass alone, and short decodes, eager then graphed, each
 timed alone and under torch.profiler: CLOMPR dense and structured,
 sketch_shift, amp, with kernels 6 and 7's device time per launch inside the
-graphs, beside an empty kernel's in a graph); the attention
+graphs and the graphed GAMP iteration's, beside an empty kernel's in a
+graph); the attention
 entry point (ops.flash_attention) at the three model shapes, with its launch
 counts; the streaming layer (``streaming_phases``): N points made on the host
 as numpy and streamed by fit_streaming in 10 and 100 batches, sync and async
@@ -97,7 +101,9 @@ three steps timed by CUDA events beside the loop's wall time, with tokens/s,
 loss, gradient norm, peak memory, the balancer's decode seconds and the
 model- and hardware-FLOP shares, the first loss against float32 compute, the
 final checkpoint restored bitwise, the monitor's decode and the balancer's
-weights) and the restart invariant at its smoke config
+weights), the activation monitor at d_model 4096, 6144 and 12288
+(``monitor_wide_phase``: updates through kernel 4's wide blocks against
+the plain version) and the restart invariant at its smoke config
 (``lm_restart_phase``: six steps straight against three, a restart and
 three); the LM on a mesh (``lm_mesh_phases``: an NCCL group of one rank on
 a (1, 1) mesh, llama3.2-1B's train steps, prefill and decode bitwise the
@@ -148,6 +154,27 @@ SLOW_CALL_MS, SLOW_TIMED_LAUNCHES = 50.0, 3
 # reference's frequency-operator benchmark (n = 2048), with a ragged last
 # frequency block and a ragged N.
 WIDE_N, WIDE_DIM, WIDE_M = 100_003, 2048, 20_000
+# Kernels 4-5 at the activation monitor's wide blocks (d_model > 2048): (n,
+# m) of d = 4096 (jamba's d_model, two blocks), 8192 (internvl2's, two
+# blocks: kernel 5 at 1 and 4 bits, and the fleet entries 4f-5f at
+# WIDE_BLOCK_FLEET tenants of a ragged B) and 16384 (mistral-large's, one
+# block), the last block ragged, on WIDE_BLOCK_N standard normal rows (the
+# sweep's N); kernels 4-5 at d = 8192 on WIDE_CODES_N rows: at this width
+# the kernel's and the plain version's float32 phases round apart by more
+# (3 x 13 levels of values of size ||x|| ~ 78), so an entry may take a few
+# boundary flips, and at 20,001 rows two of them (4 / N) pass CODE_TOL.
+WIDE_BLOCKS = ((4096, 2 * 4096 - 5), (6144, 2 * 8192 - 5), (12288, 16384 - 5))
+WIDE_BLOCK_N, WIDE_CODES_N = 20_001, 200_003
+WIDE_BLOCK_FLEET = (3, 333)
+WIDE_BLOCK_SEED = 31
+# [monitor wide]: ActivationMonitor.update at these (d_model, m) (kernel 4
+# at d = 4096, 8192 and 16384), K = MONITOR_WIDE_K, MONITOR_WIDE_UPDATES
+# updates of LM_TRAIN's B pooled rows.  m = None is the monitor's 4 K
+# d_model; at 12288 that is 12 blocks, whose draw (on the host, a CPU
+# generator: (n, nblocks, d) float32, ~9.7 GB a tensor, and its chain's
+# intermediates) took 51.8 s of the smoke, so 12288 takes 3 blocks.
+MONITOR_WIDE = ((4096, None), (6144, None), (12288, 3 * 16384))
+MONITOR_WIDE_K, MONITOR_WIDE_UPDATES = 4, 3
 # The sketch_shift decoder's swarm: CKMConfig.shift_candidates (8) per
 # cluster; a ragged swarm and sketch for the masked edges.
 SHIFT_P = 8 * K
@@ -584,15 +611,16 @@ _MODES = {"0": "float", "1": "codes", "2": "1bit"}
 
 def ptxas_instances(log: str) -> list[str]:
     """``d/mode/NX[/fleet]: registers, spill stores`` of each instance of
-    the structured kernel in a ptxas report."""
+    the structured kernels in a ptxas report (``NX=wide``: the wide kernel)."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         name = chunk.split("'")[1]
-        if "structuredILi" not in name:
+        kind = next((k for k in ("structuredILi", "structured_wideILi") if k in name), None)
+        if kind is None:
             continue
-        args = name.split("structuredILi")[1].split("EE")[0]
+        args = name.split(kind)[1].split("EE")[0]
         args, fleet = args.split("ELb")
-        d, mode, nx = args.split("ELi")
+        d, mode, nx = args.split("ELi") if kind == "structuredILi" else (*args.split("ELi"), "wide")
         regs = chunk.split("Used ")[1].split(" registers")[0]
         spill = chunk.split(" bytes spill stores")[0].split(",")[-1].strip()
         out.append(f"d={d}/{_MODES[mode]}/NX={nx}{'/fleet' if fleet == '1' else ''}: "
@@ -685,23 +713,31 @@ def check_codes(name, label, kernel, plain, n_pts, split_at, bound_fn, flips=Non
                   bound_fn, line)
 
 
-def check_structured(ft, x, op, beta, label):
-    """structured_sketch kernel vs its plain version on the card."""
+def check_structured(ft, x, op, beta, label, chain=False):
+    """structured_sketch kernel vs its plain version on the card; with
+    ``chain``, each undetermined column (``chain_uncertainty``) within its
+    rows' uncertainty besides (``chain_slack``)."""
     n_pts = x.shape[0]
     args = (op.diags, op.radii, beta)
     c1, s1 = ft.structured_sketch_sums(x, *args)
     c2, s2 = ft.structured_sketch_sums(x, *args)
     torch.cuda.synchronize()
     pc, ps = ft.structured_sketch_sums_plain(x, *args)
-    err = max(
-        float(torch.amax(torch.abs(c1 - pc))), float(torch.amax(torch.abs(s1 - ps)))
-    ) / n_pts
-    check(err <= SKETCH_TOL, f"structured_sketch {label}: max|d(sums/N)| {err:.3e} > {SKETCH_TOL}")
+    diff = torch.maximum((c1 - pc).abs(), (s1 - ps).abs()).reshape(1, -1).double()
+    und, slack = (chain_slack(x[None], op.radii[None], beta[None]) if chain
+                  else (torch.zeros_like(diff, dtype=torch.bool), torch.zeros_like(diff)))
+    err = float(diff[~und].max()) / n_pts
+    und_err = float(diff[und].max()) / n_pts if bool(und.any()) else 0.0
+    check(bool((diff <= SKETCH_TOL * n_pts + slack).all()),
+          f"structured_sketch {label}: max|d(sums/N)| {err:.3e} > {SKETCH_TOL}, at "
+          f"undetermined columns {und_err:.3e}")
     check(torch.equal(c1, c2) and torch.equal(s1, s2),
           f"structured_sketch {label}: two launches differ bitwise")
     line = (
         f"[structured_sketch {label}] N={n_pts} n={x.shape[1]} d={op.d} m={op.m} "
         f"max|d(sums/N)|={err:.3e} (tol {SKETCH_TOL}) bitwise-repeatable"
+        + (f"; {int(und.sum())} undetermined columns within their rows' uncertainty, "
+           f"max|d(sums/N)| there {und_err:.3e}" if chain else "")
     )
     return _timed(
         {"max_abs_err": err},
@@ -712,10 +748,11 @@ def check_structured(ft, x, op, beta, label):
     )
 
 
-def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None):
+def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None, chain=False):
     """Kernels 3-5 at one shape: kernel 3 at 1 and 4 bits (skipped when
     ``w`` is None), kernel 4, and kernel 5 at 1 and 4 bits.  The 1-bit
-    numbers go to ``results`` when given."""
+    numbers go to ``results`` when given.  ``chain``: the structured checks
+    count the operator's undetermined columns (``chain_uncertainty``)."""
     n_pts, n = x.shape
     out = {}
     if w is not None:
@@ -728,7 +765,7 @@ def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None
                 n_pts, split_at, lambda: qsketch_bound(n_pts, n, w.shape[1]),
             )
     out[("structured_sketch", 1)] = check_structured(
-        ft, x, op, torch.ones((n_pts,), dtype=torch.float32, device=x.device), label
+        ft, x, op, torch.ones((n_pts,), dtype=torch.float32, device=x.device), label, chain
     )
     padded = torch.nn.functional.pad(dither, (0, op.nblocks * op.d - op.m))
     padded = padded.reshape(op.nblocks, op.d).contiguous()
@@ -741,7 +778,8 @@ def check_slice2_kernels(fs, ft, x, w, op, dither, label, split_at, results=None
                 x[lo:hi], op.diags, op.radii, padded, b),
             n_pts, split_at, lambda: structured_bound(n_pts, n, op.d, op.nblocks, True),
             flips=(lambda got, ref: structured_flips(
-                f"quantized_structured_sketch {label} d={op.d} 1bit", x, op, padded, got, ref))
+                f"quantized_structured_sketch {label} d={op.d} 1bit", x, op, padded, got, ref,
+                chain))
             if bits == 1 else None,
         )
     if results is not None:
@@ -781,26 +819,32 @@ def check_shift(ks, c, w, z, label):
 
 def check_denoise(kd, r, q, lo, hi, label):
     """amp_denoise kernel vs its plain version on the card, in the natural
-    units of each moment; finite moments inside their bounds."""
+    units of each moment; finite moments inside their bounds, except the
+    mean of a NaN pseudo-datum, which is NaN as the plain version's is."""
     qt = torch.tensor(q, dtype=torch.float32, device=r.device)
     mean, var = kd.amp_denoise(r, qt, lo, hi)
     torch.cuda.synchronize()
     pm, pv = kd.amp_denoise_plain(r, qt, lo, hi)
+    ok = ~torch.isnan(r)
     err = max(
-        float(torch.amax(torch.abs(mean - pm))) / max(1.0, q ** 0.5),
+        float(torch.amax(torch.abs(mean - pm)[ok])) / max(1.0, q ** 0.5),
         float(torch.amax(torch.abs(var - pv))) / max(1.0, q),
     )
     check(err <= DENOISE_TOL, f"amp_denoise {label}: max error {err:.3e} > {DENOISE_TOL}")
+    check(torch.equal(torch.isnan(mean), ~ok) and torch.equal(torch.isnan(pm), ~ok),
+          f"amp_denoise {label}: a NaN mean where r is not NaN, or none where it is")
+    mean, lo_b, hi_b = mean[ok], lo.expand_as(r)[ok], hi.expand_as(r)[ok]
     check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
           f"amp_denoise {label}: non-finite moments")
-    check(bool(((mean >= lo) & (mean <= hi)).all() and (var > 0).all() and (var <= qt).all()),
+    check(bool(((mean >= lo_b) & (mean <= hi_b)).all() and (var > 0).all() and (var <= qt).all()),
           f"amp_denoise {label}: moments outside their bounds")
     line = (
         f"[amp_denoise {label}] K={r.shape[0]} n={r.shape[1]} q={q} max err (natural units)="
-        f"{err:.3e} (tol {DENOISE_TOL})"
+        f"{err:.3e} (tol {DENOISE_TOL}); collapsed entries (Z <= 1e-12) "
+        f"{int((pv == qt * 1e-6).sum())}, NaN pseudo-data {int((~ok).sum())}"
     )
     return _timed(
-        {"max_abs_err": err},
+        {"max_abs_err": err, "collapsed": int((pv == qt * 1e-6).sum())},
         lambda: kd.amp_denoise(r, qt, lo, hi),
         lambda: kd.amp_denoise_plain(r, qt, lo, hi),
         lambda: denoise_bound(r.shape[0], r.shape[1]),
@@ -1460,11 +1504,13 @@ def stacked_w64(diags, radii, n: int) -> torch.Tensor:
     return (cols * radii[:, None].double()).reshape(tenants, n, nblocks * d)
 
 
-def structured_flips(name, x, op, dither, got, ref):
+def structured_flips(name, x, op, dither, got, ref, chain=False):
     """``boundary_flips`` of kernel 5's 1-bit sums (``(nblocks, d)`` pairs)
-    on rows ``x`` under ``op`` and its padded ``(nblocks, d)`` dither."""
+    on rows ``x`` under ``op`` and its padded ``(nblocks, d)`` dither (with
+    ``chain``, widened at the undetermined columns)."""
     return boundary_flips(name, x[None], structured_w64(op)[None], dither.reshape(1, -1),
-                          [q.reshape(1, -1) for q in got], [q.reshape(1, -1) for q in ref])
+                          [q.reshape(1, -1) for q in got], [q.reshape(1, -1) for q in ref],
+                          chain=chain_uncertainty(x[None], op.radii[None]) if chain else None)
 
 
 def chain_uncertainty(x, radii) -> torch.Tensor:
@@ -1477,6 +1523,20 @@ def chain_uncertainty(x, radii) -> torch.Tensor:
     coef = PHASE_ULP * (3 * (d.bit_length() - 1) + 2) * radii.reshape(tenants, -1).double()
     worst = coef * x.double().norm(dim=2).amax(dim=1)[:, None]
     return torch.where(worst > UNDETERMINED_RAD, coef, torch.zeros_like(coef))
+
+
+def chain_slack(x, radii, beta):
+    """For ``x (T, B, n)``, ``radii (T, nblocks, d)`` and ``beta (T, B)``:
+    ((T, nblocks d) mask of the undetermined columns, (T, nblocks d) float64
+    slack on their sums: each row's |beta| min(2, 2 uncertainty))."""
+    coef = chain_uncertainty(x, radii)
+    und = coef > 0
+    slack = torch.zeros_like(coef)
+    ti, ji = torch.nonzero(und).unbind(1)
+    if ti.numel():
+        delta = coef[ti, ji][:, None] * x.double().norm(dim=2)[ti]  # (columns, B)
+        slack[ti, ji] = (beta[ti].double().abs() * torch.clamp(2 * delta, max=2.0)).sum(1)
+    return und, slack
 
 
 def check_structured_fleet(ft, x, diags, radii, beta, label, time_it=True):
@@ -1502,15 +1562,10 @@ def check_structured_fleet(ft, x, diags, radii, beta, label, time_it=True):
     pc, ps = ft.structured_sketch_sums_fleet_plain(*args)
     # Each (t, j) entry sums the B rows of one tenant: the error is per B.
     diff = torch.maximum((c - pc).abs(), (s_ - ps).abs()).reshape(tenants, -1).double()
-    coef = chain_uncertainty(x, radii)
-    und = coef > 0
-    slack = torch.zeros_like(diff)
-    ti, ji = torch.nonzero(und).unbind(1)
-    if ti.numel():
-        delta = coef[ti, ji][:, None] * x.double().norm(dim=2)[ti]  # (columns, B)
-        slack[ti, ji] = (beta[ti].double().abs() * torch.clamp(2 * delta, max=2.0)).sum(1)
+    und, slack = chain_slack(x, radii, beta)
+    n_und = int(und.sum())
     err = float(diff[~und].max()) / rows
-    und_err = float(diff[und].max()) / rows if ti.numel() else 0.0
+    und_err = float(diff[und].max()) / rows if n_und else 0.0
     check(bitwise, f"structured_sketch_fleet {label}: differs from T single launches")
     check(torch.equal(c, c2) and torch.equal(s_, s2),
           f"structured_sketch_fleet {label}: two launches differ bitwise")
@@ -1519,7 +1574,7 @@ def check_structured_fleet(ft, x, diags, radii, beta, label, time_it=True):
           f"columns {und_err:.3e}")
     line = (f"[structured_sketch_fleet {label}] T={tenants} B={rows} n={n} d={d} "
             f"nblocks={nblocks}: bitwise T single launches and repeatable {bitwise}; "
-            f"max|d(sums/B)|={err:.3e} (tol {SKETCH_TOL}); {ti.numel()} undetermined columns "
+            f"max|d(sums/B)|={err:.3e} (tol {SKETCH_TOL}); {n_und} undetermined columns "
             f"(float32 phases uncertain beyond {UNDETERMINED_RAD} rad) within their rows' "
             f"uncertainty, max|d(sums/B)| there {und_err:.3e}")
     if not time_it:
@@ -1605,6 +1660,95 @@ def structured_fleet_instances(ft, dev, gen, shapes=FLEET_STRUCTURED_SHAPES):
         for bits in (1, 4):
             check_structured_codes_fleet(ft, x, diags, radii, dither.reshape(tenants, nblocks, d),
                                          bits, label, time_it=False)
+
+
+def wide_block_checks(fs, ft, dev, blocks=WIDE_BLOCKS, n_pts=WIDE_BLOCK_N,
+                      codes_n=WIDE_CODES_N, fleet=WIDE_BLOCK_FLEET, seed=WIDE_BLOCK_SEED):
+    """Kernels 4-5 at the monitor's wide blocks (the wide kernel,
+    ``structured_wide``): kernel 4 at each (n, m) of ``blocks`` on ``n_pts``
+    standard normal rows, kernels 4 and 5 (1 and 4 bits) on ``codes_n``
+    rows and the fleet entries 4f-5f (``fleet`` = (T, B)) at d = 8192; the
+    sketch and code bars, the undetermined columns counted
+    (``chain_uncertainty``).  Operators, rows and dither from a generator
+    of their own."""
+    from repro_torch.core import freq_ops, quantize
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for n, m in blocks:
+        op = freq_ops.make_operator("structured", gen, m, n, 1.0, device=dev)
+        rows = codes_n if op.d == 8192 else n_pts
+        x = torch.randn((rows, n), generator=gen, device=dev)
+        label = f"wide block d={op.d} n={n}"
+        if op.d == 8192:
+            check_slice2_kernels(fs, ft, x, None, op, quantize.draw_dither(gen, m), label,
+                                 rows // 3, chain=True)
+        else:
+            check_structured(ft, x, op, torch.ones((rows,), device=dev), label, chain=True)
+        del op, x
+    structured_fleet_instances(ft, dev, gen, ((blocks[1][0], blocks[1][1], *fleet),))
+
+
+def monitor_wide_phase(dev, run, dims=MONITOR_WIDE, k=MONITOR_WIDE_K,
+                       updates=MONITOR_WIDE_UPDATES, rows=None):
+    """[monitor wide]: ActivationMonitor(dim=D).update at each D of ``dims``
+    on the card (the structured operator, d = 4096 .. 16384 blocks through
+    kernel 4), ``updates`` updates of ``rows`` standard normal pooled rows:
+    kernel 4 launched once an update (asserted) and never its plain version,
+    the state's sums within SKETCH_TOL of the plain version on sums / N (the
+    undetermined columns within their rows' uncertainty), count and bounds
+    exact.  Prints the operator draw's seconds and the process's peak host
+    memory after it (the draw runs on a CPU generator, then moves)."""
+    from repro_torch.kernels import freq_transform as ft
+    from repro_torch.train.monitor import ActivationMonitor
+
+    import resource
+
+    rows = rows or LM_TRAIN[1]
+    for dim, m in dims:
+        t0 = time.perf_counter()
+        mon = ActivationMonitor(dim=dim, k=k, m=m, device=dev)
+        draw_s = time.perf_counter() - t0
+        draw_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        op = mon.freqs
+        gen = torch.Generator(device=dev).manual_seed(dim)
+        pooled = [torch.randn((rows, dim), generator=gen, device=dev) for _ in range(updates)]
+
+        def fold():
+            state = mon.init_state()
+            for batch in pooled:
+                state = mon.update(state, batch)
+            return state
+
+        tag = f"monitor wide d_model={dim}"
+        state = run(tag, fold, "structured_sketch")
+        launched = ft.STRUCTURED_LAUNCHES
+        xs = torch.cat(pooled)
+        ones = torch.ones((xs.shape[0],), device=dev)
+        pc, ps = ft.structured_sketch_sums_plain(xs, op.diags, op.radii, ones)
+        want = torch.cat([pc.reshape(-1)[:op.m], -ps.reshape(-1)[:op.m]]).double()
+        und, slack = chain_slack(xs[None], op.radii[None], ones[None])
+        und = und[0, :op.m].repeat(2)
+        slack = slack[0, :op.m].repeat(2)
+        diff = (state.sums.double() - want).abs()
+        n_pts = xs.shape[0]
+        err = float(diff[~und].max()) / n_pts
+        print(f"[{tag}] d={op.d} nblocks={op.nblocks} m={op.m}: operator draw {draw_s:.2f}s, "
+              f"host peak RSS {draw_gb:.2f} GB; {updates} updates of {rows} rows, {launched} kernel 4 "
+              f"launches; max|d(sums/N)| against the plain version {err:.3e} (tol {SKETCH_TOL}), "
+              f"{int(und.sum()) // 2} undetermined columns within their rows' uncertainty",
+              flush=True)
+        check(launched == updates, f"{tag}: {launched} kernel 4 launches, not {updates}")
+        check(bool((diff <= SKETCH_TOL * n_pts + slack).all()),
+              f"{tag}: max|d(sums/N)| {err:.3e} > {SKETCH_TOL}")
+        check(float(state.count) == n_pts and torch.equal(state.lo, xs.amin(0))
+              and torch.equal(state.hi, xs.amax(0)), f"{tag}: count or bounds")
+        ms = median_ms(lambda: ft.structured_sketch_sums(pooled[0], op.diags, op.radii,
+                                                         ones[:rows]))
+        bound_ms, bound_by = structured_bound(rows, dim, op.d, op.nblocks, False)
+        print(f"[{tag}] kernel 4 at one update's shape (N={rows}): {ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+        del mon, op, state, pooled, xs
+        torch.cuda.empty_cache()
 
 
 def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, rows=FLEET_B,
@@ -4025,7 +4169,7 @@ def main() -> None:
     for name, log in sorted(_build.PTXAS.items()):
         print(f"[ptxas {name}] {ptxas_summary(log)}", flush=True)
     instances = ptxas_instances(_build.PTXAS.get("structured_sketch", ""))
-    check(len(instances) == 48, f"ptxas reported {len(instances)} structured instances, not 48")
+    check(len(instances) == 66, f"ptxas reported {len(instances)} structured instances, not 66")
     print("[ptxas structured_sketch] " + "; ".join(instances), flush=True)
 
     # 3. The data.
@@ -4151,6 +4295,9 @@ def main() -> None:
     op_w = freq_ops.make_operator("structured", g_freq, WIDE_M, WIDE_DIM, sigma2_w, device=dev)
     check_slice2_kernels(fs, ft, xw, None, op_w, quantize.draw_dither(g_dither, WIDE_M),
                          "wide", WIDE_N // 3)
+
+    # 4c'. Kernels 4-5 at the monitor's wide blocks (d = 4096 .. 16384).
+    wide_block_checks(fs, ft, dev)
     section("kernel checks 3-5")
 
     # 4d. The decoder kernels.  sketch_shift at the decoder's swarm on the
@@ -4205,6 +4352,18 @@ def main() -> None:
     check_denoise(kd, torch.tensor([[0.3, -2.0, 5.0, -5.0]], device=dev), 2.0,
                   torch.tensor([-inf, -1.0, -inf, -1.0], device=dev),
                   torch.tensor([inf, inf, 1.0, 1.0], device=dev), "open boxes")
+    # The collapse (in-box mass Z <= 1e-12: r 8.4 to 1000 sigmas out of
+    # [-1, 1]) beside entries just inside it (7.5 and 7.6 sigmas), and NaN
+    # pseudo-data (the second erfc branch, then the collapse; the mean NaN).
+    box = torch.ones(4, device=dev)
+    collapse = check_denoise(kd, torch.tensor([[9.0, -9.0, 40.0, 8.4], [7.5, -7.6, 1e3, 0.0]],
+                                              device=dev), 1.0, -box, box, "collapse")
+    check(collapse["collapsed"] == 5, f"amp_denoise collapse: {collapse['collapsed']} "
+          "entries collapsed, not 5")
+    nan = float("nan")
+    check_denoise(kd, torch.tensor([[nan, 0.2, -3.0, nan], [0.5, nan, nan, 2.0]], device=dev),
+                  0.7, torch.tensor([-1.0, -inf, -1.0, -2.0], device=dev),
+                  torch.tensor([1.0, 1.0, inf, 2.0], device=dev), "nan r")
     section("kernel checks 6-7")
 
     # 4e. The sweep of the sketch kernels' widths at small N: every template
@@ -4469,6 +4628,8 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, (graphs.CAPTURES, graphs.REPLAYS)
 
+    graphed_walls = {}
+
     def short_decode(label, r, short_cfg, n_units, unit):
         """A short decode of ``r``'s sketch, eager then graphed: wall
         seconds, device-busy seconds and device operations per ``unit``
@@ -4498,6 +4659,7 @@ def main() -> None:
                 + ("" if busy else " (the profiler saw no device time: busy share not measured)")
             )
         (out_e, wall_e, _), (out_g, wall_g, busy_g) = runs[True], runs[False]
+        graphed_walls[label] = wall_g
         same = all(torch.equal(a, b) for a, b in zip(out_e, out_g))
         rel_e, rel_g = (float(ckm.sse(x, o[0], device=dev)) / N / sse_km for o in (out_e, out_g))
         print(
@@ -4515,7 +4677,7 @@ def main() -> None:
               f"{label}: device busy {busy_g:.3f}s of a graphed {wall_g:.3f}s")
         return by_name
 
-    def in_graph(name, by_name, symbols):
+    def in_graph(name, by_name, symbols, beside=""):
         """Kernel ``name``'s device time per launch inside the graphed short
         decode, its kernels matched by symbol (the first one counts the
         launches and must be there; a second pass kernel may not run),
@@ -4528,7 +4690,7 @@ def main() -> None:
                           else f"{sym} not launched" for sym, hits in zip(symbols, found))
         print(f"[{name} in graph] {launches_g} launches, {total_us / launches_g:.2f} us of device "
               f"time per launch ({parts}); wrapper-timed {results[name]['ms'] * 1e3:.2f} us "
-              "(step 4, host included)", flush=True)
+              f"(step 4, host included){beside}", flush=True)
 
     short_decode("fit", res, short, adam_steps, "Adam step")
     short_decode("fit-structured", slice2_res["fit-structured"], short, adam_steps, "Adam step")
@@ -4542,7 +4704,9 @@ def main() -> None:
     in_graph("sketch_shift", by_name, ("shift_cluster",))
     short_amp = dataclasses.replace(cfg, decoder="amp", amp_iters=30, amp_polish_steps=0)
     by_name = short_decode("fit-amp", slice2_res["fit-amp"], short_amp, 30, "GAMP iteration")
-    in_graph("amp_denoise", by_name, ("amp_denoise_kernel",))
+    in_graph("amp_denoise", by_name, ("amp_denoise_kernel",),
+             f"; the graphed GAMP iteration {graphed_walls['fit-amp'] * 1e6 / 30:.2f} us (the "
+             "graphed short decode's wall over its 30 iterations)")
     floor_us, floor_graph_us = launch_floor(dev)
     print(f"[launch floor] an empty kernel (torch.cuda._sleep(0)) in a CUDA graph: "
           f"{floor_us:.2f} us of device time per launch, {floor_graph_us:.2f} us per launch "
@@ -4607,9 +4771,13 @@ def main() -> None:
         del served
         torch.cuda.empty_cache()
 
-    # 9i. The LM's training path at llama3.2-1B width, and the restart
-    # invariant at its smoke config.
+    # 9i. The LM's training path at llama3.2-1B width, the activation monitor
+    # at the wide d_model (kernel 4's wide blocks), and the restart invariant
+    # at its smoke config.
     lm_train_phase(dev, run)
+    t0 = time.perf_counter()
+    monitor_wide_phase(dev, run)
+    print(f"[monitor wide] {time.perf_counter() - t0:.1f}s", flush=True)
     lm_restart_phase(dev, run)
 
     # 9j. The LM on a mesh: NCCL at one rank, then gloo ranks on the card.

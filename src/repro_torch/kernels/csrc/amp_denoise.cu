@@ -27,7 +27,14 @@
 // What bounds it on this card: the launch.  At the decoder's shape (K = n =
 // 10) it is 100 entries of ~30 operations; even at (256, 130) it moves
 // 400 KB.  Design: one thread per entry, one launch per call, the edges of
-// K * n masked here (the TPU wrapper pads to (8, 128) tiles).
+// K * n masked here (the TPU wrapper pads to (8, 128) tiles).  Five other
+// designs were timed against it inside CUDA graphs (tools/amp_variants.py,
+// amp_variants.cu: the a and b halves of an entry on a lane pair joined by
+// shuffles; reciprocals of sigma and Z; a programmatic dependent launch;
+// their combinations).  The reciprocals break the 1e-5 bar (1.05e-4 at
+// q = 0.5: the variance's cancellation magnifies their rounding), and no
+// other design moved the graphed GAMP iteration beyond its run-to-run
+// spread (~2 us of ~818): the kernel sits at its launch's ceiling.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -71,6 +71,31 @@
 //  * The radius multiply and the dither add are explicit _rn operations
 //    (the reference rounds each); the stage scales too, so that no multiply
 //    is fused into the butterfly's adds.
+//  * Wide blocks, d = 4096, 8192 and 16384 (the activation monitor at
+//    d_model > 2048; the reference's Pallas kernel holds any block whole),
+//    run another kernel, structured_wide, so the instances above keep their
+//    code.  A row needs TPF = 128, 256 or 512 threads, and levels h >= 1024
+//    cross warps (2, 3 or 4 levels a stage); the constants of one block
+//    (signs 3d, radii d, dither d) take 64-80 KB at 4096 and 256-320 KB at
+//    16384, past the 227 KB a CTA may hold.  So a CTA of TPF threads holds
+//    one block and one row at a time, in a padded row buffer in shared
+//    memory.  Each stage reads it in the contiguous layout (coordinate
+//    32 t + k in register k), runs levels 1 .. 16 in registers and 32 .. 512
+//    by shuffles, writes it back and reads it in the strided layout
+//    (coordinate t + TPF k), where levels 1024 .. d / 2 pair registers k and
+//    k + h / TPF: one transpose through shared memory a stage instead of a
+//    cross-warp exchange a level.  The strided layout also makes the row's
+//    loads and the radii's and dither's reads coalesced and conflict-free.
+//    Thread t keeps its 3 x 32 signs as three bit masks in registers (so
+//    diags must hold +-1, as the operator's draw gives), and the radii and
+//    dither sit in shared memory: 130 KB at d = 16384 (float), 194 KB with
+//    the dither.  The level order, the operands and the roundings are those
+//    above, so a wide block rounds its phases as the narrow kernel would.
+//    Float sums: thread t owns coordinates t + TPF k and adds its float
+//    sums into the group's double partials every 32 rows, in row order, so
+//    the sums stay bitwise repeatable and each fleet tenant bitwise its
+//    own launch; codes are atomicAdd'ed as above.  The monitor folds a few
+//    rows a step, so this kernel is written for being right, not tuned.
 //  * The fleet entries (structured_sketch_sums_fleet,
 //    quantized_structured_sketch_sums_fleet) sketch T tenants' batches,
 //    each against its own signs, radii and beta or dither, in one launch:
@@ -230,6 +255,33 @@ __device__ __forceinline__ float comp(const float4& a, int j) {
   return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
 }
 
+// One coordinate's share of a row, for both kernels: the phase theta =
+// (v c) rad (+ dither), rounded at each step, into the float sums
+// (weight rw), the b-bit codes or the 1-bit counts (row weight vr).
+template <int MODE>
+__device__ __forceinline__ void accumulate(float v, float rad, float dth, float cscale,
+                                           float qscale, float rw, int vr, float& acc_c,
+                                           float& acc_s, int& iacc_c, int& iacc_s) {
+  float theta = __fmul_rn(__fmul_rn(v, cscale), rad);
+  if (MODE != kFloat) theta = __fadd_rn(theta, dth);
+  if (MODE == kSigns) {
+    bool cos_pos, sin_pos;
+    one_bit_signs(theta, &cos_pos, &sin_pos);
+    if (cos_pos) iacc_c += vr;
+    if (sin_pos) iacc_s += vr;
+  } else {
+    float s, c;
+    sincos_reduced(theta, &s, &c);
+    if (MODE == kCodes) {
+      iacc_c += __float2int_rn(__fmul_rn(c, qscale)) * vr;
+      iacc_s += __float2int_rn(__fmul_rn(s, qscale)) * vr;
+    } else {
+      acc_c = fmaf(rw, c, acc_c);
+      acc_s = fmaf(rw, s, acc_s);
+    }
+  }
+}
+
 // D: block width; MODE: kFloat, kCodes or kSigns; NX: the first stage's
 // nonzero width (d = 32 only; kEpt elsewhere); FLEET: the tenant axis.
 template <int D, int MODE, int NX, bool FLEET>
@@ -380,24 +432,8 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int k = 4 * q + j;
-          float theta = __fmul_rn(__fmul_rn(v[k], cscale), comp(rad, j));
-          if (MODE != kFloat) theta = __fadd_rn(theta, comp(dth, j));
-          if (MODE == kSigns) {
-            bool cos_pos, sin_pos;
-            one_bit_signs(theta, &cos_pos, &sin_pos);
-            if (cos_pos) iacc_c[k] += vr;
-            if (sin_pos) iacc_s[k] += vr;
-          } else {
-            float s, c;
-            sincos_reduced(theta, &s, &c);
-            if (MODE == kCodes) {
-              iacc_c[k] += __float2int_rn(__fmul_rn(c, qscale)) * vr;
-              iacc_s[k] += __float2int_rn(__fmul_rn(s, qscale)) * vr;
-            } else {
-              acc_c[k] = fmaf(rw, c, acc_c[k]);
-              acc_s[k] = fmaf(rw, s, acc_s[k]);
-            }
-          }
+          accumulate<MODE>(v[k], comp(rad, j), comp(dth, j), cscale, qscale, rw, vr, acc_c[k],
+                           acc_s[k], iacc_c[k], iacc_s[k]);
         }
       }
     }
@@ -470,6 +506,192 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
   }
 }
 
+// The wide blocks, d = 4096 .. 16384 (see the file's header): a CTA of
+// TPF = d / 32 threads holds one row at a time.
+template <int D, int MODE>
+struct WideLayout {
+  static constexpr int TPF = D / kEpt;   // threads per row, and per CTA
+  static constexpr int HM0 = 1024 / TPF; // register distance of level h = 1024 (strided)
+  static constexpr int ROW = D + D / 32; // the row buffer: one pad word per 32
+  // Shared memory: the row buffer, the radii and (codes) the dither.
+  static constexpr size_t BYTES =
+      sizeof(float) * (size_t)(ROW + (MODE == kFloat ? 1 : 2) * D);
+  static_assert(TPF >= 128 && TPF <= 512 && TPF * kEpt == D, "block width");
+  static_assert(BYTES <= 232448, "shared memory");
+};
+
+// Rows a thread adds in float before its double flush (float sums).
+constexpr int kWideFlushRows = 32;
+
+// Padded index of coordinate e in the row buffer.
+__device__ __forceinline__ int pad_index(int e) { return e + (e >> 5); }
+
+// Butterfly levels h = 1024 .. d / 2 in the strided layout (thread t holds
+// coordinates t + TPF k, so level h pairs registers k and k + h / TPF).
+template <int HM0>
+__device__ __forceinline__ void butterfly_strided(float (&v)[kEpt]) {
+#pragma unroll
+  for (int hm = HM0; hm < kEpt; hm <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) {
+      if ((k & hm) == 0) {
+        const float a = v[k], b = v[k | hm];
+        v[k] = a + b;
+        v[k | hm] = a - b;
+      }
+    }
+  }
+}
+
+template <int D, int MODE, bool FLEET>
+__global__ void __launch_bounds__(D / kEpt, 16384 / D)
+structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
+                const float* __restrict__ radii, const float* __restrict__ dither,
+                const float* __restrict__ rowv, int64_t n_pts, int n, int nblocks,
+                float cscale, float qscale, int64_t rows_per_group,
+                double* __restrict__ part_c, double* __restrict__ part_s,
+                int* __restrict__ qcos, int* __restrict__ qsin) {
+  using W = WideLayout<D, MODE>;
+  constexpr int TPF = W::TPF;
+  extern __shared__ __align__(16) float smem[];
+  float* row = smem;             // the row, padded
+  float* rad = row + W::ROW;     // radii
+  float* dth = rad + D;          // dither (codes)
+
+  int64_t group = blockIdx.x;
+  if constexpr (FLEET) {  // as in structured<>
+    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
+    const int64_t tenant = blockIdx.x / groups, width = (int64_t)nblocks * D;
+    group = blockIdx.x - tenant * groups;
+    x += tenant * n_pts * n;
+    diags += tenant * 3 * width;
+    radii += tenant * width;
+    if (rowv) rowv += tenant * n_pts;
+    if (MODE == kFloat) {
+      part_c += tenant * groups * width;
+      part_s += tenant * groups * width;
+    } else {
+      dither += tenant * width;
+      qcos += tenant * width;
+      qsin += tenant * width;
+    }
+  }
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.y * D;  // this CTA's frequency block
+
+  // The three stages' signs of coordinates 32 t .. 32 t + 31, one bit each
+  // (set for -1), and the block's radii and dither in shared memory.
+  uint32_t neg[3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const float4* src = reinterpret_cast<const float4*>(diags + base * 3 + s * D + kEpt * t);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int q = 0; q < kEpt / 4; ++q) {
+      const float4 g = __ldg(src + q);
+      bits |= (uint32_t)(g.x < 0.0f) << (4 * q) | (uint32_t)(g.y < 0.0f) << (4 * q + 1) |
+              (uint32_t)(g.z < 0.0f) << (4 * q + 2) | (uint32_t)(g.w < 0.0f) << (4 * q + 3);
+    }
+    neg[s] = bits;
+  }
+  for (int i = t; i < D; i += TPF) {
+    rad[i] = radii[base + i];
+    if (MODE != kFloat) dth[i] = dither[base + i];
+  }
+
+  const int64_t r0 = group * rows_per_group, r1 = min(n_pts, r0 + rows_per_group);
+  const int64_t width = (int64_t)nblocks * D;
+  float acc_c[kEpt], acc_s[kEpt];
+  int iacc_c[kEpt], iacc_s[kEpt];
+  int nvalid = 0;
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k) {
+    acc_c[k] = acc_s[k] = 0.0f;
+    iacc_c[k] = iacc_s[k] = 0;
+  }
+  // Float sums: thread t owns coordinates t + TPF k of the group's partials
+  // and adds its float sums there every kWideFlushRows rows, in order.
+  double* pc = MODE == kFloat ? part_c + group * width + base + t : nullptr;
+  double* ps = MODE == kFloat ? part_s + group * width + base + t : nullptr;
+  bool flushed = false;
+  auto flush = [&]() {
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) {
+      pc[TPF * k] = (flushed ? pc[TPF * k] : 0.0) + (double)acc_c[k];
+      ps[TPF * k] = (flushed ? ps[TPF * k] : 0.0) + (double)acc_s[k];
+      acc_c[k] = acc_s[k] = 0.0f;
+    }
+    flushed = true;
+  };
+
+  int since = 0;
+  for (int64_t r = r0; r < r1; ++r) {
+    // The row, zero-padded to d, in coalesced loads (strided layout).
+    const float* xr = x + r * n;
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) {
+      const int e = t + TPF * k;
+      row[pad_index(e)] = e < n ? __ldg(xr + e) : 0.0f;
+    }
+    __syncthreads();
+    float v[kEpt];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      // Contiguous layout: coordinates 32 t + k; the stage's signs (times c
+      // after the first), levels 1 .. 16 in registers, 32 .. 512 by shuffles.
+#pragma unroll
+      for (int k = 0; k < kEpt; ++k) {
+        const float u = row[(kEpt + 1) * t + k];
+        const bool minus = (neg[s] >> k) & 1u;
+        v[k] = s == 0 ? u * (minus ? -1.0f : 1.0f) : __fmul_rn(u, minus ? -cscale : cscale);
+      }
+      butterfly_regs<kEpt>(v);
+      butterfly_lanes<32>(v, t, nullptr);
+#pragma unroll
+      for (int k = 0; k < kEpt; ++k) row[(kEpt + 1) * t + k] = v[k];
+      __syncthreads();
+      // Strided layout: coordinates t + TPF k; levels 1024 .. d / 2.
+#pragma unroll
+      for (int k = 0; k < kEpt; ++k) v[k] = row[pad_index(t + TPF * k)];
+      butterfly_strided<W::HM0>(v);
+      if (s < 2) {
+#pragma unroll
+        for (int k = 0; k < kEpt; ++k) row[pad_index(t + TPF * k)] = v[k];
+        __syncthreads();
+      }
+    }
+
+    const float rw = rowv ? __ldg(rowv + r) : 1.0f;
+    const int vr = (int)rw;
+    if (MODE == kSigns) nvalid += vr;
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) {
+      const int e = t + TPF * k;
+      accumulate<MODE>(v[k], rad[e], MODE != kFloat ? dth[e] : 0.0f, cscale, qscale, rw, vr,
+                       acc_c[k], acc_s[k], iacc_c[k], iacc_s[k]);
+    }
+    if (MODE == kFloat && ++since == kWideFlushRows) {
+      flush();
+      since = 0;
+    }
+  }
+
+  if (MODE == kFloat) {
+    flush();  // also writes a row-less group's zeros
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k) {
+    int qc = iacc_c[k], qs = iacc_s[k];
+    if (MODE == kSigns) {  // sum of +-1 codes = 2 (count of +1) - weight
+      qc = 2 * qc - nvalid;
+      qs = 2 * qs - nvalid;
+    }
+    atomicAdd(qcos + base + t + TPF * k, qc);
+    atomicAdd(qsin + base + t + TPF * k, qs);
+  }
+}
+
 // Second pass of the float sums: partials summed in group order, in double;
 // a tenant's (groups, width) partials and (width,) outputs follow the
 // previous tenant's, blockIdx.x = tenant * col_blocks + column block.
@@ -501,31 +723,37 @@ struct Instance {
   KernelFn fn;
   size_t smem;
   int freq_blocks;  // frequency blocks per CTA
+  int threads;      // threads per CTA
 };
 
 // Lifts an instance's dynamic shared-memory limit to its size, once per
 // device (a cudaFuncSetAttribute per launch would cost more than a small
-// launch).
+// launch).  The template arguments name the instance (NX = 0: the wide
+// kernel), so that each has its own table.
 template <int D, int MODE, int NX, bool FLEET>
-cudaError_t allow_smem() {
+cudaError_t allow_smem(KernelFn fn, size_t bytes) {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(structured<D, MODE, NX, FLEET>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Layout<D, MODE>::BYTES);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
 template <int D, int MODE, int NX, bool FLEET>
 cudaError_t instance(Instance* out) {
-  out->fn = structured<D, MODE, NX, FLEET>;
-  out->smem = Layout<D, MODE>::BYTES;
-  out->freq_blocks = Layout<D, MODE>::FB;
-  return allow_smem<D, MODE, NX, FLEET>();
+  *out = {structured<D, MODE, NX, FLEET>, Layout<D, MODE>::BYTES, Layout<D, MODE>::FB,
+          kThreads};
+  return allow_smem<D, MODE, NX, FLEET>(out->fn, out->smem);
+}
+
+template <int D, int MODE, bool FLEET>
+cudaError_t wide_instance(Instance* out) {
+  using W = WideLayout<D, MODE>;
+  *out = {structured_wide<D, MODE, FLEET>, W::BYTES, 1, W::TPF};
+  return allow_smem<D, MODE, 0, FLEET>(out->fn, out->smem);
 }
 
 template <int MODE, bool FLEET>
@@ -540,6 +768,9 @@ cudaError_t pick_mode(int d, int n, Instance* out) {
     case 512: return instance<512, MODE, kEpt, FLEET>(out);
     case 1024: return instance<1024, MODE, kEpt, FLEET>(out);
     case 2048: return instance<2048, MODE, kEpt, FLEET>(out);
+    case 4096: return wide_instance<4096, MODE, FLEET>(out);
+    case 8192: return wide_instance<8192, MODE, FLEET>(out);
+    case 16384: return wide_instance<16384, MODE, FLEET>(out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -574,9 +805,9 @@ cudaError_t launch(const Instance& in, bool fleet, int tenants, int nblocks,
       (!fleet && tenants != 1))
     return cudaErrorInvalidValue;
   const dim3 grid(tenants * groups, col_blocks);
-  in.fn<<<grid, kThreads, in.smem, stream>>>(x, diags, radii, dither, rowv, n_pts, n, nblocks,
-                                             cscale, qscale, rows_per_group, part_c, part_s,
-                                             qcos, qsin);
+  in.fn<<<grid, in.threads, in.smem, stream>>>(x, diags, radii, dither, rowv, n_pts, n, nblocks,
+                                               cscale, qscale, rows_per_group, part_c, part_s,
+                                               qcos, qsin);
   return cudaGetLastError();
 }
 
@@ -630,13 +861,13 @@ int structured_sketch_resident(int d, int n, int mode, int* blocks_per_sm, int* 
   cudaError_t err = pick(false, d, n, mode, &in);
   if (err != cudaSuccess) return (int)err;
   *freq_blocks = in.freq_blocks;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, kThreads,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, in.threads,
                                                            in.smem);
 }
 
 // x (n_pts, n), diags (nblocks, 3, d) (entries +-1), radii (nblocks, d),
 // beta (n_pts,) float32, contiguous on the device; d a power of two in
-// [32, 2048], 1 <= n <= d.  part_c / part_s: (groups, nblocks * d) double
+// [32, 16384], 1 <= n <= d.  part_c / part_s: (groups, nblocks * d) double
 // scratch; out_c / out_s: (nblocks * d,).  groups * rows_per_group must cover
 // n_pts.  cscale is the float32 d^-1/2.  Returns a cudaError_t code.
 int structured_sketch_sums(const float* x, const float* diags,

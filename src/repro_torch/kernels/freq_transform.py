@@ -23,8 +23,9 @@ Kernels (``csrc/structured_sketch.cu``), for ``x (N, n)`` with ``n <= d``,
 
 The CUDA kernels run the ``O(d log d)`` butterfly, a thread holding 32
 coordinates of a block, on a grid of one wave of resident CTAs
-(:func:`structured_grid`); the plain versions run :func:`hd_chain` in the
-Kronecker form over chunks of rows.
+(:func:`structured_grid`), for ``d`` from 32 to ``MAX_KERNEL_D`` = 16384
+(blocks above 2048 in a CTA of ``d / 32`` threads a row); the plain
+versions run :func:`hd_chain` in the Kronecker form over chunks of rows.
 
 The fleet entries :func:`structured_sketch_sums_fleet` and
 :func:`quantized_structured_sketch_sums_fleet` take a tenant axis (``x (T,
@@ -55,8 +56,10 @@ QUANTIZED_STRUCTURED_LAUNCHES = 0
 STRUCTURED_FLEET_LAUNCHES = 0
 QUANTIZED_STRUCTURED_FLEET_LAUNCHES = 0
 
-# Widest block the kernels take (their shared-memory layout is sized for it).
-MAX_KERNEL_D = 2048
+# Widest block the kernels take: the block of the widest d_model among the
+# configs (mistral-large, 12288).  Blocks above 2048 run the wide kernel
+# (csrc/structured_sketch.cu, structured_wide).
+MAX_KERNEL_D = 16384
 # The kernels' instances: float sums, b-bit codes, 1-bit codes.
 _MODE_FLOAT, _MODE_CODES, _MODE_SIGNS = 0, 1, 2
 # (CTAs per SM, frequency blocks per CTA) of each instance, by

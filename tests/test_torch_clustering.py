@@ -93,13 +93,19 @@ def test_balancer_merge_adds_states():
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("freq_op", [None, "structured"])
-def test_monitor_sketch_matches_the_reference(freq_op):
-    """dim 64: the default (dense below 512) and the structured operator,
-    each carried from the reference's; three batches of four pooled rows."""
-    ref = jmon.ActivationMonitor(dim=64, k=2, freq_op=freq_op)
-    port = tmon.ActivationMonitor(dim=64, k=2, freq_op=freq_op, device="cpu")
-    assert port.freq_op == ref.freq_op and port.m_ == ref.m_ == 512
+@pytest.mark.parametrize("dim,m,freq_op", [
+    pytest.param(64, None, None, id="None"),
+    pytest.param(64, None, "structured", id="structured"),
+    pytest.param(4100, 8192, None, id="wide"),
+])
+def test_monitor_sketch_matches_the_reference(dim, m, freq_op):
+    """dim 64: the default (dense below 512) and the structured operator;
+    dim 4100 (the default, structured): one 8192-wide block, the width that
+    the CUDA kernel takes since d_model > 2048 reaches it; each operator
+    carried from the reference's; three batches of four pooled rows."""
+    ref = jmon.ActivationMonitor(dim=dim, k=2, m=m, freq_op=freq_op)
+    port = tmon.ActivationMonitor(dim=dim, k=2, m=m, freq_op=freq_op, device="cpu")
+    assert port.freq_op == ref.freq_op and port.m_ == ref.m_ == (m or 8 * dim)
     if ref.freq_op == "dense":
         port.freqs = convert.operator_from_numpy(np.asarray(ref.freqs.w), device="cpu")
     else:
@@ -109,12 +115,12 @@ def test_monitor_sketch_matches_the_reference(freq_op):
     rng = np.random.default_rng(3)
     js, ts = ref.init_state(), port.init_state()
     for _ in range(3):
-        pooled = rng.standard_normal((4, 64)).astype(np.float32)
+        pooled = rng.standard_normal((4, dim)).astype(np.float32)
         js = ref.update(js, jnp.asarray(pooled))
         ts = port.update(ts, torch.from_numpy(pooled).requires_grad_(True))
     _close_state(ts, js, f"monitor {ref.freq_op}")
     res = port.decode(ts)
-    assert tuple(res.centroids.shape) == (2, 64) and bool(torch.isfinite(res.centroids).all())
+    assert tuple(res.centroids.shape) == (2, dim) and bool(torch.isfinite(res.centroids).all())
     assert abs(float(res.weights.sum()) - 1.0) < 1e-4
     # sketch_drift on the same state and decoded model, both packages.
     jres = jckm.CKMResult(jnp.asarray(res.centroids.numpy()), jnp.asarray(res.weights.numpy()),
