@@ -103,7 +103,9 @@ model- and hardware-FLOP shares, the first loss against float32 compute, the
 final checkpoint restored bitwise, the monitor's decode and the balancer's
 weights), the activation monitor at d_model 4096, 6144 and 12288
 (``monitor_wide_phase``: updates through kernel 4's wide blocks against
-the plain version) and the restart invariant at its smoke config
+the plain version, and kernel 4 at the monitor's default K = 8 at 12288,
+24 blocks, on an operator drawn on the card) and the restart invariant at
+its smoke config
 (``lm_restart_phase``: six steps straight against three, a restart and
 three); the LM on a mesh (``lm_mesh_phases``: an NCCL group of one rank on
 a (1, 1) mesh, llama3.2-1B's train steps, prefill and decode bitwise the
@@ -171,10 +173,15 @@ WIDE_BLOCK_SEED = 31
 # at d = 4096, 8192 and 16384), K = MONITOR_WIDE_K, MONITOR_WIDE_UPDATES
 # updates of LM_TRAIN's B pooled rows.  m = None is the monitor's 4 K
 # d_model; at 12288 that is 12 blocks, whose draw (on the host, a CPU
-# generator: (n, nblocks, d) float32, ~9.7 GB a tensor, and its chain's
-# intermediates) took 51.8 s of the smoke, so 12288 takes 3 blocks.
+# generator, summed in chunks: under 5 GB of peak RSS) takes ~27 s on the
+# chip machine's host (monitor_draw), so 12288 takes 3 blocks for the
+# smoke's clock.
 MONITOR_WIDE = ((4096, None), (6144, None), (12288, 3 * 16384))
 MONITOR_WIDE_K, MONITOR_WIDE_UPDATES = 4, 3
+# Kernel 4 at the monitor's default shape at the widest d_model: K = 8 (m =
+# 4 K d_model = 393,216, 24 blocks of 16384), LM_TRAIN's B rows, on an
+# operator drawn on the card.
+MONITOR_DEFAULT = (12288, 8)
 # The sketch_shift decoder's swarm: CKMConfig.shift_candidates (8) per
 # cluster; a ragged swarm and sketch for the masked edges.
 SHIFT_P = 8 * K
@@ -1641,9 +1648,10 @@ def check_structured_codes_fleet(ft, x, diags, radii, dither, bits, label, time_
     )
 
 
-def structured_fleet_instances(ft, dev, gen, shapes=FLEET_STRUCTURED_SHAPES):
+def structured_fleet_instances(ft, dev, gen, shapes=FLEET_STRUCTURED_SHAPES, time_it=False):
     """Kernels 4-5's fleet entries at the other instances, few tenants and
-    a ragged B (``shapes`` of (n, m, T, B)): float, 1 bit and 4 bits each."""
+    a ragged B (``shapes`` of (n, m, T, B)): float, 1 bit and 4 bits each,
+    timed beside the loop of single launches when ``time_it``."""
     from repro_torch.core import FleetEngine, fleet_specs
     from repro_torch.core import quantize
 
@@ -1656,10 +1664,10 @@ def structured_fleet_instances(ft, dev, gen, shapes=FLEET_STRUCTURED_SHAPES):
         beta = torch.rand((tenants, rows), generator=gen, device=dev)
         dither = torch.stack([quantize.draw_dither(gen, nblocks * d) for _ in range(tenants)])
         label = f"instance d={d} n={n}"
-        check_structured_fleet(ft, x, diags, radii, beta, label, time_it=False)
+        check_structured_fleet(ft, x, diags, radii, beta, label, time_it=time_it)
         for bits in (1, 4):
             check_structured_codes_fleet(ft, x, diags, radii, dither.reshape(tenants, nblocks, d),
-                                         bits, label, time_it=False)
+                                         bits, label, time_it=time_it)
 
 
 def wide_block_checks(fs, ft, dev, blocks=WIDE_BLOCKS, n_pts=WIDE_BLOCK_N,
@@ -1667,8 +1675,8 @@ def wide_block_checks(fs, ft, dev, blocks=WIDE_BLOCKS, n_pts=WIDE_BLOCK_N,
     """Kernels 4-5 at the monitor's wide blocks (the wide kernel,
     ``structured_wide``): kernel 4 at each (n, m) of ``blocks`` on ``n_pts``
     standard normal rows, kernels 4 and 5 (1 and 4 bits) on ``codes_n``
-    rows and the fleet entries 4f-5f (``fleet`` = (T, B)) at d = 8192; the
-    sketch and code bars, the undetermined columns counted
+    rows and the fleet entries 4f-5f (``fleet`` = (T, B)) at d = 8192,
+    timed; the sketch and code bars, the undetermined columns counted
     (``chain_uncertainty``).  Operators, rows and dither from a generator
     of their own."""
     from repro_torch.core import freq_ops, quantize
@@ -1685,7 +1693,7 @@ def wide_block_checks(fs, ft, dev, blocks=WIDE_BLOCKS, n_pts=WIDE_BLOCK_N,
         else:
             check_structured(ft, x, op, torch.ones((rows,), device=dev), label, chain=True)
         del op, x
-    structured_fleet_instances(ft, dev, gen, ((blocks[1][0], blocks[1][1], *fleet),))
+    structured_fleet_instances(ft, dev, gen, ((blocks[1][0], blocks[1][1], *fleet),), time_it=True)
 
 
 def monitor_wide_phase(dev, run, dims=MONITOR_WIDE, k=MONITOR_WIDE_K,
@@ -1749,6 +1757,29 @@ def monitor_wide_phase(dev, run, dims=MONITOR_WIDE, k=MONITOR_WIDE_K,
               f"{bound_ms:.5f} ms ({bound_by})", flush=True)
         del mon, op, state, pooled, xs
         torch.cuda.empty_cache()
+    monitor_default_shape(dev, rows)
+
+
+def monitor_default_shape(dev, rows, shape=MONITOR_DEFAULT):
+    """Kernel 4 against its plain version and timed at the monitor's
+    default (d_model, K) = ``shape``: m = 4 K d_model on ``rows`` standard
+    normal rows, the operator drawn on the card (freq_ops.make_operator),
+    the undetermined columns within their rows' uncertainty."""
+    from repro_torch.core import freq_ops
+    from repro_torch.kernels import freq_transform as ft
+
+    dim, k = shape
+    gen = torch.Generator(device=dev).manual_seed(dim + k)
+    t0 = time.perf_counter()
+    op = freq_ops.make_operator("structured", gen, 4 * k * dim, dim, 1.0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    x = torch.randn((rows, dim), generator=gen, device=dev)
+    out = check_structured(ft, x, op, torch.ones((rows,), device=dev),
+                           f"monitor default d_model={dim} K={k} nblocks={op.nblocks}", chain=True)
+    print(f"[monitor default d_model={dim} K={k}] operator drawn on the card in {draw_s:.2f}s; "
+          f"kernel 4 {out['ms']:.4f} ms against the bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']})", flush=True)
 
 
 def fleet_phases(dev, run, cfg, sigma2, results, sync=None, tenants=FLEET_T, rows=FLEET_B,
@@ -4171,6 +4202,10 @@ def main() -> None:
     instances = ptxas_instances(_build.PTXAS.get("structured_sketch", ""))
     check(len(instances) == 66, f"ptxas reported {len(instances)} structured instances, not 66")
     print("[ptxas structured_sketch] " + "; ".join(instances), flush=True)
+    wide = [i for i in instances if "/NX=wide" in i]
+    spilled = [i for i in wide if not i.endswith(" 0 B spilled")]
+    check(len(wide) == 18 and not spilled,
+          f"the wide structured instances: {len(wide)} of 18, spills in {spilled}")
 
     # 3. The data.
     t0 = time.perf_counter()

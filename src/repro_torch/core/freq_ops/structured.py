@@ -114,14 +114,56 @@ class StructuredOperator(FrequencyOperator):
         )
 
 
+# The restricted rescale's (chunk, nblocks, d) float32 chain outputs: an
+# operator whose whole tensor takes at most _RESCALE_ONE_PASS_BYTES is summed
+# in one pass (every operator the suite and the smoke run draw below d_model
+# 4096 does: the monitor's at 2048, K = 4, takes 268 MB); a larger one in
+# chunks of _RESCALE_CHUNK_BYTES, which the host's caches hold (per element,
+# some 2-4x faster than chunks of hundreds of MB on an 8-core Xeon), their
+# sums added in float64.  So the draw's memory is bounded at any n: a chunk
+# and a few intermediates of its size.
+_RESCALE_ONE_PASS_BYTES = 512 << 20
+_RESCALE_CHUNK_BYTES = 8 << 20
+
+
+def _basis_chain(diags: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """``hd_chain`` of the zero-padded basis vectors ``e_start .. e_stop-1``
+    against every block, ``(stop - start, nblocks, d)``.  The first stage of
+    ``e_i`` is ``c D_0[i] H[i, :]``, every entry ``+-c`` exactly (one nonzero
+    product a sum), so it is written out rather than transformed: the same
+    bits without a third of the transforms."""
+    d = diags.shape[-1]
+    idx = torch.arange(start, stop, device=diags.device)
+    a, b = ft.kron_factors(d)
+    ha = ft.hadamard(a, diags.dtype, diags.device)
+    hb = ft.hadamard(b, diags.dtype, diags.device)
+    h_rows = (ha[idx // b][:, :, None] * hb[idx % b][:, None, :]).reshape(-1, d)  # H[i, :]
+    c = ft.inv_sqrt(d, diags.dtype)
+    v = h_rows[:, None, :] * (diags[:, 0, start:stop].T[:, :, None] * c)
+    for s in (1, 2):
+        v = ft.fwht(v * diags[..., s, :]) * c
+    return v
+
+
 def _restricted_rescale(diags: torch.Tensor, rho: torch.Tensor, n: int) -> torch.Tensor:
     """``rho`` divided by each row's norm restricted to the first ``n``
-    coordinates: one batched chain over the ``n`` zero-padded basis vectors."""
-    d = diags.shape[-1]
-    basis = torch.eye(d, dtype=diags.dtype, device=diags.device)[:n]  # (n, d)
-    cols = ft.hd_chain(basis[:, None, :], diags)  # (n, nblocks, d)
-    restricted = torch.sqrt(torch.sum(cols * cols, dim=0))  # (nblocks, d)
-    return rho / torch.clamp(restricted, min=1e-6)
+    coordinates: the chain over the ``n`` zero-padded basis vectors, its
+    squares summed in one pass, or over chunks in float64 (see
+    ``_RESCALE_ONE_PASS_BYTES``), which may move the last bits against one
+    pass."""
+    nblocks, _, d = diags.shape
+    row_bytes = 4 * nblocks * d
+    if n * row_bytes <= _RESCALE_ONE_PASS_BYTES:
+        cols = _basis_chain(diags, 0, n)
+        total = torch.sum(cols * cols, dim=0)  # (nblocks, d)
+    else:
+        chunk = max(1, _RESCALE_CHUNK_BYTES // row_bytes)
+        total = torch.zeros((nblocks, d), dtype=torch.float64, device=diags.device)
+        for start in range(0, n, chunk):
+            cols = _basis_chain(diags, start, min(n, start + chunk))
+            total += torch.sum(cols * cols, dim=0, dtype=torch.float64)
+        total = total.to(diags.dtype)
+    return rho / torch.clamp(torch.sqrt(total), min=1e-6)
 
 
 @register_freq_op("structured")

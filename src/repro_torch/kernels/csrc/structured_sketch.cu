@@ -74,35 +74,48 @@
 //  * Wide blocks, d = 4096, 8192 and 16384 (the activation monitor at
 //    d_model > 2048; the reference's Pallas kernel holds any block whole),
 //    run another kernel, structured_wide, so the instances above keep their
-//    code.  A row needs TPF = 128, 256 or 512 threads, and levels h >= 1024
-//    cross warps (2, 3 or 4 levels a stage); the constants of one block
-//    (signs 3d, radii d, dither d) take 64-80 KB at 4096 and 256-320 KB at
-//    16384, past the 227 KB a CTA may hold.  So a CTA of TPF threads holds
-//    one block and one row at a time, in a padded row buffer in shared
-//    memory.  Each stage reads it in the contiguous layout (coordinate
-//    32 t + k in register k), runs levels 1 .. 16 in registers and 32 .. 512
-//    by shuffles, writes it back and reads it in the strided layout
-//    (coordinate t + TPF k), where levels 1024 .. d / 2 pair registers k and
-//    k + h / TPF: one transpose through shared memory a stage instead of a
-//    cross-warp exchange a level.  The strided layout also makes the row's
-//    loads and the radii's and dither's reads coalesced and conflict-free.
-//    Thread t keeps its 3 x 32 signs as three bit masks in registers (so
-//    diags must hold +-1, as the operator's draw gives), and the radii and
-//    dither sit in shared memory: 130 KB at d = 16384 (float), 194 KB with
-//    the dither.  The level order, the operands and the roundings are those
-//    above, so a wide block rounds its phases as the narrow kernel would.
-//    Float sums: thread t owns coordinates t + TPF k and adds its float
-//    sums into the group's double partials every 32 rows, in row order, so
-//    the sums stay bitwise repeatable and each fleet tenant bitwise its
-//    own launch; codes are atomicAdd'ed as above.  The monitor folds a few
-//    rows a step, so this kernel is written for being right, not tuned.
+//    code.  A row needs TPF = 128, 256 or 512 threads (a team), and the
+//    constants of one block (signs 3d, radii d, dither d) take 256-320 KB
+//    at 16384, past the 227 KB a CTA may hold.  A CTA of 512 threads holds
+//    one block: its radii and dither in shared memory, and 4, 2 or 1 teams,
+//    each with a row buffer of its own (d floats, 4 pad words a 32) and a
+//    row group of its own, one row at a time, synchronised by a named
+//    barrier of its own, so the teams run as independently as CTAs but
+//    share the constants.  Thread t keeps its 3 x 32 signs as three bit
+//    masks in registers (so diags must hold +-1, as the operator's draw
+//    gives).  Per row and stage, three layouts of the buffer in turn, each
+//    with 32 coordinates a thread in registers: A (32 t + k; levels
+//    1 .. 16), B (lane + 32 k + 1024 w, t = 32 w + lane; levels 32 .. 512)
+//    and C (t + TPF k; levels 1024 .. d / 2), so every level is an add
+//    between a thread's own registers and a layout change is one store, one
+//    barrier and one load, with no shuffle: 8 changes a row.  The 4-word pad
+//    of each 32 keeps A's 128-bit accesses, B's and C's 32-bit ones and the
+//    row's 16-byte cp.async copies free of bank conflicts.  The later
+//    stages' signs times c are applied in layout C before the change to A.
+//    The next row is copied into the buffer by cp.async (zeros past column
+//    n) as soon as the team has read the current one in layout C, so the
+//    copy runs under the trig.  The level order, the operands and the
+//    roundings are those above, so a wide block rounds its phases as the
+//    narrow kernel would.  Float sums: thread t owns coordinates t + TPF k
+//    of its group's double partials and adds its float sums there every
+//    kWideFlushRows (256) rows, in row order, so the sums stay bitwise
+//    repeatable and each fleet tenant bitwise its own launch; codes are
+//    atomicAdd'ed as above.  The wrapper gives each team one group
+//    (structured_grid with one row a group at least), so a few rows, as the
+//    monitor folds a step, run in parallel.  Registers: 32 coordinates and
+//    64 sums a thread at 512 threads an SM, within the 128 a thread that
+//    leaves.  What bounds it: the SM's instruction rate, some 70
+//    instructions a (row, coordinate) (39 butterfly adds, the sign flips
+//    and scales, the trig, 11 shared-memory accesses), which the butterfly
+//    and the layout changes share.
 //  * The fleet entries (structured_sketch_sums_fleet,
 //    quantized_structured_sketch_sums_fleet) sketch T tenants' batches,
 //    each against its own signs, radii and beta or dither, in one launch:
 //    the counterpart of the reference's vmap of the Pallas kernels over the
 //    tenant axis (src/repro/core/fleet.py:_tenant_part, _tenant_qpart).  The
 //    tenant rides in the grid's x axis, blockIdx.x = tenant * groups +
-//    group, with groups = ceil(n_pts / rows_per_group), and each CTA offsets
+//    group (the wide kernel: tenant * ceil(groups / teams) + CTA), with
+//    groups = ceil(n_pts / rows_per_group), and each CTA offsets
 //    its pointers by its tenant's strides, which follow from n_pts, n,
 //    nblocks and groups.  Each tenant gets the grid that an isolated call of
 //    B rows gets (the wrapper asks structured_grid for B, never for T B,
@@ -507,26 +520,29 @@ structured(const float* __restrict__ x, const float* __restrict__ diags,
 }
 
 // The wide blocks, d = 4096 .. 16384 (see the file's header): a CTA of
-// TPF = d / 32 threads holds one row at a time.
+// kWideThreads threads holds TEAMS teams of TPF = d / 32 threads, each team
+// one row at a time and one row group of its own.
+constexpr int kWideThreads = 512;
 template <int D, int MODE>
 struct WideLayout {
-  static constexpr int TPF = D / kEpt;   // threads per row, and per CTA
-  static constexpr int HM0 = 1024 / TPF; // register distance of level h = 1024 (strided)
-  static constexpr int ROW = D + D / 32; // the row buffer: one pad word per 32
-  // Shared memory: the row buffer, the radii and (codes) the dither.
+  static constexpr int TPF = D / kEpt;              // threads a row: a team
+  static constexpr int TEAMS = kWideThreads / TPF;  // teams (rows in flight) a CTA
+  static constexpr int HM0 = 1024 / TPF;  // register distance of level h = 1024 (layout C)
+  static constexpr int SEG = kEpt + 4;    // a 32-coordinate segment of a row buffer, padded
+  static constexpr int ROW = D / kEpt * SEG;  // a team's row buffer, in floats
+  // Shared memory: the radii, (codes) the dither, the teams' row buffers.
   static constexpr size_t BYTES =
-      sizeof(float) * (size_t)(ROW + (MODE == kFloat ? 1 : 2) * D);
-  static_assert(TPF >= 128 && TPF <= 512 && TPF * kEpt == D, "block width");
+      sizeof(float) * ((size_t)(MODE == kFloat ? 1 : 2) * D + (size_t)TEAMS * ROW);
+  static_assert(TPF >= 128 && TPF <= kWideThreads && TPF * kEpt == D, "block width");
+  static_assert(TEAMS * TPF == kWideThreads && TEAMS <= 4, "teams");
   static_assert(BYTES <= 232448, "shared memory");
 };
 
-// Rows a thread adds in float before its double flush (float sums).
-constexpr int kWideFlushRows = 32;
+// Rows a thread adds in float before it adds them into its group's double
+// partials (float sums).
+constexpr int kWideFlushRows = 256;
 
-// Padded index of coordinate e in the row buffer.
-__device__ __forceinline__ int pad_index(int e) { return e + (e >> 5); }
-
-// Butterfly levels h = 1024 .. d / 2 in the strided layout (thread t holds
+// Butterfly levels h = 1024 .. d / 2 in layout C (thread t holds
 // coordinates t + TPF k, so level h pairs registers k and k + h / TPF).
 template <int HM0>
 __device__ __forceinline__ void butterfly_strided(float (&v)[kEpt]) {
@@ -543,8 +559,82 @@ __device__ __forceinline__ void butterfly_strided(float (&v)[kEpt]) {
   }
 }
 
+// A team of TPF threads over its row buffer, coordinate e at float
+// (e / 32) * SEG + e % 32, in three layouts: A, coordinates 32 t + k of
+// thread t in register k (128-bit accesses); B, lane + 32 k + 1024 w
+// (t = 32 w + lane); C, t + TPF k.  Each is free of bank conflicts.
+// STRIDE is the float distance between registers k and k + 1.
+template <int STRIDE>
+__device__ __forceinline__ void load_regs(float (&v)[kEpt], const float* p) {
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k) v[k] = p[STRIDE * k];
+}
+
+template <int STRIDE>
+__device__ __forceinline__ void store_regs(const float (&v)[kEpt], float* p) {
+#pragma unroll
+  for (int k = 0; k < kEpt; ++k) p[STRIDE * k] = v[k];
+}
+
+__device__ __forceinline__ void load_a(float (&v)[kEpt], const float* p) {
+#pragma unroll
+  for (int q = 0; q < kEpt / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void store_a(const float (&v)[kEpt], float* p) {
+#pragma unroll
+  for (int q = 0; q < kEpt / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                                  v[4 * q + 3]);
+}
+
+// Barrier `id` over the `threads` threads of one team.
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// cp.async of `bytes` (0 or the copy's size: 0 writes zeros) from src.
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// A shared-memory float, loaded where it is used: volatile, so that the
+// compiler does not hoist a thread's 32-64 loop-invariant radii and dither
+// out of the row loop into registers (as konst above).
+__device__ __forceinline__ float lds(const float* p) {
+  float r;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(r) : "r"(smem_addr(p)));
+  return r;
+}
+
+// The value of `bits`, opaque to the compiler: sign masks derived from it
+// inside the row loop are not hoisted out of it into 96 registers.
+__device__ __forceinline__ uint32_t opaque(uint32_t bits) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(bits));
+  return bits;
+}
+
+// v with its sign flipped where bit k of `neg` is set: v * (-1) exactly,
+// and __fmul_rn(u, -c) = -__fmul_rn(u, c) (round to nearest is symmetric).
+__device__ __forceinline__ float flip(float v, uint32_t neg, int k) {
+  return __uint_as_float(__float_as_uint(v) ^ ((neg << (31 - k)) & 0x80000000u));
+}
+
 template <int D, int MODE, bool FLEET>
-__global__ void __launch_bounds__(D / kEpt, 16384 / D)
+__global__ void __launch_bounds__(kWideThreads, 1)
 structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
                 const float* __restrict__ radii, const float* __restrict__ dither,
                 const float* __restrict__ rowv, int64_t n_pts, int n, int nblocks,
@@ -552,39 +642,58 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
                 double* __restrict__ part_c, double* __restrict__ part_s,
                 int* __restrict__ qcos, int* __restrict__ qsin) {
   using W = WideLayout<D, MODE>;
-  constexpr int TPF = W::TPF;
+  constexpr int TPF = W::TPF, TEAMS = W::TEAMS, SEG = W::SEG;
   extern __shared__ __align__(16) float smem[];
-  float* row = smem;             // the row, padded
-  float* rad = row + W::ROW;     // radii
-  float* dth = rad + D;          // dither (codes)
+  float* rad = smem;          // radii
+  float* dth = rad + D;       // dither (codes)
+  const int team = threadIdx.x / TPF, t = threadIdx.x % TPF;
+  float* buf = smem + (MODE == kFloat ? 1 : 2) * D + team * W::ROW;
 
-  int64_t group = blockIdx.x;
-  if constexpr (FLEET) {  // as in structured<>
-    const int64_t groups = (n_pts + rows_per_group - 1) / rows_per_group;
-    const int64_t tenant = blockIdx.x / groups, width = (int64_t)nblocks * D;
-    group = blockIdx.x - tenant * groups;
-    x += tenant * n_pts * n;
-    diags += tenant * 3 * width;
-    radii += tenant * width;
-    if (rowv) rowv += tenant * n_pts;
-    if (MODE == kFloat) {
-      part_c += tenant * groups * width;
-      part_s += tenant * groups * width;
-    } else {
-      dither += tenant * width;
-      qcos += tenant * width;
-      qsin += tenant * width;
-    }
-  }
-  const int t = threadIdx.x;
+  // Groups of rows_per_group rows (at least one group), TEAMS a CTA: team
+  // `team` of the tenant's CTA c takes group c * TEAMS + team.  Rows are
+  // indexed across the tenants (row tenant * n_pts + r of x and rowv), and
+  // gidx is the tenant's group's partials row (FLEET as in structured<>).
+  const int64_t groups = max((int64_t)1, (n_pts + rows_per_group - 1) / rows_per_group);
+  const int64_t width = (int64_t)nblocks * D;
+  const int64_t ctas = (groups + TEAMS - 1) / TEAMS;  // a tenant's
+  const int64_t tenant = FLEET ? blockIdx.x / ctas : 0;
+  const int64_t group = (blockIdx.x - tenant * ctas) * TEAMS + team;
   const int64_t base = (int64_t)blockIdx.y * D;  // this CTA's frequency block
+  const int64_t opd = tenant * width + base;     // the block in the tenant's operator
+  const int64_t r0 = tenant * n_pts + group * rows_per_group;
+  const int64_t r1 = tenant * n_pts + min(n_pts, group * rows_per_group + rows_per_group);
 
-  // The three stages' signs of coordinates 32 t .. 32 t + 31, one bit each
-  // (set for -1), and the block's radii and dither in shared memory.
-  uint32_t neg[3];
+  // Stage row r into the team's buffer by cp.async, zeros past column n:
+  // 16-byte copies where every row starts 16-byte aligned, else 4-byte.
+  const bool vec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const uint32_t sbuf = smem_addr(buf);
+  auto stage_row = [&](int64_t r) {
+    const float* src = x + r * n;
+    if (vec) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const float4* src = reinterpret_cast<const float4*>(diags + base * 3 + s * D + kEpt * t);
+      for (int i = 0; i < D / 4 / TPF; ++i) {
+        const int e = 4 * (t + TPF * i);
+        cp_async16_zfill(sbuf + 4 * ((e >> 5) * SEG + (e & 31)), e < n ? src + e : src,
+                         e < n ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < kEpt; ++i) {
+        const int e = t + TPF * i;
+        cp_async4_zfill(sbuf + 4 * ((e >> 5) * SEG + (e & 31)), e < n ? src + e : src,
+                        e < n ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  if (group < groups && r0 < r1) stage_row(r0);
+
+  // The first stage's signs of coordinates 32 t + k (layout A) and the later
+  // stages' of t + TPF k (layout C), one bit each (set for -1); the block's
+  // radii and dither in shared memory.
+  uint32_t neg[3];
+  {
+    const float4* src = reinterpret_cast<const float4*>(diags + opd * 3 + kEpt * t);
     uint32_t bits = 0;
 #pragma unroll
     for (int q = 0; q < kEpt / 4; ++q) {
@@ -592,15 +701,28 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
       bits |= (uint32_t)(g.x < 0.0f) << (4 * q) | (uint32_t)(g.y < 0.0f) << (4 * q + 1) |
               (uint32_t)(g.z < 0.0f) << (4 * q + 2) | (uint32_t)(g.w < 0.0f) << (4 * q + 3);
     }
+    neg[0] = bits;
+  }
+#pragma unroll
+  for (int s = 1; s < 3; ++s) {
+    const float* src = diags + opd * 3 + s * D + t;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) bits |= (uint32_t)(__ldg(src + TPF * k) < 0.0f) << k;
     neg[s] = bits;
   }
-  for (int i = t; i < D; i += TPF) {
-    rad[i] = radii[base + i];
-    if (MODE != kFloat) dth[i] = dither[base + i];
+  for (int i = threadIdx.x; i < D; i += kWideThreads) {
+    rad[i] = radii[opd + i];
+    if (MODE != kFloat) dth[i] = dither[opd + i];
   }
+  __syncthreads();
+  if (group >= groups) return;
 
-  const int64_t r0 = group * rows_per_group, r1 = min(n_pts, r0 + rows_per_group);
-  const int64_t width = (int64_t)nblocks * D;
+  const int bar = team + 1, lane = t & 31, w = t >> 5;
+  float* pa = buf + SEG * t;                 // layout A
+  float* pb = buf + SEG * kEpt * w + lane;   // layout B
+  float* pc_ = buf + SEG * w + lane;         // layout C
+  constexpr int CSTRIDE = SEG * (TPF / kEpt);
   float acc_c[kEpt], acc_s[kEpt];
   int iacc_c[kEpt], iacc_s[kEpt];
   int nvalid = 0;
@@ -609,16 +731,17 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
     acc_c[k] = acc_s[k] = 0.0f;
     iacc_c[k] = iacc_s[k] = 0;
   }
-  // Float sums: thread t owns coordinates t + TPF k of the group's partials
+  // Float sums: thread t owns coordinates t + TPF k of its group's partials
   // and adds its float sums there every kWideFlushRows rows, in order.
-  double* pc = MODE == kFloat ? part_c + group * width + base + t : nullptr;
-  double* ps = MODE == kFloat ? part_s + group * width + base + t : nullptr;
+  const int64_t gidx = (tenant * groups + group) * width + base + t;
   bool flushed = false;
   auto flush = [&]() {
 #pragma unroll
     for (int k = 0; k < kEpt; ++k) {
-      pc[TPF * k] = (flushed ? pc[TPF * k] : 0.0) + (double)acc_c[k];
-      ps[TPF * k] = (flushed ? ps[TPF * k] : 0.0) + (double)acc_s[k];
+      double* gc = part_c + gidx + TPF * k;
+      double* gs = part_s + gidx + TPF * k;
+      *gc = (flushed ? *gc : 0.0) + (double)acc_c[k];
+      *gs = (flushed ? *gs : 0.0) + (double)acc_s[k];
       acc_c[k] = acc_s[k] = 0.0f;
     }
     flushed = true;
@@ -626,40 +749,38 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
 
   int since = 0;
   for (int64_t r = r0; r < r1; ++r) {
-    // The row, zero-padded to d, in coalesced loads (strided layout).
-    const float* xr = x + r * n;
-#pragma unroll
-    for (int k = 0; k < kEpt; ++k) {
-      const int e = t + TPF * k;
-      row[pad_index(e)] = e < n ? __ldg(xr + e) : 0.0f;
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    team_sync(bar, TPF);  // the row has landed, from every thread's copies
+    const uint32_t neg0 = opaque(neg[0]);
     float v[kEpt];
+    // Stage 0 in layout A: the row times the first stage's signs.
+    load_a(v, pa);
+#pragma unroll
+    for (int k = 0; k < kEpt; ++k) v[k] = flip(v[k], neg0, k);
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
-      // Contiguous layout: coordinates 32 t + k; the stage's signs (times c
-      // after the first), levels 1 .. 16 in registers, 32 .. 512 by shuffles.
+      if (s > 0) {
+        // The stage's signs times c, on the previous stage's output (layout
+        // C), then back to layout A.
+        const uint32_t ns = opaque(neg[s]);
 #pragma unroll
-      for (int k = 0; k < kEpt; ++k) {
-        const float u = row[(kEpt + 1) * t + k];
-        const bool minus = (neg[s] >> k) & 1u;
-        v[k] = s == 0 ? u * (minus ? -1.0f : 1.0f) : __fmul_rn(u, minus ? -cscale : cscale);
+        for (int k = 0; k < kEpt; ++k) v[k] = flip(__fmul_rn(v[k], cscale), ns, k);
+        store_regs<CSTRIDE>(v, pc_);
+        team_sync(bar, TPF);
+        load_a(v, pa);
       }
-      butterfly_regs<kEpt>(v);
-      butterfly_lanes<32>(v, t, nullptr);
-#pragma unroll
-      for (int k = 0; k < kEpt; ++k) row[(kEpt + 1) * t + k] = v[k];
-      __syncthreads();
-      // Strided layout: coordinates t + TPF k; levels 1024 .. d / 2.
-#pragma unroll
-      for (int k = 0; k < kEpt; ++k) v[k] = row[pad_index(t + TPF * k)];
-      butterfly_strided<W::HM0>(v);
-      if (s < 2) {
-#pragma unroll
-        for (int k = 0; k < kEpt; ++k) row[pad_index(t + TPF * k)] = v[k];
-        __syncthreads();
-      }
+      butterfly_regs<kEpt>(v);  // levels 1 .. 16
+      store_a(v, pa);
+      team_sync(bar, TPF);
+      load_regs<SEG>(v, pb);
+      butterfly_regs<kEpt>(v);  // levels 32 .. 512
+      store_regs<SEG>(v, pb);
+      team_sync(bar, TPF);
+      load_regs<CSTRIDE>(v, pc_);
+      butterfly_strided<W::HM0>(v);  // levels 1024 .. d / 2
     }
+    team_sync(bar, TPF);  // every thread has read the row: the buffer is free
+    if (r + 1 < r1) stage_row(r + 1);
 
     const float rw = rowv ? __ldg(rowv + r) : 1.0f;
     const int vr = (int)rw;
@@ -667,8 +788,8 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
 #pragma unroll
     for (int k = 0; k < kEpt; ++k) {
       const int e = t + TPF * k;
-      accumulate<MODE>(v[k], rad[e], MODE != kFloat ? dth[e] : 0.0f, cscale, qscale, rw, vr,
-                       acc_c[k], acc_s[k], iacc_c[k], iacc_s[k]);
+      accumulate<MODE>(v[k], lds(rad + e), MODE != kFloat ? lds(dth + e) : 0.0f, cscale, qscale,
+                       rw, vr, acc_c[k], acc_s[k], iacc_c[k], iacc_s[k]);
     }
     if (MODE == kFloat && ++since == kWideFlushRows) {
       flush();
@@ -680,6 +801,7 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
     flush();  // also writes a row-less group's zeros
     return;
   }
+  if (r0 >= r1) return;
 #pragma unroll
   for (int k = 0; k < kEpt; ++k) {
     int qc = iacc_c[k], qs = iacc_s[k];
@@ -687,8 +809,8 @@ structured_wide(const float* __restrict__ x, const float* __restrict__ diags,
       qc = 2 * qc - nvalid;
       qs = 2 * qs - nvalid;
     }
-    atomicAdd(qcos + base + t + TPF * k, qc);
-    atomicAdd(qsin + base + t + TPF * k, qs);
+    atomicAdd(qcos + opd + t + TPF * k, qc);
+    atomicAdd(qsin + opd + t + TPF * k, qs);
   }
 }
 
@@ -724,6 +846,8 @@ struct Instance {
   size_t smem;
   int freq_blocks;  // frequency blocks per CTA
   int threads;      // threads per CTA
+  int teams;        // row groups per CTA (the wide kernel's teams; 1 elsewhere)
+  bool wide;        // structured_wide, which counts its groups from n_pts
 };
 
 // Lifts an instance's dynamic shared-memory limit to its size, once per
@@ -745,14 +869,14 @@ cudaError_t allow_smem(KernelFn fn, size_t bytes) {
 template <int D, int MODE, int NX, bool FLEET>
 cudaError_t instance(Instance* out) {
   *out = {structured<D, MODE, NX, FLEET>, Layout<D, MODE>::BYTES, Layout<D, MODE>::FB,
-          kThreads};
+          kThreads, 1, false};
   return allow_smem<D, MODE, NX, FLEET>(out->fn, out->smem);
 }
 
 template <int D, int MODE, bool FLEET>
 cudaError_t wide_instance(Instance* out) {
   using W = WideLayout<D, MODE>;
-  *out = {structured_wide<D, MODE, FLEET>, W::BYTES, 1, W::TPF};
+  *out = {structured_wide<D, MODE, FLEET>, W::BYTES, 1, kWideThreads, W::TEAMS, true};
   return allow_smem<D, MODE, 0, FLEET>(out->fn, out->smem);
 }
 
@@ -790,7 +914,8 @@ cudaError_t pick(bool fleet, int d, int n, int mode, Instance* out) {
 }
 
 // The first pass over `tenants` tenants of n_pts rows each; fleet selects
-// the FLEET instances, whose groups must be ceil(n_pts / rows_per_group).
+// the FLEET instances, whose groups must be ceil(n_pts / rows_per_group), as
+// must the wide kernel's (at least 1), whose CTAs hold in.teams groups each.
 cudaError_t launch(const Instance& in, bool fleet, int tenants, int nblocks,
                    int64_t rows_per_group, int groups, cudaStream_t stream, const float* x,
                    const float* diags, const float* radii, const float* dither,
@@ -800,11 +925,13 @@ cudaError_t launch(const Instance& in, bool fleet, int tenants, int nblocks,
       (int64_t)groups * rows_per_group < n_pts)
     return cudaErrorInvalidValue;
   const int col_blocks = (nblocks + in.freq_blocks - 1) / in.freq_blocks;
+  const int64_t exact = (n_pts + rows_per_group - 1) / rows_per_group;
   if ((int64_t)tenants * groups > INT32_MAX || col_blocks > 65535 ||
-      (fleet && (n_pts < 1 || groups != (n_pts + rows_per_group - 1) / rows_per_group)) ||
-      (!fleet && tenants != 1))
+      (fleet && (n_pts < 1 || groups != exact)) || (!fleet && tenants != 1) ||
+      (in.wide && groups != (exact > 1 ? exact : 1)))
     return cudaErrorInvalidValue;
-  const dim3 grid(tenants * groups, col_blocks);
+  const int ctas = (groups + in.teams - 1) / in.teams;  // a tenant's
+  const dim3 grid(tenants * ctas, col_blocks);
   in.fn<<<grid, in.threads, in.smem, stream>>>(x, diags, radii, dither, rowv, n_pts, n, nblocks,
                                                cscale, qscale, rows_per_group, part_c, part_s,
                                                qcos, qsin);
@@ -852,17 +979,19 @@ int code_sums(bool fleet, const float* x, const float* diags, const float* radii
 
 extern "C" {
 
-// CTAs of the instance for (d, n, mode) that fit on one SM of the current
-// device at once, into *blocks_per_sm, and the frequency blocks a CTA owns,
-// into *freq_blocks.  mode: 0 float sums, 1 b-bit codes, 2 1-bit codes.
-// Returns a cudaError_t code.
+// Row groups of the instance for (d, n, mode) that run on one SM of the
+// current device at once (its CTAs that fit, times the row teams a CTA
+// holds: the wide kernel's), into *blocks_per_sm, and the frequency blocks a
+// CTA owns, into *freq_blocks.  mode: 0 float sums, 1 b-bit codes, 2 1-bit
+// codes.  Returns a cudaError_t code.
 int structured_sketch_resident(int d, int n, int mode, int* blocks_per_sm, int* freq_blocks) {
   Instance in;
   cudaError_t err = pick(false, d, n, mode, &in);
   if (err != cudaSuccess) return (int)err;
   *freq_blocks = in.freq_blocks;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, in.threads,
-                                                           in.smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, in.fn, in.threads, in.smem);
+  *blocks_per_sm *= in.teams;
+  return (int)err;
 }
 
 // x (n_pts, n), diags (nblocks, 3, d) (entries +-1), radii (nblocks, d),

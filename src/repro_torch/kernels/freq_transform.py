@@ -24,8 +24,9 @@ Kernels (``csrc/structured_sketch.cu``), for ``x (N, n)`` with ``n <= d``,
 The CUDA kernels run the ``O(d log d)`` butterfly, a thread holding 32
 coordinates of a block, on a grid of one wave of resident CTAs
 (:func:`structured_grid`), for ``d`` from 32 to ``MAX_KERNEL_D`` = 16384
-(blocks above 2048 in a CTA of ``d / 32`` threads a row); the plain
-versions run :func:`hd_chain` in the Kronecker form over chunks of rows.
+(blocks above ``WIDE_FROM`` in teams of ``d / 32`` threads a row, each team
+a row group, several a CTA); the plain versions run :func:`hd_chain` in the
+Kronecker form over chunks of rows.
 
 The fleet entries :func:`structured_sketch_sums_fleet` and
 :func:`quantized_structured_sketch_sums_fleet` take a tenant axis (``x (T,
@@ -57,12 +58,13 @@ STRUCTURED_FLEET_LAUNCHES = 0
 QUANTIZED_STRUCTURED_FLEET_LAUNCHES = 0
 
 # Widest block the kernels take: the block of the widest d_model among the
-# configs (mistral-large, 12288).  Blocks above 2048 run the wide kernel
-# (csrc/structured_sketch.cu, structured_wide).
+# configs (mistral-large, 12288).  Blocks above WIDE_FROM run the wide
+# kernel (csrc/structured_sketch.cu, structured_wide).
 MAX_KERNEL_D = 16384
+WIDE_FROM = 2048
 # The kernels' instances: float sums, b-bit codes, 1-bit codes.
 _MODE_FLOAT, _MODE_CODES, _MODE_SIGNS = 0, 1, 2
-# (CTAs per SM, frequency blocks per CTA) of each instance, by
+# (row groups per SM, frequency blocks per CTA) of each instance, by
 # (device index, d, n, mode).
 _RESIDENT: dict[tuple[int, int, int, int], tuple[int, int]] = {}
 # The plain versions hold (chunk, nblocks, d) float32 projections: at most
@@ -168,24 +170,32 @@ def _lib() -> ctypes.CDLL:
 
 
 def structured_grid(
-    n_pts: int, nblocks: int, freq_blocks: int, sms: int, resident: int
+    n_pts: int, nblocks: int, freq_blocks: int, sms: int, resident: int, d: int = 32
 ) -> tuple[int, int, int]:
     """``(rows_per_group, groups, col_blocks)`` of the structured kernels'
     grid: ``col_blocks`` CTAs of ``freq_blocks`` frequency blocks each by
     ``groups`` contiguous row ranges of ``rows_per_group`` rows (the last
-    one ragged).  One wave of ``resident`` CTAs per SM on ``sms`` SMs, where
-    N is large enough (``_launch.grid_rows``); no cap on the rows of a
-    group, since the float kernel adds each tile's sums into double
+    one ragged).  One wave of ``resident`` groups per SM on ``sms`` SMs,
+    where N is large enough (``_launch.grid_rows``); no cap on the rows of a
+    group, since the float kernels add their float sums into double
     accumulators and the codes are summed exactly.  So the
-    ``(groups, nblocks * d)`` partials do not grow with N."""
+    ``(groups, nblocks * d)`` partials do not grow with N.  Blocks ``d``
+    above ``WIDE_FROM`` (the wide kernel, whose ``resident`` counts the row
+    teams an SM runs, each team a group) take one row a group at least, so
+    a few rows of a block run in parallel; the others at least
+    ``_launch.grid_rows``' default."""
     col_blocks = -(-nblocks // freq_blocks)
-    rows, groups = grid_rows(n_pts, col_blocks, sms, resident)
+    if d > WIDE_FROM:
+        rows, groups = grid_rows(n_pts, col_blocks, sms, resident, min_rows=1)
+    else:
+        rows, groups = grid_rows(n_pts, col_blocks, sms, resident)
     return rows, groups, col_blocks
 
 
 def _resident(lib: ctypes.CDLL, dev: torch.device, d: int, n: int, mode: int):
-    """``(CTAs per SM, frequency blocks per CTA)`` of the instance the
-    kernel launches for ``(d, n, mode)`` on ``dev``."""
+    """``(row groups per SM, frequency blocks per CTA)`` of the instance the
+    kernel launches for ``(d, n, mode)`` on ``dev``: its CTAs per SM, times
+    the row teams of a wide kernel's CTA."""
     key = (dev.index, d, n, mode)
     if key not in _RESIDENT:
         per_sm, fb = ctypes.c_int(0), ctypes.c_int(0)
@@ -250,7 +260,7 @@ def structured_sketch_sums(
     lib = _lib()
     with on_device(dev):
         per_sm, fb = _resident(lib, dev, d, n, _MODE_FLOAT)
-        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm, d)
         part = torch.empty((2, groups, nblocks * d), dtype=torch.float64, device=dev)
         out = torch.empty((2, nblocks, d), dtype=torch.float32, device=dev)
         status = lib.structured_sketch_sums(
@@ -289,7 +299,7 @@ def quantized_structured_sketch_sums(
     with on_device(dev):
         mode = _MODE_SIGNS if bits == 1 else _MODE_CODES
         per_sm, fb = _resident(lib, dev, d, n, mode)
-        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+        rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm, d)
         q = torch.zeros((2, nblocks, d), dtype=torch.int32, device=dev)
         status = lib.quantized_structured_sketch_sums(
             x.data_ptr(), diags.data_ptr(), radii.data_ptr(), dither.data_ptr(),
@@ -390,7 +400,7 @@ def _fleet_grid(lib, dev, tenants: int, n_pts: int, n: int, d: int, nblocks: int
     """One tenant's ``(rows_per_group, groups)``: the grid of an isolated
     call of ``n_pts`` rows, never one sized for ``T * n_pts``."""
     per_sm, fb = _resident(lib, dev, d, n, mode)
-    rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm)
+    rows, groups, _ = structured_grid(n_pts, nblocks, fb, sm_count(dev), per_sm, d)
     if tenants * groups > 2**31 - 1:
         raise ValueError(f"T = {tenants} tenants of {groups} row groups exceed the grid limit")
     return rows, groups

@@ -14,7 +14,10 @@ the fit's dither, and at the sweep's n = 100 (N = 20,001, m = 300); kernel 4
 (``structured_sketch``) at the fit shape on the fit's structured operator
 (d = 32), at the wide shape N = 100,003, n = 2048, m = 20,000, and at the
 smoke run's sweep of d = 64 .. 1024 (N = 20,001; as is and the baseline
-only); kernel 5 at 1 bit at the fit shape; kernel 6 (``sketch_shift``) at
+only), and at the smoke run's wide blocks (the wide kernel: d = 4096 and
+16384 on 20,001 rows, d = 8192 on 200,003 rows, there kernel 5 at 1 bit
+too; with the variants that take out its butterfly and its mid-range
+flushes); kernel 5 at 1 bit at the fit shape; kernel 6 (``sketch_shift``) at
 the decoder's swarm (P = 80, n = 10, m = 1000, on the fit's sketch) timed
 eagerly and as 100 launches replayed in a CUDA graph (device time a
 launch), and at the wide shape (P = 80, n = 2048, m = 20,000, on the
@@ -36,7 +39,9 @@ their redesign (commit 8d5cea6, with those C interfaces: kernel 3 without
 ``quantized_fourier_sketch_resident``, on the grid of 8 CTAs an SM and at
 most 16,384 rows a CTA; kernel 6's ``sketch_shift_sums`` with its split of
 m into chunks of 1024); kernel 4-5 baselines must have the current C
-interface; a kernel 2 baseline may have the one before its redesign
+interface, and run on the current wrappers' grid
+(``freq_transform.structured_grid`` from the baseline's own occupancy: at
+wide blocks, one row a group at least); a kernel 2 baseline may have the one before its redesign
 (``assign_argmin(x, c, N, n, K, labels, dist, stream)``, no launch plan).  ``--only`` runs only the named kernels (``fourier_sketch``,
 ``assign_argmin``, ``quantized_fourier_sketch``, ``structured_sketch``,
 ``sketch_shift``, ``flash_attention``).
@@ -124,13 +129,23 @@ NO_SKIP = "no first-stage skip (NX = 32 at n <= 16)"
 STRUCTURED_VARIANTS = {
     "as is": {},
     "no trig (sin = theta, cos = theta^2)": {"structured_sketch.cu": {
-        "            sincos_reduced(theta, &s, &c);\n":
-        "            s = theta;\n            c = theta * theta;\n"}},
+        "    sincos_reduced(theta, &s, &c);\n":
+        "    s = theta;\n    c = theta * theta;\n"}},
     "no butterfly (scales only)": {"structured_sketch.cu": {
         "  butterfly_regs<NX>(v);\n  butterfly_lanes<TPF>(v, t, ex);\n": ""}},
     NO_SKIP: {"structured_sketch.cu": {
         "      if (n <= 16) return instance<32, MODE, 16, FLEET>(out);\n": ""}},
+    "no butterfly (wide: layout changes only)": {"structured_sketch.cu": {
+        "      butterfly_regs<kEpt>(v);  // levels 1 .. 16\n": "",
+        "      butterfly_regs<kEpt>(v);  // levels 32 .. 512\n": "",
+        "      butterfly_strided<W::HM0>(v);  // levels 1024 .. d / 2\n": ""}},
+    "no flush (wide: the group's sums written once, at its end)": {"structured_sketch.cu": {
+        "    if (MODE == kFloat && ++since == kWideFlushRows) {":
+        "    if (MODE == kFloat && ++since == 0) {"}},
 }
+# The wide kernel's own variants: the narrow shapes skip them (same code).
+WIDE_ONLY = ("no butterfly (wide: layout changes only)",
+             "no flush (wide: the group's sums written once, at its end)")
 FLASH_VARIANTS = {
     "as is": {},
     "P in bf16 alone (no lo half of P V)": {"flash_attention.cu": {
@@ -314,7 +329,7 @@ def structured_calls(libs, x, op, one_bit: bool):
                                           ctypes.byref(fb)):
             raise RuntimeError(f"structured_sketch variant {label!r}: occupancy query failed")
         rows, groups, _ = ft.structured_grid(n_pts, nblocks, fb.value, sm_count(dev),
-                                             per_sm.value)
+                                             per_sm.value, d)
         part = torch.empty((2, groups, nblocks * d), dtype=torch.float64, device=dev)
         out = torch.empty((2, nblocks, d), dtype=torch.float32, device=dev)
         q = torch.zeros((2, nblocks, d), dtype=torch.int32, device=dev)
@@ -655,7 +670,8 @@ def main() -> None:
         op = freq_ops.make_operator("structured", g_freq, m, 10, sigma2, device=dev)
         pair = {k: v for k, v in structured_libs.items() if k in ("as is", BASELINE)}
         skip = {k: v for k, v in structured_libs.items() if k in ("as is", NO_SKIP, BASELINE)}
-        for one_bit, group in ((False, structured_libs), (True, skip)):
+        narrow = {k: v for k, v in structured_libs.items() if k not in WIDE_ONLY}
+        for one_bit, group in ((False, narrow), (True, skip)):
             calls, ref = structured_calls(group, x, op, one_bit)
             what = "quantized_structured_sketch 1bit" if one_bit else "structured_sketch"
             print(f"[{what}] fit shape N={n_pts} n=10 d={op.d} m={m}", flush=True)
@@ -684,7 +700,7 @@ def main() -> None:
         op_w = freq_ops.make_operator("structured", g_freq, wide_m, wide_dim, sigma2_w,
                                       device=dev)
         if "structured_sketch" in libs:
-            calls, ref = structured_calls(libs["structured_sketch"], xw, op_w, False)
+            calls, ref = structured_calls(narrow, xw, op_w, False)
             print(f"[structured_sketch] wide N={wide_n} n={wide_dim} d={op_w.d} m={wide_m}",
                   flush=True)
             in_turns(calls, lambda out: max_err(out, ref, wide_n))
@@ -716,6 +732,7 @@ def main() -> None:
                       flush=True)
                 in_turns(calls, lambda out: max_err(out, ref, 20_001))
             del calls
+            wide_blocks_phase(structured_libs, g_freq, dev)
 
     if "flash_attention" in libs:
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -728,6 +745,38 @@ def main() -> None:
         in_turns(calls, lambda o: "|do| against the bar 2^-7 |o| + 1e-4: "
                  f"{float(((o.float() - po).abs() / (2.0**-7 * po.abs() + 1e-4)).max()):.3f} "
                  "of it")
+
+
+def wide_blocks_phase(libs, g_freq, dev) -> None:
+    """Kernel 4 at the smoke run's wide blocks (the wide kernel): d = 4096
+    and 16384 on 20,001 rows (n = d and 12288, two blocks and one), d = 8192
+    (n = 6144, two blocks) on 200,003 rows, and kernel 5 at 1 bit there;
+    every variant but the narrow kernel's own.  Then the monitor's update
+    (4 rows) at d_model 4096, 6144 and 12288 (K = 4) and at 12288 with K =
+    8 (24 blocks): as is beside the baseline."""
+    wide = {k: v for k, v in libs.items() if k != NO_SKIP}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for n, m, n_pts in ((4096, 2 * 4096 - 5, 20_001), (12288, 16384 - 5, 20_001),
+                        (6144, 2 * 8192 - 5, 200_003)):
+        op = freq_ops.make_operator("structured", g_freq, m, n, 1.0, device=dev)
+        xs = torch.randn((n_pts, n), generator=gen, device=dev)
+        for one_bit in (False, True) if op.d == 8192 else (False,):
+            group = {k: v for k, v in wide.items()
+                     if not one_bit or "no flush" not in k}
+            calls, ref = structured_calls(group, xs, op, one_bit)
+            what = "quantized_structured_sketch 1bit" if one_bit else "structured_sketch"
+            print(f"[{what}] wide block N={n_pts} n={n} d={op.d} m={m}", flush=True)
+            in_turns(calls, lambda out: max_err(out, ref, n_pts))
+        del xs, op, calls
+    pair = {k: v for k, v in libs.items() if k in ("as is", BASELINE)}
+    for dim, k in ((4096, 4), (6144, 4), (12288, 4), (12288, 8)):
+        op = freq_ops.make_operator("structured", g_freq, 4 * k * dim, dim, 1.0, device=dev)
+        xs = torch.randn((4, dim), generator=gen, device=dev)
+        calls, ref = structured_calls(pair, xs, op, False)
+        print(f"[structured_sketch] monitor update N=4 n={dim} d={op.d} "
+              f"nblocks={op.nblocks}", flush=True)
+        in_turns(calls, lambda out: max_err(out, ref, 4))
+        del xs, op, calls
 
 
 def assign_phase(libs, x, dev) -> None:

@@ -6,9 +6,8 @@ For each pair, a fresh process builds ``ActivationMonitor(dim=DIM, k=K)``
 on the card (m = 4 K DIM; the structured operator at DIM >= 512, drawn on a
 CPU generator and moved, as ``freq_ops.seeded_operator`` does) and prints
 m, the block count, the seconds and the process's peak host memory (its
-maximum resident set).  A draw that would exceed the machine's memory
-takes the whole command with it: ``_restricted_rescale`` holds (DIM,
-nblocks, d) float32 and its chain's intermediates.
+maximum resident set).  ``_restricted_rescale`` sums its chain in chunks
+past 512 MB, so the peak stays a few GB at any DIM.
 """
 
 from __future__ import annotations
