@@ -35,6 +35,15 @@ def _f32(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(dev)
 
 
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of ``a`` in its own dtype.  numpy has no bfloat16 of its own
+    (JAX's is an extension type torch cannot read), so a bfloat16 array
+    goes through float32, which holds each of its values exactly."""
+    if a.dtype.name == "bfloat16":
+        return _f32(a, dev).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
 def operator_from_numpy(w: np.ndarray, device=dev_mod.DEFAULT) -> DenseOperator:
     """A reference ``(n, m)`` frequency matrix -> the port's dense operator."""
     w = np.asarray(w)
@@ -158,7 +167,7 @@ def _lm_tree(tree: dict, cfg, dev: torch.device) -> dict:
     a group or encoder layer), every leaf a tensor of its numpy dtype."""
 
     def leaves(t, pick=lambda a: a):
-        return tree_map(lambda a: torch.from_numpy(np.array(pick(np.asarray(a)))).to(dev), t)
+        return tree_map(lambda a: _tensor(pick(np.asarray(a)), dev), t)
 
     def unstacked(t, n):
         return [leaves(t, lambda a, g=g: a[g]) for g in range(n)]

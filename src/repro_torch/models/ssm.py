@@ -270,10 +270,14 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state):
     qf, kf, vf = q.to(_F32), k.to(_F32), v.to(_F32)
     cum_f = torch.cumsum(log_f, dim=1)  # (B, c, H), inclusive
     # Within the chunk: gate(i, j) = exp(cum_f[i] - cum_f[j] + log_i[j]) for
-    # j <= i, an exponent <= 0.
+    # j <= i, an exponent <= 0.  Above the diagonal the exponent is masked to
+    # -inf before the exp, not after: there it can pass 88 (cum_f falls by up
+    # to 8 a position), and exp's overflow to inf times where's zero gradient
+    # is a NaN gradient (the reference's where-after-exp gives NaN gradients
+    # at chunks of 256; ROADMAP Queue 3).  exp(-inf) = 0: the same forward.
     expo = cum_f[:, :, None, :] - cum_f[:, None, :, :] + log_i[:, None, :, :]
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
-    gate = torch.where(mask[None, :, :, None], torch.exp(expo), 0.0)  # (B, c, c, H)
+    gate = torch.exp(expo.masked_fill(~mask[None, :, :, None], float("-inf")))  # (B, c, c, H)
     scores = torch.einsum("bihd,bjhd->bijh", qf, kf) * gate
     h_intra = torch.einsum("bijh,bjhd->bihd", scores, vf)
     n_intra = torch.einsum("bijh,bjhd->bihd", gate, kf)
