@@ -134,6 +134,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -258,10 +259,11 @@ FLASH_EDGES = (
     (4, 4, 257, 257, 72, True, 0, torch.float32),    # hd not a power of two
 )
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit), kept in
+# one place: the dry run's roofline.
+from repro_torch.utils.roofline import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.utils.roofline import PEAK_FLOPS as PEAK_BF16_FLOP_PER_S  # noqa: E402
+from repro_torch.utils.roofline import PEAK_FP32_FLOPS as PEAK_FP32_FLOP_PER_S  # noqa: E402
 
 # Tolerances against the plain versions on the card, with their reasons.
 # fourier_sketch, on sums / N: the repo's 1e-4 bar across engine backends.
@@ -467,6 +469,14 @@ LM_TRAIN_CUTS = {
 }
 LM_TRAIN_FAMILY_STEPS = 2
 LM_RESTART_STEPS, LM_RESTART_RTOL = 6, 1e-4
+# [dryrun] (in [lm-train llama3.2-1b], after its checkpoint): the train step
+# at LM_TRAIN's shape costed by utils.hlo on fake CUDA and fake CPU tensors
+# and on the card, then timed DRYRUN_TIMED_STEPS times by CUDA events; and
+# the dry run's CLI on DRYRUN_ARCH at DRYRUN_CELLS on the 16 x 16 mesh (a
+# process each, started first, on the host), held to tests/test_dryrun.py's
+# invariants with the card's DRYRUN_CARD_BYTES in place of the v5e's 16 GB.
+DRYRUN_ARCH, DRYRUN_CELLS = "llama3.2-1b", ("train_4k", "decode_32k")
+DRYRUN_TIMED_STEPS, DRYRUN_CARD_BYTES, DRYRUN_TIMEOUT_S = 2, 80 * 2**30, 150
 
 # The LM on a mesh (parallel/sharding.py, models/ with mesh=, launch/train.py
 # and launch/serve.py over a DeviceMesh, optim/grad_compression.py,
@@ -3656,8 +3666,156 @@ def lm_train_shapes(dev) -> dict:
     }
 
 
+def _fake_copy(tree, device):
+    """Empty tensors of ``tree``'s shapes and dtypes on ``device``, a leaf
+    that requires grad as one (call it under ``FakeTensorMode``)."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device)
+                    .requires_grad_(t.requires_grad), tree)
+
+
+def _same_costs(a, b) -> bool:
+    return (a.flops == b.flops and a.bytes == b.bytes
+            and dict(a.coll_by_op) == dict(b.coll_by_op)
+            and dict(a.coll_count) == dict(b.coll_count))
+
+
+def dryrun_cells():
+    """Start the dry run's CLI on DRYRUN_ARCH at each of DRYRUN_CELLS (the
+    16 x 16 mesh), a process each: -> {cell: (process, its JSON's path)}."""
+    root = Path(__file__).resolve().parent
+    out_dir = root / "experiments" / "dryrun_torch"
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = {}
+    for cell in DRYRUN_CELLS:
+        path = out_dir / f"{DRYRUN_ARCH}__{cell}__16x16.json"
+        path.unlink(missing_ok=True)
+        procs[cell] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+             "--shape", cell], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True), path)
+    return procs
+
+
+def dryrun_cells_finish(procs) -> None:
+    """Wait for ``dryrun_cells``' processes (killed past DRYRUN_TIMEOUT_S)
+    and hold each cell to tests/test_dryrun.py's invariants."""
+    for cell, (proc, path) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        check(proc.returncode == 0, f"dryrun {cell}: exit {proc.returncode}: {log[-2000:]}")
+        r = json.loads(path.read_text())
+        mem = r["memory_analysis"]
+        print(f"[dryrun {DRYRUN_ARCH} x {cell} x 16x16] fake {r['fake_device']} tensors, "
+              f"{r['chips']} ranks: per device {r['flops_per_device']:.4e} flops, "
+              f"{r['hbm_bytes_per_device']:.4e} HBM bytes, "
+              f"{r['collective_bytes_per_device']:.4e} collective bytes "
+              f"{ {k: v['count'] for k, v in r['collectives'].items()} }; compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms: {r['dominant']}-bound; useful_ratio "
+              f"{r['useful_ratio']}, roofline_fraction {r['roofline_fraction']}; arguments "
+              f"{mem['argument_size'] / 1e9:.3f} GB + temporaries {mem['temp_size'] / 1e9:.3f} GB "
+              f"(build {r['lower_s']} s, trace {r['compile_s']} s)", flush=True)
+        check(r["status"] == "ok" and r["chips"] == 256, f"dryrun {cell}: {r}")
+        check(r["fake_device"] == "cuda", f"dryrun {cell}: fake {r['fake_device']} tensors")
+        if cell == "train_4k":
+            check(r["dominant"] in ("compute", "memory", "collective"), f"dryrun {cell}: {r}")
+            check(0.3 < r["useful_ratio"] < 1.2, f"dryrun {cell}: useful_ratio "
+                                                 f"{r['useful_ratio']}")
+            check(r["compute_s"] > 0 and r["memory_s"] > 0 and r["collective_s"] > 0,
+                  f"dryrun {cell}: roofline terms {r}")
+            check(mem["argument_size"] + mem["temp_size"] < 2 * DRYRUN_CARD_BYTES,
+                  f"dryrun {cell}: {mem}")
+
+
+def dryrun_phase(dev, cfg, shape, opt_cfg, state, data, lm_flops):
+    """[dryrun]: llama3.2-1B's train step at LM_TRAIN's shape (AdamW, remat
+    "full", bf16 compute) costed by ``utils.hlo`` three ways: traced on fake
+    CUDA tensors, on fake CPU tensors (the branches on ``is_cuda`` change no
+    count) and run on the card; the three costs equal, the argument bytes
+    the state's and the batch's on the card, the step (CUDA events, without
+    the cost mode) no faster than its roofline bound; the counted peak
+    beside the allocator's, the counted flops beside ``lm_train_flops`` x
+    4/3, the roofline fraction beside the measured model-FLOP share.  Then
+    the dry run's two 16 x 16 cells (``dryrun_cells``, started first).
+    ``state``: the train state on the card (updated by the steps)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as ltrain
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils import hlo
+    from repro_torch.utils import roofline as rl
+
+    t_phase = time.perf_counter()
+    procs = dryrun_cells()
+    try:
+        host = SyntheticLM(cfg, shape, data, dev).batch_numpy(0)
+        batch = {k: torch.from_numpy(a.copy()).to(dev) for k, a in host.items()
+                 if not k.startswith("_")}
+        step = ltrain.build_train_step(cfg, make_optimizer(opt_cfg), remat="full",
+                                       dtype=torch.bfloat16)
+        on_card = sum(t.numel() * t.element_size() for t in tree_leaves((state, batch)))
+        costs, secs = {}, {}
+        for where in ("fake cuda", "fake cpu"):
+            t0 = time.perf_counter()
+            with FakeTensorMode():
+                fake = _fake_copy((state, batch), dev if where == "fake cuda" else "cpu")
+                costs[where] = hlo.analyze(step, *fake)
+            secs[where] = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        costs["card"] = real = hlo.analyze(step, state, batch)
+        torch.cuda.synchronize(dev)
+        secs["card"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        times = [event_ms(lambda: step(state, batch)) for _ in range(DRYRUN_TIMED_STEPS)]
+        step_s = min(times) * 1e-3
+        tokens = shape.global_batch * shape.seq_len
+        roof = rl.analyze(real, 1, rl.train_model_flops(cfg.active_param_count(), tokens))
+        for where, c in costs.items():
+            print(f"[dryrun {where}] {c.flops:.6e} flops, {c.bytes:.6e} bytes, collectives "
+                  f"{dict(c.coll_count)}; arguments {c.argument_bytes} B, peak "
+                  f"{c.peak_bytes} B, output {c.output_bytes} B; {secs[where]:.1f} s under "
+                  "the cost mode", flush=True)
+        print(f"[dryrun step] {cfg.name} B={shape.global_batch} x S={shape.seq_len}, one card: "
+              f"counted {real.flops / 1e12:.3f} TFLOP beside lm_train_flops x 4/3 "
+              f"{lm_flops * 4 / 3 / 1e12:.3f} (ratio {real.flops / (lm_flops * 4 / 3):.4f}); bound "
+              f"{roof.bound_step_time() * 1e3:.1f} ms ({roof.dominant}: compute "
+              f"{roof.compute_s * 1e3:.1f}, memory {roof.memory_s * 1e3:.1f} ms) against the "
+              f"step's {[round(t, 1) for t in times]} ms (CUDA events; "
+              f"{step_s / roof.bound_step_time():.3f} x the bound); roofline_fraction "
+              f"{roof.roofline_fraction():.4f} beside the measured "
+              f"model-FLOP share {roof.model_flops / step_s / rl.PEAK_FLOPS:.4f} (6 N D = "
+              f"{roof.model_flops / 1e12:.3f} TFLOP); counted peak {real.peak_bytes / 1e9:.3f} GB "
+              f"(temporaries {real.temp_bytes / 1e9:.3f}) beside the allocator's "
+              f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} over the step's start): ratio "
+              f"{real.peak_bytes / peak:.4f}, temporaries "
+              f"{real.temp_bytes / max(peak - base, 1):.4f}",
+              flush=True)
+        for where in ("fake cuda", "fake cpu"):
+            check(_same_costs(costs[where], real),
+                  f"dryrun: the {where} trace's costs differ from the card's step's")
+        check(real.argument_bytes == costs["fake cuda"].argument_bytes == on_card,
+              f"dryrun: argument bytes {real.argument_bytes}, "
+              f"{costs['fake cuda'].argument_bytes} (fake), the state and batch {on_card}")
+        check(step_s >= roof.bound_step_time(), f"dryrun: a step of {step_s * 1e3:.1f} ms beats "
+                                                f"its bound {roof.bound_step_time() * 1e3:.1f} ms")
+        dryrun_cells_finish(procs)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[dryrun] {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def lm_train_phase(dev, run, arch=LM_TRAIN[0], batch=LM_TRAIN[1], seq=LM_TRAIN[2], depth=None,
-                   steps=LM_TRAIN_STEPS, restore=True):
+                   steps=LM_TRAIN_STEPS, restore=True, dryrun=False):
     """[lm-train <arch>]: ``train_loop.run`` at the published config's width,
     at ``depth`` layers (None: all; see LM_TRAIN and LM_TRAIN_FAMILIES),
     with the published config's default optimizer and parameter dtype: the
@@ -3779,6 +3937,9 @@ def lm_train_phase(dev, run, arch=LM_TRAIN[0], batch=LM_TRAIN[1], seq=LM_TRAIN[2
         del restored, leaves, want
     print(f"[{tag} checkpoint] step {steps}: {nbytes / 1e9:.3f} GB in "
           f"{len(tree_leaves(state))} leaves, {kept}", flush=True)
+    if dryrun:
+        dryrun_phase(dev, cfg, shape, opt_cfg, {k: state[k] for k in ("params", "opt", "step")},
+                     data, flops)
 
     res = out["monitor_result"]
     weights = out["balance_weights"]
@@ -4920,7 +5081,7 @@ def main() -> None:
     # families' (at published width, jamba and internvl2 cut in depth), the
     # activation monitor at the wide d_model (kernel 4's wide blocks), and the
     # restart invariant at its smoke config.
-    lm_train_phase(dev, run)
+    lm_train_phase(dev, run, dryrun=True)
     t0 = time.perf_counter()
     for arch, (lm_batch, seq, depth) in LM_TRAIN_FAMILIES.items():
         lm_train_phase(dev, run, arch, lm_batch, seq, depth, steps=LM_TRAIN_FAMILY_STEPS,

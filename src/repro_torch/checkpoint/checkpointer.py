@@ -12,7 +12,10 @@
 The on-disk format is the reference's: one ``leaf_<i>.npy`` per leaf and a
 ``manifest.json`` with ``step``, a ``treedef`` description, ``leaves``
 (``file``, the numpy ``dtype`` name, ``shape`` as a list) and optional
-``specs`` and ``meta``.  Leaves are numbered in JAX's pytree order —
+``specs`` and ``meta``.  A bf16 leaf is written as its 16-bit patterns
+(int16) under the reference's name ``"bfloat16"``, and a ``"bfloat16"``
+leaf (the reference's 2-byte void, or int16) restores as a bf16 tensor,
+bitwise, without ml_dtypes.  Leaves are numbered in JAX's pytree order —
 NamedTuple fields in order, lists and tuples in order, dict keys sorted,
 ``None`` a node with no leaves — so a checkpoint written by either package
 restores in the other.  The reference places a restored state onto a mesh
@@ -80,20 +83,46 @@ def _describe(tree: Any) -> str:
     return "*"
 
 
-def _host_copy(leaf) -> np.ndarray:
-    """A numpy copy of one leaf on the host (never a view of its memory)."""
+# numpy has no bfloat16: a bf16 leaf is stored as its 16-bit patterns (an
+# int16 ``.npy``) under the reference's dtype name, which names ml_dtypes'
+# bfloat16 (written by ``np.save`` as 2-byte void, ``V2``).
+_BF16 = "bfloat16"
+_BF16_ON_DISK = (np.dtype(np.int16), np.dtype(np.uint16))
+
+
+def _host_copy(leaf) -> tuple[np.ndarray, str]:
+    """A numpy copy of one leaf on the host (never a view of its memory) and
+    its manifest dtype name."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf, copy=True)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), _BF16
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf, copy=True)
+    return arr, str(arr.dtype)
 
 
 def _dtype_name(leaf) -> str:
-    """The numpy name of a leaf's dtype (``"float32"``), or ``""`` for a
-    leaf without one."""
+    """The numpy name of a leaf's dtype (``"float32"``; ``"bfloat16"`` for a
+    bf16 tensor), or ``""`` for a leaf without one."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _BF16
         return str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
     dtype = getattr(leaf, "dtype", None)
     return "" if dtype is None else str(np.dtype(dtype))
+
+
+def _load_leaf(path: Path, dtype: str):
+    """A leaf file as numpy, or a ``"bfloat16"`` leaf (2-byte void, int16
+    or uint16 on disk) as a bf16 tensor, bitwise."""
+    arr = np.load(path)
+    if dtype != _BF16:
+        return arr
+    if arr.dtype.itemsize != 2 or (arr.dtype.kind != "V" and arr.dtype not in _BF16_ON_DISK):
+        raise ValueError(f"{path.name}: a bfloat16 leaf stored as {arr.dtype}")
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
 class Checkpointer:
@@ -153,11 +182,11 @@ class Checkpointer:
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "treedef": treedef, "leaves": []}
-        for i, leaf in enumerate(leaves):
+        for i, (leaf, dtype) in enumerate(leaves):
             fname = f"leaf_{i:05d}.npy"
             np.save(tmp / fname, leaf)
             manifest["leaves"].append(
-                {"file": fname, "dtype": str(leaf.dtype), "shape": list(leaf.shape)}
+                {"file": fname, "dtype": dtype, "shape": list(leaf.shape)}
             )
         if specs is not None:
             manifest["specs"] = [repr(s) for s in _flatten(specs)]
@@ -245,10 +274,12 @@ class Checkpointer:
             )
         loaded = []
         for leaf, entry in zip(leaves, manifest["leaves"]):
-            arr = np.load(d / entry["file"])
-            if device is not None:
-                arr = torch.from_numpy(arr).to(device)
-            elif isinstance(leaf, torch.Tensor):
-                arr = torch.from_numpy(arr).to(leaf.device)
+            arr = _load_leaf(d / entry["file"], entry["dtype"])
+            target = device if device is not None else (
+                leaf.device if isinstance(leaf, torch.Tensor) else None)
+            if target is not None:
+                arr = (arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)).to(target)
+            elif isinstance(arr, torch.Tensor):
+                arr = arr.view(torch.int16).numpy()  # a bf16 leaf into a numpy state: its bits
             loaded.append(arr)
         return _unflatten(like, iter(loaded))

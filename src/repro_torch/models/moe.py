@@ -113,7 +113,11 @@ def _moe_local(x_flat, gates, ids, w_gate, w_up, w_down, e_start: int,
     e_local = w_gate.shape[0]
     dev = x_flat.device
     sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
-    counts = torch.bincount(sorted_ids, minlength=n_experts_total)
+    # Each expert's token count, at a shape known before the ids are (a
+    # bincount's length is data-dependent: it syncs with the host, and a
+    # fake tensor cannot give it).
+    counts = torch.zeros((n_experts_total,), dtype=torch.int64, device=dev).index_add_(
+        0, sorted_ids, torch.ones_like(sorted_ids))
     starts = torch.cumsum(counts, 0) - counts  # exclusive prefix
     pos_in_expert = torch.arange(t * k, device=dev) - starts[sorted_ids]
 

@@ -40,10 +40,14 @@ stay local: attention heads and KV heads (where "model" divides both), the
 dense FFN hidden, the MoE's experts and Mamba's channels are
 column-parallel on the way in, ``wo`` / ``w_down`` / ``out_proj``
 row-parallel with one all-reduce over "model" (the kinds the reference's
-``activation_sharder`` pins).  Where "model" does not divide them the
-layer gathers its weights and computes replicated.  The embedding and
-``lm_head`` are gathered whole.  The loss's sums are all-reduced over the
-batch axes.  The decode step reads a KV cache whose sequence is split over
+``activation_sharder`` pins).  In the train forward, query heads whose
+KV heads are fewer than the "model" ranks are split too, each rank's
+heads reading one KV head.  Where "model" does not divide them the layer
+gathers its weights and computes replicated.  In the train loss the
+embedding and ``lm_head`` are vocab-parallel where "model" divides the
+vocabulary (Megatron's embedding and cross-entropy); elsewhere, and in
+serving, they are gathered whole.  The loss's sums are all-reduced over
+the batch axes.  The decode step reads a KV cache whose sequence is split over
 "model" (``layers.attention_decode`` with ``sp``): it needs ``cache_len``, the
 cache's full length.  A mesh whose axes all have size 1 computes the
 one-card bits.
@@ -150,6 +154,37 @@ def _attn_tp(cfg: ModelConfig, sp) -> bool:
     return m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
 
 
+def _attn_grouped(cfg: ModelConfig, sp) -> bool:
+    """Where "model" divides the query heads and is a multiple of the KV
+    heads (fewer KV heads than ranks), the attention of the train forward is
+    tensor-parallel over query heads, each rank's heads sharing one KV
+    head (``_grouped_attention``)."""
+    m = 1 if sp is None else sp.model
+    return (m > 1 and not _attn_tp(cfg, sp) and cfg.n_heads % m == 0
+            and m % cfg.n_kv_heads == 0)
+
+
+def _grouped_attention(p: Params, specs, dims: L.AttnDims, h, positions, causal, sp):
+    """Attention over this rank's query heads (its columns of ``wq``, rows
+    of ``wo``) and the one KV head they read, ``rank * kv_heads // model``:
+    its columns of ``wk`` and ``wv`` are cut from the gathered projection,
+    whose gradient is summed over "model" (each rank's is its head's part)."""
+    m, hd = sp.model, dims.head_dim
+    j = sp.rank("model") * dims.n_kv_heads // m
+    w = {}
+    for k, v in p.items():
+        if k in ("wk", "wv"):
+            if "model" not in sh.sharded_axes(specs[k]):
+                v = C.copy_to(v, sp, ("model",))
+            full = C.use_param(v, specs[k], sp, tensor_parallel=False, model_grad="sum")
+            w[k] = full[:, j * hd:(j + 1) * hd]
+        else:
+            w[k] = C.use_param(v, specs[k], sp, tensor_parallel=True)
+    dims = dataclasses.replace(dims, n_heads=dims.n_heads // m, n_kv_heads=1)
+    out = L.attention_apply(w, dims, C.copy_to(h, sp, ("model",)), positions, causal)
+    return C.reduce_from(out, sp, ("model",))
+
+
 def _local_dims(dims: L.AttnDims, sp) -> L.AttnDims:
     return dataclasses.replace(dims, n_heads=dims.n_heads // sp.model,
                                n_kv_heads=dims.n_kv_heads // sp.model)
@@ -163,25 +198,47 @@ def _top_specs(cfg: ModelConfig, sp) -> dict:
             "final_norm": {"scale": sh.P()}}
 
 
-def _with_top(params: Params, cfg: ModelConfig, sp) -> Params:
+def _vocab_tp(cfg: ModelConfig, sp) -> bool:
+    """The train loss's embedding and logits are vocab-parallel where
+    "model" divides the vocabulary (``param_specs`` then splits the table's
+    rows and ``lm_head``'s columns over it)."""
+    return sp is not None and sp.model > 1 and cfg.vocab_size % sp.model == 0
+
+
+def _with_top(params: Params, cfg: ModelConfig, sp, vocab_tp: bool = False) -> Params:
     """``params`` with the embedding, ``lm_head`` and final norm gathered
     whole (every rank computes the same logits; their gradients come back
-    as each rank's block)."""
+    as each rank's block), or with ``vocab_tp`` the embedding and
+    ``lm_head`` as this rank's vocabulary block."""
     if sp is None:
         return params
     specs = _top_specs(cfg, sp)
     out = dict(params)
     for name, spec in specs.items():
         if name in params:
-            out[name] = _use(params[name], spec, sp, tp=False)
+            out[name] = _use(params[name], spec, sp, tp=vocab_tp)
     return out
+
+
+def _vocab_embed(table: torch.Tensor, tokens: torch.Tensor, dtype, sp) -> torch.Tensor:
+    """The rows of ``tokens`` from a vocab-parallel table (this rank's block
+    of rows): each rank looks up the tokens its block holds, zeros for the
+    rest, and the sum over "model" is the row (Megatron's embedding)."""
+    rows = table.shape[0]
+    local = tokens.long() - sp.rank("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(inside, local, 0), table) * inside[..., None].to(table.dtype)
+    return C.reduce_from(x, sp, ("model",)).to(dtype)
 
 
 def _self_attention(p: Params, specs, cfg: ModelConfig, mixer: str, h, positions, causal,
                     collect: bool, sp):
     """(out, (k, v) or None): tensor-parallel over heads where it can be
-    (k and v then this rank's KV heads)."""
+    (k and v then this rank's KV heads); without ``collect``, also over
+    query heads that share a KV head (``_attn_grouped``)."""
     dims = attn_dims(cfg, mixer)
+    if not collect and _attn_grouped(cfg, sp):
+        return _grouped_attention(p, specs, dims, h, positions, causal, sp), None
     tp = _attn_tp(cfg, sp)
     w = _use(p, specs, sp, tp)
     if tp:
@@ -498,18 +555,23 @@ def init_lm(seed: int, cfg: ModelConfig, device=dev_mod.DEFAULT,
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    x = L.embed(params["embed"], tokens, dtype)
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype,
+                  vocab_sp=None) -> torch.Tensor:
+    if vocab_sp is None:
+        x = L.embed(params["embed"], tokens, dtype)
+    else:
+        x = _vocab_embed(params["embed"]["table"], tokens, dtype, vocab_sp)
     scale = L.f32_sqrt(cfg.d_model)
     return x * (L.to_bf16(scale) if dtype == torch.bfloat16 else scale)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype):
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype, vocab_sp=None):
     """Token embedding, behind the vision prefix (``batch["patches"]``, (B,
     F, d) stub embeddings) for a ``vision`` frontend.  Returns (x,
-    positions) over the whole sequence."""
+    positions) over the whole sequence.  ``vocab_sp``: the embedding is
+    vocab-parallel over its "model" axis."""
     _check_cfg(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"], dtype)
+    x = _embed_tokens(params, cfg, batch["tokens"], dtype, vocab_sp)
     if cfg.frontend == "vision":
         x = torch.cat([batch["patches"].to(dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
@@ -600,9 +662,11 @@ def forward(
     return _forward(_with_top(params, cfg, sp), cfg, batch, sp, dtype, remat)
 
 
-def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: str):
-    """``forward`` of parameters whose top leaves ``_with_top`` has made."""
-    x, positions = _embed_inputs(params, cfg, batch, dtype)
+def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: str,
+             vocab_tp: bool = False):
+    """``forward`` of parameters whose top leaves ``_with_top`` has made
+    (with ``vocab_tp`` as ``_with_top``)."""
+    x, positions = _embed_inputs(params, cfg, batch, dtype, sp if vocab_tp else None)
     enc_out = _encoder_out(params, cfg, batch, dtype, sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -632,12 +696,27 @@ def logits_fn(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     return L.lm_head(params["lm_head"], x)
 
 
-def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor, lc: torch.Tensor):
-    """One chunk's (sum of token losses, count of counted tokens)."""
-    logits = logits_fn(params, cfg, xc).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor, lc: torch.Tensor,
+              vocab_sp=None):
+    """One chunk's (sum of token losses, count of counted tokens).
+    ``vocab_sp``: ``params`` hold this rank's vocabulary block, and the
+    log-partition and the gold logit are reduced over "model" (Megatron's
+    vocab-parallel cross-entropy)."""
     mask = (lc >= 0).to(torch.float32)
+    if vocab_sp is None:
+        logits = logits_fn(params, cfg, xc).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+    sp = vocab_sp
+    logits = logits_fn(params, cfg, C.copy_to(xc, sp, ("model",))).to(torch.float32)
+    peak = C.all_reduce(logits.detach().amax(dim=-1), sp, ("model",), "max")
+    sumexp = C.reduce_from(torch.exp(logits - peak[..., None]).sum(dim=-1), sp, ("model",))
+    logz = torch.log(sumexp) + peak
+    local = lc.long() - sp.rank("model") * logits.shape[-1]
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    gold = C.reduce_from(torch.where(inside, picked, 0.0), sp, ("model",))
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
@@ -656,19 +735,21 @@ def chunked_ce_loss(
     labels: (B, S) integers, negative = ignored (padding).  The mean over
     the counted tokens (``max(count, 1)``).  On a mesh (x and labels this
     rank's rows, ``params`` its pieces) the sum and the count are
-    all-reduced over the batch axes.
+    all-reduced over the batch axes, and the logits are vocab-parallel
+    where "model" divides the vocabulary.
     """
     sp = C.as_spmd(mesh)
-    return _ce(_with_top(params, cfg, sp), cfg, x, labels, chunk, sp)
+    vocab_tp = _vocab_tp(cfg, sp)
+    return _ce(_with_top(params, cfg, sp, vocab_tp), cfg, x, labels, chunk, sp, vocab_tp)
 
 
-def _ce(params: Params, cfg: ModelConfig, x, labels, chunk: int, sp):
+def _ce(params: Params, cfg: ModelConfig, x, labels, chunk: int, sp, vocab_tp: bool = False):
     b, s, _ = x.shape
     pad = (-s) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-100)
-    fn = functools.partial(_ce_chunk, params, cfg)
+    fn = functools.partial(_ce_chunk, params, cfg, vocab_sp=sp if vocab_tp else None)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, x.shape[1], chunk):
@@ -703,14 +784,15 @@ def loss_and_hidden(params: Params, cfg: ModelConfig, batch: dict, mesh=None,
     expert-parallel body returns each shard's own), and its gradient is
     the mean over the data shards'."""
     sp = C.as_spmd(mesh)
-    top = _with_top(params, cfg, sp)
-    x, aux = _forward(top, cfg, batch, sp, dtype, remat)
+    vocab_tp = _vocab_tp(cfg, sp)
+    top = _with_top(params, cfg, sp, vocab_tp)
+    x, aux = _forward(top, cfg, batch, sp, dtype, remat, vocab_tp)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # The patch positions carry no label.
         f = batch["patches"].shape[1]
         labels = F.pad(labels, (f, 0), value=-100)
-    loss = _ce(top, cfg, x, labels, 256, sp)
+    loss = _ce(top, cfg, x, labels, 256, sp, vocab_tp)
     if sp is not None:
         aux = C.scale_grad(aux, 1.0 / sp.dp)
     return loss + aux_weight * aux, x

@@ -71,9 +71,15 @@ class Spmd:
         # are reduced over.
         self.grad_axes = tuple(a for a in self.batch_axes if reduce_pod or a != "pod")
         self.dp = math.prod(self.sizes[a] for a in self.grad_axes)
-        self.device = torch.device(mesh.device_type, torch.cuda.current_device()) \
-            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
         self._groups: dict[str, object] = {}
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device: the mesh's type, on cards the current one
+        (asked only here, so a mesh over fake tensors needs no card)."""
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
 
     @property
     def world(self) -> int:
@@ -146,7 +152,7 @@ def all_reduce(x: torch.Tensor, sp: Spmd, axes: Sequence[str], op: str = "sum") 
 
     def run(t):
         buf = t.contiguous()
-        if buf.data_ptr() == x.data_ptr():
+        if buf.untyped_storage() is x.untyped_storage():
             buf = buf.clone()  # all_reduce works in place; the caller's tensor stays
         for a in live:
             dist.all_reduce(buf, op=_OPS[op], group=sp.group(a))

@@ -227,3 +227,58 @@ def test_window_payload_keeps_its_leaf_order_across_packages(tmp_path):
         jax.tree_util.tree_map(jnp.zeros_like, payload))
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(payload)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _bf16_bits(seed, shape):
+    """Every 16-bit pattern is a bfloat16 (NaNs and infinities included)."""
+    return np.random.default_rng(seed).integers(0, 1 << 16, size=shape, dtype=np.uint16)
+
+
+def _bf16_state(bits):
+    return {"w": torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16),
+            "m": torch.arange(5, dtype=torch.float32), "step": torch.tensor(3, dtype=torch.int32)}
+
+
+def _bits(t) -> np.ndarray:
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_bf16_state_round_trips_bitwise(tmp_path):
+    bits = _bf16_bits(0, (7, 9))
+    Checkpointer(tmp_path).save(1, _bf16_state(bits))
+    manifest = json.loads((tmp_path / "step_0000000001" / "manifest.json").read_text())
+    assert [e["dtype"] for e in manifest["leaves"]] == ["float32", "int32", "bfloat16"]
+    assert np.load(tmp_path / "step_0000000001" / "leaf_00002.npy").dtype.itemsize == 2
+    got = Checkpointer(tmp_path).restore(_bf16_state(np.zeros((7, 9), np.uint16)))
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(got["w"]), bits)
+    assert torch.equal(got["m"], torch.arange(5, dtype=torch.float32))
+
+
+def test_reference_bf16_checkpoint_restores_bitwise_in_the_port(tmp_path):
+    import ml_dtypes
+
+    bits = _bf16_bits(1, (4, 6))
+    state = {"w": jnp.asarray(bits.view(ml_dtypes.bfloat16)), "m": jnp.arange(5.0),
+             "step": jnp.asarray(3, jnp.int32)}
+    JaxCheckpointer(tmp_path).save(2, state)
+    manifest = json.loads((tmp_path / "step_0000000002" / "manifest.json").read_text())
+    assert manifest["leaves"][2]["dtype"] == "bfloat16"
+    got = Checkpointer(tmp_path).restore(_bf16_state(np.zeros((4, 6), np.uint16)))
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(got["w"]), bits)
+
+
+def test_port_bf16_checkpoint_restores_bitwise_in_the_reference(tmp_path):
+    import ml_dtypes
+
+    bits = _bf16_bits(2, (3, 5))
+    Checkpointer(tmp_path).save(3, _bf16_state(bits))
+    like = {"w": jnp.zeros((3, 5), jnp.bfloat16), "m": jnp.zeros(5, jnp.float32),
+            "step": jnp.asarray(0, jnp.int32)}
+    got = JaxCheckpointer(tmp_path).restore(like)
+    # The reference hands back each leaf as np.load reads it: the bf16
+    # leaf's 16-bit patterns, which are the state's.
+    np.testing.assert_array_equal(np.asarray(got["w"]).view(np.uint16), bits)
+    back = np.asarray(got["w"]).view(ml_dtypes.bfloat16)
+    np.testing.assert_array_equal(back.view(np.uint16), bits)
