@@ -474,8 +474,12 @@ LM_RESTART_STEPS, LM_RESTART_RTOL = 6, 1e-4
 # and on the card, then timed DRYRUN_TIMED_STEPS times by CUDA events; and
 # the dry run's CLI on DRYRUN_ARCH at DRYRUN_CELLS on the 16 x 16 mesh (a
 # process each, started first, on the host), held to tests/test_dryrun.py's
-# invariants with the card's DRYRUN_CARD_BYTES in place of the v5e's 16 GB.
-DRYRUN_ARCH, DRYRUN_CELLS = "llama3.2-1b", ("train_4k", "decode_32k")
+# invariants with the card's DRYRUN_CARD_BYTES in place of the v5e's 16 GB;
+# prefill_32k's attention split over query heads (useful_ratio above
+# DRYRUN_PREFILL_USEFUL) and decode_32k's vocab-parallel serve (collective
+# bytes a device at most DRYRUN_DECODE_COLL_BYTES).
+DRYRUN_ARCH, DRYRUN_CELLS = "llama3.2-1b", ("train_4k", "decode_32k", "prefill_32k")
+DRYRUN_PREFILL_USEFUL, DRYRUN_DECODE_COLL_BYTES = 0.3, 3.5e7
 DRYRUN_TIMED_STEPS, DRYRUN_CARD_BYTES, DRYRUN_TIMEOUT_S = 2, 80 * 2**30, 150
 
 # The LM on a mesh (parallel/sharding.py, models/ with mesh=, launch/train.py
@@ -488,11 +492,17 @@ DRYRUN_TIMED_STEPS, DRYRUN_CARD_BYTES, DRYRUN_TIMEOUT_S = 2, 80 * 2**30, 150
 # tokens (logits bitwise), and the train loop on the mesh against one card
 # at the smoke config (monitor and balancer on: kernel 1).  [lm-mesh p=4]:
 # LM_MESH_RANKS gloo processes on the one card (every collective through the
-# host), a (2, 2) ("data", "model") mesh: llama3.2-1B and granite-moe at full
-# width cut to LM_MESH_LAYERS layers (granite at the no-drop capacity E / k)
-# at B = 4, S = LM_MESH_SEQ, float32: one train step and a prefill plus
-# LM_MESH_DECODE tokens each against the one-card run on the same rows
-# (rank 0 runs it): loss within LM_MESH_LOSS_RTOL relative, the gradients
+# host), a (2, 2) ("data", "model") mesh: llama3.2-1B, granite-moe and
+# internvl2-26B (d_model 6144: its residual stream sequence-parallel, each
+# rank's half of the sequence, which remat saves) at full width cut to
+# LM_MESH_LAYERS layers (granite at the no-drop capacity E / k) at B = 4,
+# S = LM_MESH_SEQ (internvl2's 256 patches included), float32: one train
+# step and a prefill plus LM_MESH_DECODE tokens (internvl2:
+# LM_MESH_WIDE_DECODE) each against the one-card run on the same rows, and
+# gemma3-1B (its one KV head: the prefill's attention split over query
+# heads, the cache made by one all-to-all a layer) at full width cut to
+# LM_MESH_GROUPED_LAYERS layers, the prefill and decode alone (rank 0 runs
+# the one-card runs): loss within LM_MESH_LOSS_RTOL relative, the gradients
 # the optimizer took (after the step's collectives, gathered) and the
 # parameters after the step within LM_MESH_LEAF_TOL of each leaf's max-abs,
 # logits within LM_ATOL / LM_RTOL.  Granite's aux term on the mesh is each
@@ -510,6 +520,16 @@ DRYRUN_TIMED_STEPS, DRYRUN_CARD_BYTES, DRYRUN_TIMEOUT_S = 2, 80 * 2**30, 150
 # turn.  Each rank process and its collectives give up after
 # LM_MESH_TIMEOUT_S.
 LM_MESH_RANKS, LM_MESH_LAYERS, LM_MESH_SEQ, LM_MESH_DECODE = 4, 2, 1024, 8
+LM_MESH_WIDE_DECODE, LM_MESH_GROUPED_LAYERS = 2, 6
+# (arch, whether a train step runs, decode tokens' size key, optimizer) of
+# [lm-mesh p=4]: internvl2's step takes SGD, since AdamW's two float32
+# moments of its 1.9 B parameters (6.1 GB a rank) do not fit four ranks on
+# one card beside its gathered 92,553-row table and head and their
+# gradients (the first try ran out of the card's memory).
+LM_MESH_CASES = (("llama3.2-1b", True, "decode", "adamw"),
+                 ("granite-moe-1b-a400m", True, "decode", "adamw"),
+                 ("internvl2-26b", True, "wide_decode", "sgd"),
+                 ("gemma3-1b", False, "decode", "adamw"))
 LM_MESH_PIPE_SEQ, LM_MESH_MICRO, LM_MESH_TIMEOUT_S = 256, 8, 600
 LM_MESH_LOSS_RTOL, LM_MESH_LEAF_TOL = 1e-5, 1e-4
 LM_MESH_COMPRESSED = "smollm-360m"
@@ -3728,6 +3748,14 @@ def dryrun_cells_finish(procs) -> None:
                   f"dryrun {cell}: roofline terms {r}")
             check(mem["argument_size"] + mem["temp_size"] < 2 * DRYRUN_CARD_BYTES,
                   f"dryrun {cell}: {mem}")
+        elif cell == "prefill_32k":
+            check(r["useful_ratio"] > DRYRUN_PREFILL_USEFUL,
+                  f"dryrun {cell}: useful_ratio {r['useful_ratio']} (bar "
+                  f"{DRYRUN_PREFILL_USEFUL}: the attention split over query heads)")
+        elif cell == "decode_32k":
+            check(r["collective_bytes_per_device"] <= DRYRUN_DECODE_COLL_BYTES,
+                  f"dryrun {cell}: {r['collective_bytes_per_device']:.4e} collective bytes "
+                  f"a device (bar {DRYRUN_DECODE_COLL_BYTES:.1e}: the vocab-parallel serve)")
 
 
 def dryrun_phase(dev, cfg, shape, opt_cfg, state, data, lm_flops):
@@ -4155,11 +4183,16 @@ def lm_mesh_phases(dev, run, launches, p1_backend="nccl", sizes=None):
     tag = f"lm-mesh p={LM_MESH_RANKS}"
     t0 = time.perf_counter()
     sizes = sizes or {"seq": LM_MESH_SEQ, "pipe_seq": LM_MESH_PIPE_SEQ, "micro": LM_MESH_MICRO,
-                      "decode": LM_MESH_DECODE}
-    cfgs = {a: dataclasses.replace(get_config(a), n_layers=LM_MESH_LAYERS)
-            for a in ("llama3.2-1b", "granite-moe-1b-a400m")}
+                      "decode": LM_MESH_DECODE, "wide_decode": LM_MESH_WIDE_DECODE}
+    cfgs = {a: dataclasses.replace(get_config(a), n_layers=LM_MESH_LAYERS if train
+                                   else LM_MESH_GROUPED_LAYERS)
+            for a, train, _, _ in LM_MESH_CASES}
     cfgs["pipe"] = get_config("llama3.2-1b")
     cfgs["compressed"] = dataclasses.replace(get_config(LM_MESH_COMPRESSED), n_layers=LM_MESH_LAYERS)
+    if dev.type == "cuda":
+        print(f"[{tag}] the parent process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+              f"allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved as its ranks "
+              "start", flush=True)
     ctx = mp.start_processes(_lm_mesh_rank, args=(str(root), dev.type, cfgs, sizes),
                              nprocs=LM_MESH_RANKS, join=False, start_method="spawn")
     deadline = time.monotonic() + LM_MESH_TIMEOUT_S
@@ -4185,9 +4218,54 @@ def lm_mesh_phases(dev, run, launches, p1_backend="nccl", sizes=None):
     print(f"[lm-mesh] {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+def _saved_rows(fn):
+    """``fn()`` and the sequence rows of each group input that
+    ``transformer._rematerialised`` was given (what remat "full" saves)."""
+    from repro_torch.models import transformer as tfm
+
+    rows, inner = [], tfm._rematerialised
+
+    def spy(f, remat, *args):
+        if getattr(f, "func", None) is not None and f.func.__name__ == "group":
+            rows.append(args[0].shape[1])
+        return inner(f, remat, *args)
+
+    tfm._rematerialised = spy
+    try:
+        return fn(), rows
+    finally:
+        tfm._rematerialised = inner
+
+
+def _gather_on_rank0(tree, specs, mesh, rank: int):
+    """The whole tree on rank 0, empty leaves on the others (a collective,
+    one leaf at a time: no other rank holds more than one whole leaf, so
+    four ranks on one card never hold four whole models)."""
+    from repro_torch.parallel import sharding as sh
+
+    flat = dict(sh.walk(specs))
+
+    def one(path, t):
+        full = sh.gather_leaf(t, flat[path], mesh)
+        return full if rank == 0 else full.new_empty(0)
+
+    return sh.map_with_path(one, tree)
+
+
+def _mesh_layout(cfg, sp, seq: int) -> str:
+    """How the LM lays out ``cfg`` at S = ``seq`` on the mesh ``sp``."""
+    from repro_torch.models import transformer as tfm
+
+    attn = ("grouped over query heads" if tfm._attn_grouped(cfg, sp) else
+            "over KV heads" if tfm._attn_tp(cfg, sp) else "replicated")
+    return (f"sequence-parallel stream {tfm._seq_shard(cfg, sp, seq)}, attention {attn}, "
+            f"vocab-parallel {tfm._vocab_tp(cfg, sp)}")
+
+
 def _lm_mesh_rank(rank, root, dev_type, cfgs, sizes) -> None:
-    """One rank of [lm-mesh p=4] (see LM_MESH_RANKS) on ``cfgs`` (the two
-    cut models and the pipeline's layer) at ``sizes``; rank 0 runs the
+    """One rank of [lm-mesh p=4] (see LM_MESH_RANKS) on ``cfgs`` (the cut
+    models of LM_MESH_CASES, the compressed step's and the pipeline's
+    layer) at ``sizes``; rank 0 runs the
     one-card comparisons and writes ``result.json``."""
     import datetime
 
@@ -4228,92 +4306,128 @@ def _lm_mesh_rank(rank, root, dev_type, cfgs, sizes) -> None:
 
     try:
         mesh = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+        sp = C.Spmd(mesh)
         opt = make_optimizer(OptConfig(name="adamw"))
         shape = ShapeConfig("t", seq, 4, "train")
-        for arch in ("llama3.2-1b", "granite-moe-1b-a400m"):
+        for arch, train, decode_key, opt_name in LM_MESH_CASES:
             cfg = cfgs[arch]
+            opt_cfg = OptConfig(name=opt_name)
+            case_opt = make_optimizer(opt_cfg)
+            n_tokens = sizes[decode_key]
             if cfg.moe_experts:
                 cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
             batch = SyntheticLM(cfg, shape, DataConfig(seed=0), dev).batch(0)
             batch = {k: v for k, v in batch.items() if not k.startswith("_")}
-            step, _, specs, bspecs = ltrain.jit_train_step(cfg, shape, mesh, OptConfig(name="adamw"),
-                                                           remat="full", dtype=torch.float32,
-                                                           return_grads=True)
-            rows = sh.shard_tree(batch, bspecs, mesh)
-            state = ltrain.init_sharded_state(cfg, opt, mesh, seed=LM_TRAIN_SEED)
-            (_, metrics), secs = wall(lambda: step(state, rows))
-            params = sh.gather_tree(state["params"], specs["params"], mesh)
-            grads = sh.gather_tree(metrics.pop("grads"), specs["params"], mesh)
-            loss = float(metrics["loss"])
+            seq_live = tfm._seq_shard(cfg, sp, seq)
+            layout = _mesh_layout(cfg, sp, seq)
+            if train:
+                step, _, specs, bspecs = ltrain.jit_train_step(
+                    cfg, shape, mesh, opt_cfg, remat="full", dtype=torch.float32,
+                    return_grads=True)
+                rows = sh.shard_tree(batch, bspecs, mesh)
+                state = ltrain.init_sharded_state(cfg, case_opt, mesh, seed=LM_TRAIN_SEED)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                ((_, metrics), saved), secs = wall(lambda: _saved_rows(lambda: step(state, rows)))
+                peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+                params = _gather_on_rank0(state["params"], specs["params"], mesh, rank)
+                grads = _gather_on_rank0(metrics.pop("grads"), specs["params"], mesh, rank)
+                loss = float(metrics["loss"])
+                del state
+            else:
+                rows = sh.shard_tree(batch, sh.batch_specs(cfg, shape, mesh), mesh)
             # Serving from the seed's parameters (drawn again, cut to this rank).
-            serve_params = ltrain.init_sharded_state(cfg, opt, mesh, seed=LM_TRAIN_SEED)["params"]
-            serve_shape = ShapeConfig("d", seq + n_decode, 4, "decode")
+            serve_params = ltrain.init_sharded_state(cfg, case_opt, mesh,
+                                                     seed=LM_TRAIN_SEED)["params"]
+            serve_shape = ShapeConfig("d", seq + n_tokens, 4, "decode")
 
             def serve(p, m, toks):
+                prompt = {k: v for k, v in toks.items() if k != "labels"}
                 with torch.no_grad():
-                    logits, cache, index = tfm.prefill(p, cfg, {"tokens": toks["tokens"]},
-                                                       serve_shape.seq_len, mesh=m,
-                                                       dtype=torch.float32)
+                    logits, cache, index = tfm.prefill(p, cfg, prompt, serve_shape.seq_len,
+                                                       mesh=m, dtype=torch.float32)
                     out = [logits]
-                    for t in range(n_decode):
+                    for t in range(n_tokens):
                         logits, cache = tfm.decode_step(p, cfg, toks["labels"][:, t:t + 1], cache,
                                                         index + t, mesh=m, dtype=torch.float32,
                                                         cache_len=serve_shape.seq_len)
                         out.append(logits)
                 return out
 
-            got, serve_s = wall(lambda: serve(serve_params, mesh, rows))
+            exchanges, inner = [], C.all_to_all
+            C.all_to_all = lambda *a, **k: exchanges.append(1) or inner(*a, **k)
+            try:
+                got, serve_s = wall(lambda: serve(serve_params, mesh, rows))
+            finally:
+                C.all_to_all = inner
             tok = sh.token_spec(serve_shape, mesh)
             got = [sh.gather_leaf(r, tok, mesh) for r in got]
-            del state, serve_params
+            del serve_params
             torch.cuda.empty_cache()
             if rank == 0:
-                one = ltrain.init_state(cfg, opt, seed=LM_TRAIN_SEED, device=dev)
-                n_rows = batch["tokens"].shape[0] // mesh.size(0)
-                shards = [{k: v[i:i + n_rows] for k, v in batch.items()}
-                          for i in range(0, batch["tokens"].shape[0], n_rows)]
+                if train:
+                    one = ltrain.init_state(cfg, case_opt, seed=LM_TRAIN_SEED, device=dev)
+                    n_rows = batch["tokens"].shape[0] // mesh.size(0)
+                    shards = [{k: v[i:i + n_rows] for k, v in batch.items()}
+                              for i in range(0, batch["tokens"].shape[0], n_rows)]
 
-                def objective(p):
-                    """The mesh step's objective on one card, and rank 0's loss."""
-                    if not cfg.moe_experts:
-                        ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full")
-                        return ce, ce
-                    ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full",
-                                     aux_weight=0.0)
-                    auxes = [tfm.forward(p, cfg, b, dtype=torch.float32)[1] for b in shards]
-                    return ce + 0.01 * sum(auxes) / len(auxes), ce + 0.01 * auxes[0]
+                    def objective(p):
+                        """The mesh step's objective on one card, and rank 0's loss."""
+                        if not cfg.moe_experts:
+                            ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full")
+                            return ce, ce
+                        ce = tfm.lm_loss(p, cfg, batch, dtype=torch.float32, remat="full",
+                                         aux_weight=0.0)
+                        auxes = [tfm.forward(p, cfg, b, dtype=torch.float32)[1] for b in shards]
+                        return ce + 0.01 * sum(auxes) / len(auxes), ce + 0.01 * auxes[0]
 
-                def one_step():
-                    (_, value), g = ltrain.loss_and_grads(objective, one["params"])
-                    kept = tree_map(torch.clone, g)
-                    opt.update(g, one["opt"], one["params"], one["step"])
-                    return float(value.detach()), kept
+                    def one_step():
+                        (_, value), g = ltrain.loss_and_grads(objective, one["params"])
+                        kept = tree_map(torch.clone, g)
+                        case_opt.update(g, one["opt"], one["params"], one["step"])
+                        return float(value.detach()), kept
 
-                (want, want_grads), one_s = wall(one_step, together=False)
-                rel = abs(loss - want) / abs(want)
-                g_err = _leaf_errors(grads, want_grads)
-                err = _leaf_errors(params, one["params"])
-                line(f"{arch} train", rel <= LM_MESH_LOSS_RTOL and g_err <= LM_MESH_LEAF_TOL
-                     and err <= LM_MESH_LEAF_TOL,
-                     f"{cfg.n_layers} layers at d={cfg.d_model}, B=4 x S={seq} float32, "
-                     f"(2, 2) data x model: one train step {secs:.2f}s on the mesh against "
-                     f"{one_s:.2f}s on one card (host wall); loss {loss:.6f} against {want:.6f} "
-                     f"(relative {rel:.2e}, bar {LM_MESH_LOSS_RTOL}), gradients within "
-                     f"{g_err:.2e} and parameters after the step within {err:.2e} of each "
-                     f"leaf's max-abs (bar {LM_MESH_LEAF_TOL})")
-                del one, want_grads
-                torch.cuda.empty_cache()
+                    (want, want_grads), one_s = wall(one_step, together=False)
+                    rel = abs(loss - want) / abs(want)
+                    g_err = _leaf_errors(grads, want_grads)
+                    err = _leaf_errors(params, one["params"])
+                    blocks = seq // 2 if seq_live else seq
+                    line(f"{arch} train", rel <= LM_MESH_LOSS_RTOL and g_err <= LM_MESH_LEAF_TOL
+                         and err <= LM_MESH_LEAF_TOL and set(saved) == {blocks}
+                         and seq_live == (cfg.d_model >= 4096),
+                         f"{cfg.n_layers} layers at d={cfg.d_model}, B=4 x S={seq} float32, "
+                         f"(2, 2) data x model ({layout}), {opt_name}: one train step "
+                         f"{secs:.2f}s on the mesh (rank 0's peak {peak / 1e9:.2f} GB) against "
+                         f"{one_s:.2f}s on one card (host wall); loss {loss:.6f} "
+                         f"against {want:.6f} (relative {rel:.2e}, bar {LM_MESH_LOSS_RTOL}), "
+                         f"gradients within {g_err:.2e} and parameters after the step within "
+                         f"{err:.2e} of each leaf's max-abs (bar {LM_MESH_LEAF_TOL}); the rows "
+                         f"of each group input remat saved {saved} (expected {blocks})")
+                    del one, want_grads
+                    torch.cuda.empty_cache()
                 fresh = tfm.init_lm(LM_TRAIN_SEED, cfg, device=dev)
                 want_rows, one_serve_s = wall(lambda: serve(fresh, None, batch), together=False)
                 errs = [float((a - b).abs().max()) for a, b in zip(got, want_rows)]
                 close = all(torch.allclose(a, b, atol=LM_ATOL, rtol=LM_RTOL)
                             for a, b in zip(got, want_rows))
-                line(f"{arch} serve", close,
-                     f"prefill of 4 x {seq} and {n_decode} decode tokens, float32: "
-                     f"{serve_s:.2f}s on the mesh against {one_serve_s:.2f}s on one card (host "
-                     f"wall); logits max |diff| {max(errs):.2e} (atol {LM_ATOL}, rtol {LM_RTOL})")
+                # One all-to-all a grouped layer whose cache has its
+                # sequence over "model" (the others gather their heads).
+                kinds = [tfm._kind(cfg, li)[0] for li in range(cfg.n_layers)]
+                lengths = [min(cfg.window, serve_shape.seq_len) if k == "local"
+                           else serve_shape.seq_len for k in kinds if k in ("attn", "local")]
+                want_exchanges = (sum(sh.seq_sharded(n, sp.model, cfg) for n in lengths)
+                                  if tfm._attn_grouped(cfg, sp) else 0)
+                line(f"{arch} serve", close and len(exchanges) == want_exchanges,
+                     f"prefill of 4 x {seq} and {n_tokens} decode tokens, float32 "
+                     f"({layout}): {serve_s:.2f}s on the mesh against {one_serve_s:.2f}s on "
+                     f"one card (host wall); logits max |diff| {max(errs):.2e} (atol {LM_ATOL}, "
+                     f"rtol {LM_RTOL}); all-to-alls in the prefill {len(exchanges)} (expected "
+                     f"{want_exchanges}: one a grouped attention layer, its cache's sequence over "
+                     f"\"model\")")
                 del fresh, want_rows
-            del params, grads, got
+            if train:
+                del params, grads
+            del got
             torch.cuda.empty_cache()
             dist.barrier()
 
@@ -5093,6 +5207,7 @@ def main() -> None:
     lm_restart_phase(dev, run)
 
     # 9j. The LM on a mesh: NCCL at one rank, then gloo ranks on the card.
+    print(f"[smoke] {time.perf_counter() - smoke_t0:.1f}s before [lm-mesh]", flush=True)
     lm_mesh_phases(dev, run, launches)
 
     # 10. Per-kernel numbers.

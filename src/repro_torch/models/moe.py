@@ -24,7 +24,8 @@ same note as Lloyd's centroid update).
 Expert parallelism (``mesh=``, a ``DeviceMesh`` or ``parallel.collectives.Spmd``;
 the reference's ``shard_map`` over the batch axes and "model"): every
 "model" rank holds the same tokens (the activations between layers are
-replicated over "model"), owns E / ep experts, routes its data shard's
+replicated over "model", or gathered first where the stream is
+sequence-parallel), owns E / ep experts, routes its data shard's
 tokens with the capacity taken from that shard's token count, runs its own
 experts, and one all-reduce over "model" combines ``out`` and ``aux / ep``.
 No token all-to-all.  ``params`` are the rank's pieces as
@@ -173,13 +174,15 @@ def _moe_specs(dims: MoEDims, sizes_key: tuple) -> dict:
 
 
 def moe_apply(params: Params, dims: MoEDims, x: torch.Tensor, mesh=None,
-              dense_path: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              dense_path: bool = False,
+              seq_shard: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN.  x: (B, S, d) -> (out (B, S, d), aux loss scalar).  On a
-    mesh, x is this rank's rows and ``params`` its pieces."""
+    mesh, x is this rank's rows and ``params`` its pieces; with
+    ``seq_shard`` x and out are this rank's block of the sequence over
+    "model" (gathered on the way in, the combine reduce-scattered)."""
     from repro_torch.parallel import collectives as C
 
     sp = C.as_spmd(mesh)
-    b, s, d = x.shape
     e_start, ep = 0, 1
     if sp is not None:
         ep = sp.model
@@ -191,8 +194,9 @@ def moe_apply(params: Params, dims: MoEDims, x: torch.Tensor, mesh=None,
         # The router is used inside the expert-parallel region: each model
         # rank's gradient holds its own experts' part, summed here.
         params["router"] = C.copy_to(params["router"], sp, ("model",))
-        x = C.copy_to(x, sp, ("model",))
+        x = C.region_input(x, sp, True, seq_shard)
         e_start = sp.rank("model") * (dims.n_experts // ep)
+    b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     gates, ids, aux = route(params, dims, x_flat)
     ws = (params["w_gate"], params["w_up"], params["w_down"])
@@ -201,6 +205,9 @@ def moe_apply(params: Params, dims: MoEDims, x: torch.Tensor, mesh=None,
     else:
         out = _moe_local(x_flat, gates, ids, *ws, e_start, dims.n_experts,
                          _capacity(x_flat.shape[0], dims))
+    if seq_shard and ep > 1:
+        out = C.reduce_scatter_seq(out.reshape(b, s, d).to(_F32), sp).to(x.dtype)
+        return out, C.reduce_from(aux / ep, sp, ("model",))
     if sp is not None and ep > 1:
         # Combine the expert ranks' outputs (and aux / ep) in one float32
         # collective.

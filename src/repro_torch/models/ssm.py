@@ -143,7 +143,8 @@ def _mamba_specs(dims: MambaDims, sizes_key: tuple) -> dict:
 
 
 def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
-                state: Params | None = None, mesh=None) -> tuple[torch.Tensor, Params]:
+                state: Params | None = None, mesh=None,
+                seq_shard: bool = False) -> tuple[torch.Tensor, Params]:
     """Full-sequence Mamba mixer.  x: (B, S, d_model) -> (out, final state).
 
     On a mesh (``params`` the rank's pieces, ``state`` its channels): the
@@ -153,7 +154,8 @@ def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
     all-reduce over "model".  ``in_proj`` is stored as contiguous columns
     over "model" (the reference's placement), which splits x from z rather
     than channels, so it is gathered and each rank takes its channels' x
-    and z columns."""
+    and z columns.  With ``seq_shard`` x and out are this rank's block of
+    the sequence over "model" (``collectives.region_input``)."""
     from repro_torch.parallel import collectives as C
 
     sp = C.as_spmd(mesh)
@@ -163,7 +165,8 @@ def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
     m, di = sp.model, dims.d_inner
     if m == 1 or di % m:
         used = {k: C.use_param(v, specs[k], sp, tensor_parallel=False) for k, v in params.items()}
-        return _mamba(used, dims, x, state, di)
+        out, st = _mamba(used, dims, C.region_input(x, sp, False, seq_shard), state, di)
+        return C.region_output(out, sp, False, seq_shard), st
     used = {k: C.use_param(v, specs[k], sp, tensor_parallel=True) for k, v in params.items()
             if k != "in_proj"}
     full = C.use_param(params["in_proj"], specs["in_proj"], sp, tensor_parallel=False,
@@ -171,9 +174,9 @@ def mamba_apply(params: Params, dims: MambaDims, x: torch.Tensor,
     dl, r = di // m, sp.rank("model")
     used["in_proj"] = torch.cat([full[:, r * dl:(r + 1) * dl],
                                  full[:, di + r * dl:di + (r + 1) * dl]], dim=1)
-    out, st = _mamba(used, dims, C.copy_to(x, sp, ("model",)), state, dl,
+    out, st = _mamba(used, dims, C.region_input(x, sp, True, seq_shard), state, dl,
                      dbc_hook=lambda t: C.reduce_both(t, sp, ("model",)))
-    return C.reduce_from(out, sp, ("model",)), st
+    return C.region_output(out, sp, True, seq_shard), st
 
 
 def _mamba(params: Params, dims: MambaDims, x: torch.Tensor, state, di: int,

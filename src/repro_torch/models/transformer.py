@@ -40,17 +40,29 @@ stay local: attention heads and KV heads (where "model" divides both), the
 dense FFN hidden, the MoE's experts and Mamba's channels are
 column-parallel on the way in, ``wo`` / ``w_down`` / ``out_proj``
 row-parallel with one all-reduce over "model" (the kinds the reference's
-``activation_sharder`` pins).  In the train forward, query heads whose
-KV heads are fewer than the "model" ranks are split too, each rank's
-heads reading one KV head.  Where "model" does not divide them the layer
-gathers its weights and computes replicated.  In the train loss the
-embedding and ``lm_head`` are vocab-parallel where "model" divides the
-vocabulary (Megatron's embedding and cross-entropy); elsewhere, and in
-serving, they are gathered whole.  The loss's sums are all-reduced over
-the batch axes.  The decode step reads a KV cache whose sequence is split over
-"model" (``layers.attention_decode`` with ``sp``): it needs ``cache_len``, the
-cache's full length.  A mesh whose axes all have size 1 computes the
-one-card bits.
+``activation_sharder`` pins).  Query heads whose KV heads are fewer than
+the "model" ranks are split too, each rank's heads reading one KV head,
+in the train forward and in the prefill (whose cache, every KV head with
+the sequence over "model", is then made by one all-to-all).  Where
+"model" does not divide them the layer gathers its weights and computes
+replicated.
+
+Sequence parallelism (the reference's ``seq_shard``, d_model >= 4096):
+where "model" divides the sequence and is shorter than it, the residual
+stream between layers is this rank's block of the sequence (``_seq_shard``);
+the norms run on the block, each part gathers the sequence on the way in
+and reduce-scatters it on the way out (``collectives.region_input`` /
+``region_output``), and the final norm reads it gathered.  The train
+forward, ``lm_loss`` and the prefill; never the one-token decode.
+
+The embedding and ``lm_head`` are vocab-parallel where "model" divides the
+vocabulary (Megatron's embedding and cross-entropy; in serving the logits
+of this rank's block all-gathered); elsewhere they are gathered whole.
+The loss's sums are all-reduced over the batch axes.  The decode step
+reads a KV cache whose sequence is split over "model"
+(``layers.attention_decode`` with ``sp``; a compressed cache likewise): it
+needs ``cache_len``, the cache's full length.  A mesh whose axes all have
+size 1 computes the one-card bits.
 """
 
 from __future__ import annotations
@@ -156,19 +168,21 @@ def _attn_tp(cfg: ModelConfig, sp) -> bool:
 
 def _attn_grouped(cfg: ModelConfig, sp) -> bool:
     """Where "model" divides the query heads and is a multiple of the KV
-    heads (fewer KV heads than ranks), the attention of the train forward is
-    tensor-parallel over query heads, each rank's heads sharing one KV
-    head (``_grouped_attention``)."""
+    heads (fewer KV heads than ranks), the attention is tensor-parallel
+    over query heads, each rank's heads sharing one KV head
+    (``_grouped_attention``)."""
     m = 1 if sp is None else sp.model
     return (m > 1 and not _attn_tp(cfg, sp) and cfg.n_heads % m == 0
             and m % cfg.n_kv_heads == 0)
 
 
-def _grouped_attention(p: Params, specs, dims: L.AttnDims, h, positions, causal, sp):
-    """Attention over this rank's query heads (its columns of ``wq``, rows
-    of ``wo``) and the one KV head they read, ``rank * kv_heads // model``:
-    its columns of ``wk`` and ``wv`` are cut from the gathered projection,
-    whose gradient is summed over "model" (each rank's is its head's part)."""
+def _grouped_attention(p: Params, specs, dims: L.AttnDims, h, positions, causal, sp,
+                       collect: bool, seq: bool):
+    """(out, (k, v) of the one KV head or None): attention over this rank's
+    query heads (its columns of ``wq``, rows of ``wo``) and the one KV head
+    they read, ``rank * kv_heads // model``: its columns of ``wk`` and
+    ``wv`` are cut from the gathered projection, whose gradient is summed
+    over "model" (each rank's is its head's part)."""
     m, hd = sp.model, dims.head_dim
     j = sp.rank("model") * dims.n_kv_heads // m
     w = {}
@@ -181,8 +195,10 @@ def _grouped_attention(p: Params, specs, dims: L.AttnDims, h, positions, causal,
         else:
             w[k] = C.use_param(v, specs[k], sp, tensor_parallel=True)
     dims = dataclasses.replace(dims, n_heads=dims.n_heads // m, n_kv_heads=1)
-    out = L.attention_apply(w, dims, C.copy_to(h, sp, ("model",)), positions, causal)
-    return C.reduce_from(out, sp, ("model",))
+    res = L.attention_apply(w, dims, C.region_input(h, sp, True, seq), positions, causal,
+                            return_kv=collect)
+    out, kv = res if collect else (res, None)
+    return C.region_output(out, sp, True, seq), kv
 
 
 def _local_dims(dims: L.AttnDims, sp) -> L.AttnDims:
@@ -199,9 +215,9 @@ def _top_specs(cfg: ModelConfig, sp) -> dict:
 
 
 def _vocab_tp(cfg: ModelConfig, sp) -> bool:
-    """The train loss's embedding and logits are vocab-parallel where
-    "model" divides the vocabulary (``param_specs`` then splits the table's
-    rows and ``lm_head``'s columns over it)."""
+    """The embedding and logits are vocab-parallel where "model" divides
+    the vocabulary (``param_specs`` then splits the table's rows and
+    ``lm_head``'s columns over it)."""
     return sp is not None and sp.model > 1 and cfg.vocab_size % sp.model == 0
 
 
@@ -220,46 +236,59 @@ def _with_top(params: Params, cfg: ModelConfig, sp, vocab_tp: bool = False) -> P
     return out
 
 
-def _vocab_embed(table: torch.Tensor, tokens: torch.Tensor, dtype, sp) -> torch.Tensor:
-    """The rows of ``tokens`` from a vocab-parallel table (this rank's block
-    of rows): each rank looks up the tokens its block holds, zeros for the
-    rest, and the sum over "model" is the row (Megatron's embedding)."""
+def _vocab_rows(table: torch.Tensor, tokens: torch.Tensor, sp) -> torch.Tensor:
+    """The rows of ``tokens`` that this rank's block of a vocab-parallel
+    table holds, zeros for the rest: their sum over "model" is the row
+    (Megatron's embedding)."""
     rows = table.shape[0]
     local = tokens.long() - sp.rank("model") * rows
     inside = (local >= 0) & (local < rows)
-    x = F.embedding(torch.where(inside, local, 0), table) * inside[..., None].to(table.dtype)
-    return C.reduce_from(x, sp, ("model",)).to(dtype)
+    return F.embedding(torch.where(inside, local, 0), table) * inside[..., None].to(table.dtype)
+
+
+def _vocab_embed(table: torch.Tensor, tokens: torch.Tensor, dtype, sp) -> torch.Tensor:
+    """The rows of ``tokens`` from a vocab-parallel table (this rank's block
+    of rows), summed over "model"."""
+    return C.reduce_from(_vocab_rows(table, tokens, sp), sp, ("model",)).to(dtype)
+
+
+SEQ_SHARD_MIN_D_MODEL = 4096  # the reference's threshold (``transformer._sharder``)
+
+
+def _seq_shard(cfg: ModelConfig, sp, s: int) -> bool:
+    """Whether the residual stream of an ``s``-position sequence is this
+    rank's block of it over "model" (the reference's ``seq_shard`` and
+    ``activation_sharder``'s rule for kind ``"resid"``)."""
+    m = 1 if sp is None else sp.model
+    return cfg.d_model >= SEQ_SHARD_MIN_D_MODEL and m > 1 and s % m == 0 and s > m
 
 
 def _self_attention(p: Params, specs, cfg: ModelConfig, mixer: str, h, positions, causal,
-                    collect: bool, sp):
+                    collect: bool, sp, seq: bool = False):
     """(out, (k, v) or None): tensor-parallel over heads where it can be
-    (k and v then this rank's KV heads); without ``collect``, also over
-    query heads that share a KV head (``_attn_grouped``)."""
+    (k and v then this rank's KV heads), else over query heads that share
+    a KV head (``_attn_grouped``; k and v then that head's)."""
     dims = attn_dims(cfg, mixer)
-    if not collect and _attn_grouped(cfg, sp):
-        return _grouped_attention(p, specs, dims, h, positions, causal, sp), None
+    if _attn_grouped(cfg, sp):
+        return _grouped_attention(p, specs, dims, h, positions, causal, sp, collect, seq)
     tp = _attn_tp(cfg, sp)
     w = _use(p, specs, sp, tp)
     if tp:
-        h, dims = C.copy_to(h, sp, ("model",)), _local_dims(dims, sp)
-    res = L.attention_apply(w, dims, h, positions, causal, return_kv=collect)
+        dims = _local_dims(dims, sp)
+    res = L.attention_apply(w, dims, C.region_input(h, sp, tp, seq), positions, causal,
+                            return_kv=collect)
     out, kv = res if collect else (res, None)
-    if tp:
-        out = C.reduce_from(out, sp, ("model",))
-    return out, kv
+    return C.region_output(out, sp, tp, seq), kv
 
 
-def _mlp(p: Params, specs, cfg: ModelConfig, h, sp):
+def _mlp(p: Params, specs, cfg: ModelConfig, h, sp, seq: bool = False):
     """The dense SwiGLU MLP, its hidden over "model" where it divides."""
     tp = sp is not None and sp.model > 1 and cfg.d_ff % sp.model == 0
     w = _use(p, specs, sp, tp)
-    if not tp:
-        return L.mlp_apply(w, h)
-    return C.reduce_from(L.mlp_apply(w, C.copy_to(h, sp, ("model",))), sp, ("model",))
+    return C.region_output(L.mlp_apply(w, C.region_input(h, sp, tp, seq)), sp, tp, seq)
 
 
-def _cross(p: Params, specs, cfg: ModelConfig, h, enc_kv, sp, decode: bool):
+def _cross(p: Params, specs, cfg: ModelConfig, h, enc_kv, sp, decode: bool, seq: bool = False):
     """Cross-attention.  In the forward, tensor-parallel over heads like the
     self-attention (``enc_kv`` then this rank's KV heads); in the decode,
     whole weights over the cache's keys, their positions split over "model"
@@ -274,10 +303,10 @@ def _cross(p: Params, specs, cfg: ModelConfig, h, enc_kv, sp, decode: bool):
         return L.cross_attention_apply(w, dims, h, enc_kv)
     tp = _attn_tp(cfg, sp)
     w = _use(p, specs, sp, tp)
-    if not tp:
-        return L.cross_attention_apply(w, dims, h, enc_kv)
-    out = L.cross_attention_apply(w, _local_dims(dims, sp), C.copy_to(h, sp, ("model",)), enc_kv)
-    return C.reduce_from(out, sp, ("model",))
+    if tp:
+        dims = _local_dims(dims, sp)
+    out = L.cross_attention_apply(w, dims, C.region_input(h, sp, tp, seq), enc_kv)
+    return C.region_output(out, sp, tp, seq)
 
 
 def _device(device) -> torch.device:
@@ -350,25 +379,31 @@ _APPLY = {"mamba": (ssm.mamba_apply, mamba_dims), "mlstm": (ssm.mlstm_apply, mls
 _STEP = {"mamba": ssm.mamba_step, "mlstm": ssm.mlstm_step, "slstm": ssm.slstm_step}
 
 
-def _norm(p: Params, name: str, specs, sp) -> Params:
-    return p[name] if sp is None else _use(p[name], specs[name], sp, tp=False)
+def _norm(p: Params, name: str, specs, sp, seq: bool = False) -> Params:
+    """A norm's scale; on a sequence block (``seq``) each rank's gradient is
+    its block's part, summed over "model"."""
+    if sp is None:
+        return p[name]
+    w = _use(p[name], specs[name], sp, tp=False)
+    return {k: C.copy_to(v, sp, ("model",)) for k, v in w.items()} if seq else w
 
 
 def _cross_and_mlp(p: Params, cfg: ModelConfig, mlp_kind: str, x: torch.Tensor, enc_kv,
-                   dense_path: bool, sp=None, specs=None):
+                   dense_path: bool, sp=None, specs=None, seq: bool = False):
     """The layer after its mixer: cross-attention over ``enc_kv`` (when
     given), then the MLP.  Returns (x, aux).  ``dense_path`` marks the
-    decode step."""
+    decode step, ``seq`` a sequence-parallel stream."""
     if enc_kv is not None:
-        h = L.rmsnorm(_norm(p, "norm_cross", specs, sp), x, cfg.norm_eps)
-        x = x + _cross(p["cross"], specs and specs["cross"], cfg, h, enc_kv, sp, dense_path)
+        h = L.rmsnorm(_norm(p, "norm_cross", specs, sp, seq), x, cfg.norm_eps)
+        x = x + _cross(p["cross"], specs and specs["cross"], cfg, h, enc_kv, sp, dense_path, seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp_kind == "dense":
-        h = L.rmsnorm(_norm(p, "norm2", specs, sp), x, cfg.norm_eps)
-        x = x + _mlp(p["mlp"], specs and specs["mlp"], cfg, h, sp)
+        h = L.rmsnorm(_norm(p, "norm2", specs, sp, seq), x, cfg.norm_eps)
+        x = x + _mlp(p["mlp"], specs and specs["mlp"], cfg, h, sp, seq)
     elif mlp_kind == "moe":
-        h = L.rmsnorm(_norm(p, "norm2", specs, sp), x, cfg.norm_eps)
-        out, aux = moe_mod.moe_apply(p["mlp"], moe_dims(cfg), h, mesh=sp, dense_path=dense_path)
+        h = L.rmsnorm(_norm(p, "norm2", specs, sp, seq), x, cfg.norm_eps)
+        out, aux = moe_mod.moe_apply(p["mlp"], moe_dims(cfg), h, mesh=sp, dense_path=dense_path,
+                                     seq_shard=seq)
         x = x + out
     return x, aux
 
@@ -384,32 +419,36 @@ def layer_forward(
     causal: bool = True,
     enc_kv=None,
     collect_cache: bool = False,
+    seq_shard: bool = False,
 ):
     """Pre-norm residual layer.  Returns (x, aux_loss, cache_or_None): the
     cache is the attention's ``{"k", "v"}`` or a recurrent mixer's final
     state.  On a mesh the attention's keys and values are this rank's KV
-    heads where the attention is tensor-parallel, a Mamba state its
-    channels."""
-    sp = C.as_spmd(mesh)
+    heads where the attention is tensor-parallel (its one KV head where it
+    is grouped), a Mamba state its channels.  ``seq_shard``: x (and the
+    result) is this rank's block of the sequence over "model"; positions
+    stay whole (see the module's docstring)."""
+    sp, seq = C.as_spmd(mesh), seq_shard
     _check_kinds(mixer, mlp_kind)
     specs = _layer_specs(cfg, mixer, mlp_kind, "cross" in p, sp)
-    h = L.rmsnorm(_norm(p, "norm1", specs, sp), x, cfg.norm_eps)
+    h = L.rmsnorm(_norm(p, "norm1", specs, sp, seq), x, cfg.norm_eps)
     cache = None
     if mixer in ("attn", "local"):
         out, kv = _self_attention(p["mixer"], specs and specs["mixer"], cfg, mixer, h,
-                                  positions, causal, collect_cache, sp)
+                                  positions, causal, collect_cache, sp, seq)
         if collect_cache:
             cache = {"k": kv[0], "v": kv[1]}
     else:
         apply, dims_of = _APPLY[mixer]
         if mixer == "mamba":
-            out, state = ssm.mamba_apply(p["mixer"], dims_of(cfg), h, mesh=sp)
+            out, state = ssm.mamba_apply(p["mixer"], dims_of(cfg), h, mesh=sp, seq_shard=seq)
         else:
             out, state = apply(_use(p["mixer"], specs and specs["mixer"], sp, tp=False),
-                               dims_of(cfg), h)
+                               dims_of(cfg), C.region_input(h, sp, False, seq))
+            out = C.region_output(out, sp, False, seq)
         cache = state if collect_cache else None
     x, aux = _cross_and_mlp(p, cfg, mlp_kind, x + out, enc_kv, dense_path=False, sp=sp,
-                            specs=specs)
+                            specs=specs, seq=seq)
     return x, aux, cache
 
 
@@ -469,31 +508,18 @@ def layer_step(
 def _compressed_decode(w: Params, dims: L.AttnDims, h, cache: Params, index: int,
                        cfg: ModelConfig, sp):
     """The CKM-compressed decode attention (``serve.kv_clustering``).  On a
-    mesh the centroids and the ring (split over "model" by ``cache_specs``)
-    are gathered, attended to whole, and the new token's ring slot is
-    written back into this rank's block."""
+    mesh each rank attends over its block of the centroids and of the ring
+    (where ``cache_specs`` splits them over "model"), the softmax's max and
+    sums all-reduced over "model"; the rank that holds the new token's ring
+    slot writes it."""
     from repro_torch.serve.kv_clustering import attention_decode_compressed
 
     if sp is None or sp.model == 1:
         return attention_decode_compressed(w, dims, h, cache, index)
-    full = {k: C.all_gather(cache[k], sp, "model", 1) if _cache_split(k, cache[k], cfg, sp)
-            else cache[k] for k in ("ck", "cv", "clogw", "k", "v")}
-    out, ring = attention_decode_compressed(w, dims, h, full, index)
-    for k in ("k", "v"):
-        if _cache_split(k, cache[k], cfg, sp):
-            cache[k].copy_(C.own_slice(ring[k], sp, "model", 1))
-        else:
-            cache[k].copy_(ring[k])
-    return out, {"k": cache["k"], "v": cache["v"]}
-
-
-def _cache_split(name: str, local: torch.Tensor, cfg: ModelConfig, sp) -> bool:
-    """Whether a compressed cache's leaf has its sequence over "model"
-    (its full length is a constant of the mode)."""
-    s_full = CKM_KV_RECENT if name in ("k", "v") else CKM_KV_CENTROIDS
-    if name == "clogw":
-        return s_full % sp.model == 0
-    return sh.seq_sharded(s_full, sp.model, cfg)
+    return attention_decode_compressed(
+        w, dims, h, cache, index, sp=sp,
+        centroids_split=sh.seq_sharded(CKM_KV_CENTROIDS, sp.model, cfg),
+        ring_split=sh.seq_sharded(CKM_KV_RECENT, sp.model, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -565,17 +591,53 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype,
     return x * (L.to_bf16(scale) if dtype == torch.bfloat16 else scale)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype, vocab_sp=None):
+def _seq_len(cfg: ModelConfig, batch: dict) -> int:
+    """The positions of the whole sequence (the vision prefix's included)."""
+    s = batch["tokens"].shape[1]
+    return s + batch["patches"].shape[1] if cfg.frontend == "vision" else s
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, dtype, vocab_sp=None, seq_sp=None):
     """Token embedding, behind the vision prefix (``batch["patches"]``, (B,
     F, d) stub embeddings) for a ``vision`` frontend.  Returns (x,
-    positions) over the whole sequence.  ``vocab_sp``: the embedding is
-    vocab-parallel over its "model" axis."""
+    positions over the whole sequence).  ``vocab_sp``: the embedding is
+    vocab-parallel over its "model" axis.  ``seq_sp``: x is this rank's
+    block of the sequence over its "model" axis (a vocab-parallel sum is
+    then reduce-scattered)."""
     _check_cfg(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"], dtype, vocab_sp)
-    if cfg.frontend == "vision":
-        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    return x, positions
+    tokens = batch["tokens"]
+    s = _seq_len(cfg, batch)
+    positions = torch.arange(s, device=tokens.device).expand(tokens.shape[0], s)
+    prefix = batch["patches"].to(dtype) if cfg.frontend == "vision" else None
+    if vocab_sp is not None and seq_sp is not None:
+        return _vocab_embed_seq(params["embed"]["table"], cfg, tokens, prefix, dtype,
+                                vocab_sp), positions
+    x = _embed_tokens(params, cfg, tokens, dtype, vocab_sp)
+    if prefix is not None:
+        x = torch.cat([prefix, x], dim=1)
+    return C.split_seq(x, seq_sp) if seq_sp is not None else x, positions
+
+
+def _vocab_embed_seq(table, cfg: ModelConfig, tokens, prefix, dtype, sp) -> torch.Tensor:
+    """This rank's block of the sequence of a vocab-parallel embedding: the
+    ranks' rows (behind the prefix, which "model"-rank 0 alone adds)
+    reduce-scattered over "model", then cast and scaled as
+    ``_embed_tokens``: the same bits."""
+    wide = torch.promote_types(table.dtype, dtype)
+    x = _vocab_rows(table, tokens, sp).to(wide)
+    n_prefix = 0
+    if prefix is not None:
+        n_prefix = prefix.shape[1]
+        part = prefix.to(wide)
+        x = torch.cat([part if sp.rank("model") == 0 else torch.zeros_like(part), x], dim=1)
+    x = C.reduce_scatter_seq(x, sp).to(dtype)
+    scale = L.f32_sqrt(cfg.d_model)
+    scaled = x * (L.to_bf16(scale) if dtype == torch.bfloat16 else scale)
+    if not n_prefix:
+        return scaled
+    n = x.shape[1]
+    pos = sp.rank("model") * n + torch.arange(n, device=x.device)
+    return torch.where((pos >= n_prefix)[None, :, None], scaled, x)
 
 
 def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor, sp=None) -> torch.Tensor:
@@ -665,8 +727,13 @@ def forward(
 def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: str,
              vocab_tp: bool = False):
     """``forward`` of parameters whose top leaves ``_with_top`` has made
-    (with ``vocab_tp`` as ``_with_top``)."""
-    x, positions = _embed_inputs(params, cfg, batch, dtype, sp if vocab_tp else None)
+    (with ``vocab_tp`` as ``_with_top``).  Where the stream is
+    sequence-parallel (``_seq_shard``) the layers, and the group inputs
+    that ``remat`` saves, hold this rank's block of the sequence; it is
+    gathered before the final norm."""
+    seq = _seq_shard(cfg, sp, _seq_len(cfg, batch))
+    x, positions = _embed_inputs(params, cfg, batch, dtype, sp if vocab_tp else None,
+                                 sp if seq else None)
     enc_out = _encoder_out(params, cfg, batch, dtype, sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -674,7 +741,8 @@ def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: st
         for i in range(cfg.period):
             p = gparams[str(i)]
             x, a, _ = layer_forward(p, cfg, cfg.mixer_pattern[i], cfg.mlp_pattern[i], x,
-                                    positions, mesh=sp, enc_kv=_enc_kv(p, cfg, enc_out, sp))
+                                    positions, mesh=sp, enc_kv=_enc_kv(p, cfg, enc_out, sp),
+                                    seq_shard=seq)
             aux = aux + a
         return x, aux
 
@@ -684,8 +752,12 @@ def _forward(params: Params, cfg: ModelConfig, batch: dict, sp, dtype, remat: st
         if where == "rest":
             p = params["rest"][key]
             x, a, _ = layer_forward(p, cfg, *_kind(cfg, li), x, positions, mesh=sp,
-                                    enc_kv=_enc_kv(p, cfg, enc_out, sp))
+                                    enc_kv=_enc_kv(p, cfg, enc_out, sp), seq_shard=seq)
             aux = aux + a
+    if seq:
+        # Every rank computes the final norm and the loss on the whole
+        # sequence (the vocab-parallel loss all-reduces its gradient).
+        x = C.gather_seq(x, sp, grad="slice")
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux
 
@@ -694,6 +766,14 @@ def logits_fn(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x)
     return L.lm_head(params["lm_head"], x)
+
+
+def _serve_logits(params: Params, cfg: ModelConfig, x: torch.Tensor, sp,
+                  vocab_tp: bool) -> torch.Tensor:
+    """The serving logits; vocab-parallel, this rank's block's, all-gathered
+    over "model"."""
+    logits = logits_fn(params, cfg, x)
+    return C.all_gather(logits, sp, "model", logits.ndim - 1) if vocab_tp else logits
 
 
 def _ce_chunk(params: Params, cfg: ModelConfig, xc: torch.Tensor, lc: torch.Tensor,
@@ -890,11 +970,14 @@ def prefill(
     rows and the cache its pieces as ``cache_specs`` places them (keys and
     values of every head, the sequence split over "model")."""
     sp = C.as_spmd(mesh)
-    params = _with_top(params, cfg, sp)
-    x, positions = _embed_inputs(params, cfg, batch, dtype)
-    s_total = x.shape[1]
+    vocab_tp = _vocab_tp(cfg, sp)
+    params = _with_top(params, cfg, sp, vocab_tp)
+    s_total = _seq_len(cfg, batch)
     if cache_len < s_total:
         raise ValueError(f"cache_len {cache_len} < prompt length {s_total}")
+    seq = _seq_shard(cfg, sp, s_total)
+    x, positions = _embed_inputs(params, cfg, batch, dtype, sp if vocab_tp else None,
+                                 sp if seq else None)
     enc_out = _encoder_out(params, cfg, batch, dtype, sp)
     cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
@@ -902,8 +985,9 @@ def prefill(
         p = _at(params, where, g, key)
         enc_kv = _enc_kv(p, cfg, enc_out, sp)
         x, _, raw = layer_forward(p, cfg, mixer, mlp_kind, x, positions, mesh=sp,
-                                  enc_kv=enc_kv, collect_cache=True)
-        if mixer in ("attn", "local") and _attn_tp(cfg, sp):
+                                  enc_kv=enc_kv, collect_cache=True, seq_shard=seq)
+        attn = mixer in ("attn", "local")
+        if attn and _attn_tp(cfg, sp):
             raw = {k: C.all_gather(t, sp, "model", 2) for k, t in raw.items()}
         c = _to_cache(cfg, mixer, raw, cache_len)
         if enc_kv is not None:
@@ -911,12 +995,48 @@ def prefill(
                 enc_kv = tuple(C.all_gather(t, sp, "model", 2) for t in enc_kv)
             c["cross_k"], c["cross_v"] = enc_kv
         if sp is not None:
-            c = {k: (C.own_slice(t, sp, "model", 1).clone()
-                     if k != "state" and sh.seq_sharded(t.shape[1], sp.model, cfg) else t)
+            placed = _grouped_cache(c, cfg, sp) if attn and _attn_grouped(cfg, sp) else {}
+            c = {k: placed[k] if k in placed else
+                 (C.own_slice(t, sp, "model", 1).clone()
+                  if k != "state" and sh.seq_sharded(t.shape[1], sp.model, cfg) else t)
                  for k, t in c.items()}
         _put(cache, where, g, key, c)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    return logits_fn(params, cfg, x), cache, s_total
+    last = x[:, -1:, :]
+    if seq:
+        last = C.all_gather(last, sp, "model", 1)[:, -1:, :]  # the last rank's block holds it
+    x = L.rmsnorm(params["final_norm"], last, cfg.norm_eps)
+    return _serve_logits(params, cfg, x, sp, vocab_tp), cache, s_total
+
+
+def _grouped_cache(c: Params, cfg: ModelConfig, sp) -> Params:
+    """A grouped attention's ``"k"`` and ``"v"`` (in ``c``: its one KV
+    head's, in cache form, (B, L, 1, hd)) as ``cache_specs`` places them:
+    every KV head.  With the sequence over "model", by
+    one all-to-all of keys and values together: block t of the cache goes
+    to rank t, each of the ``model // kv_heads`` ranks that share a head
+    sending its part of the block.  Else the heads all-gathered."""
+    m, kvh = sp.model, cfg.n_kv_heads
+    g = m // kvh
+    k, v = c["k"], c["v"]
+    kv = torch.cat([k, v], dim=-1)[:, :, 0]  # (B, L, 2 hd)
+    b, length, width = kv.shape
+    if not sh.seq_sharded(length, m, cfg):
+        whole = C.all_gather(kv[:, :, None], sp, "model", 2)[:, :, ::g]
+        return _halves(whole.split(k.shape[-1], dim=-1))
+    n = length // m
+    parts = [len(p) for p in torch.arange(n).tensor_split(g)]
+    q = sp.rank("model") % g
+    off = sum(parts[:q])
+    send = kv.reshape(b, m, n, width)[:, :, off:off + parts[q]]  # (B, m, part, 2 hd)
+    send = send.permute(1, 2, 0, 3).reshape(m * parts[q], b, width)
+    got = C.all_to_all(send, sp, "model", [parts[q]] * m, [parts[t % g] for t in range(m)])
+    # From rank t = j g + q': head j's rows of part q' of this rank's block.
+    got = got.reshape(kvh, n, b, width).permute(2, 1, 0, 3).contiguous()
+    return _halves(got.split(k.shape[-1], dim=-1))
+
+
+def _halves(parts) -> Params:
+    return {name: t.contiguous() for name, t in zip(("k", "v"), parts)}
 
 
 def decode_step(
@@ -937,12 +1057,13 @@ def decode_step(
     length the cache was made for.
     """
     sp = C.as_spmd(mesh)
-    params = _with_top(params, cfg, sp)
-    x = _embed_tokens(params, cfg, token, dtype)
+    vocab_tp = _vocab_tp(cfg, sp)
+    params = _with_top(params, cfg, sp, vocab_tp)
+    x = _embed_tokens(params, cfg, token, dtype, sp if vocab_tp else None)
     new_cache = _new_tree(cfg)
     for li, where, g, key in _walk(cfg):
         x, c = layer_step(_at(params, where, g, key), cfg, *_kind(cfg, li), x,
                           _at(cache, where, g, key), index, mesh=sp, cache_len=cache_len)
         _put(new_cache, where, g, key, c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_fn(params, cfg, x), new_cache
+    return _serve_logits(params, cfg, x, sp, vocab_tp), new_cache

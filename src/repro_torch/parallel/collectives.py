@@ -22,6 +22,23 @@ Differentiable collectives (Megatron's pairing):
   same full gradient, a replicated computation);
 - ``scale_grad(x, s)``: identity forward, gradient times ``s``.
 
+Sequence parallelism (Megatron's pair, over "model" along dim 1):
+
+- ``gather_seq(x, sp)``: the blocks of the sequence all-gathered forward,
+  the gradient reduce-scattered backward (``g``: the input of a
+  tensor-parallel part); with ``grad="slice"`` this rank's block of the
+  gradient instead (the input of a part every rank computes whole);
+- ``reduce_scatter_seq(x, sp)``: the ranks' partial sums reduce-scattered
+  over the sequence forward, all-gathered backward (``ḡ``: the output of a
+  row-parallel product);
+- ``split_seq(x, sp)``: this rank's block forward, all-gathered backward
+  (the output of a part every rank computed whole).
+
+``region_input`` / ``region_output`` pick the pair a part's input and
+output take: these three where the stream is sequence-parallel, else
+``copy_to`` / ``reduce_from`` for a tensor-parallel part.  ``all_to_all``
+exchanges blocks of dim 0 over one axis (not differentiable).
+
 On a gloo group a CUDA operand travels through a host copy (gloo's TCP
 transport reads host memory; ``core/topology.py`` stages its sends the same
 way), so gloo ranks on one card run the same program as NCCL ranks; a
@@ -189,6 +206,24 @@ def own_slice(x: torch.Tensor, sp: Spmd, axes, dim: int) -> torch.Tensor:
     return x.narrow(dim, idx * size, size)
 
 
+def all_to_all(x: torch.Tensor, sp: Spmd, axis: str, in_splits: Sequence[int],
+               out_splits: Sequence[int]) -> torch.Tensor:
+    """``x``'s dim 0 cut into blocks of ``in_splits``, block t sent to
+    ``axis``-rank t; returns the blocks every rank sent here (rank t's of
+    ``out_splits[t]`` rows) concatenated in rank order."""
+    if sp.size(axis) == 1:
+        return x
+
+    def run(t):
+        src = t.contiguous()
+        out = torch.empty((sum(out_splits), *src.shape[1:]), dtype=src.dtype, device=src.device)
+        dist.all_to_all_single(out, src, output_split_sizes=list(out_splits),
+                               input_split_sizes=list(in_splits), group=sp.group(axis))
+        return out
+
+    return _run_staged(x, sp, [axis], run)
+
+
 def exchange(x: torch.Tensor, sp: Spmd, axis: str, to: int, frm: int) -> torch.Tensor:
     """Send ``x`` to ``axis``-rank ``to``, return what ``axis``-rank ``frm``
     sent (same shape and dtype)."""
@@ -260,6 +295,34 @@ class _Gather(torch.autograd.Function):
         return _run_staged(g, sp, [a for a, _, _ in ctx.steps], run), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter over ``axis`` along ``dim`` forward; all-gather of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, sp, axis, dim):
+        ctx.sp, ctx.axis, ctx.dim = sp, axis, dim
+        return _run_staged(x, sp, [axis], lambda t: _reduce_scatter_raw(t, sp, axis, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_steps(g, ctx.sp, [(ctx.axis, ctx.dim)]), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block over ``axis`` along ``dim`` forward; all-gather of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, sp, axis, dim):
+        ctx.sp, ctx.axis, ctx.dim = sp, axis, dim
+        return own_slice(x, sp, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_steps(g, ctx.sp, [(ctx.axis, ctx.dim)]), None, None, None
+
+
 class _Scale(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, s):
@@ -299,6 +362,42 @@ def gather(x: torch.Tensor, sp: Spmd | None, steps) -> torch.Tensor:
 
 def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
     return x if s == 1 else _Scale.apply(x, s)
+
+
+def gather_seq(x: torch.Tensor, sp: Spmd | None, grad: str = "sum") -> torch.Tensor:
+    """(B, S / model, ...) -> (B, S, ...): the sequence blocks of "model"
+    all-gathered (see the module's docstring for ``grad``)."""
+    return gather(x, sp, [("model", 1, grad)])
+
+
+def reduce_scatter_seq(x: torch.Tensor, sp: Spmd | None) -> torch.Tensor:
+    """(B, S, ...) -> (B, S / model, ...): the sum over "model" of ``x``,
+    this rank's block of its sequence."""
+    return _ReduceScatter.apply(x, sp, "model", 1) if _live(sp, "model") else x
+
+
+def split_seq(x: torch.Tensor, sp: Spmd | None) -> torch.Tensor:
+    """(B, S, ...) -> (B, S / model, ...): this rank's block of the
+    sequence."""
+    return _Split.apply(x, sp, "model", 1) if _live(sp, "model") else x
+
+
+def region_input(x: torch.Tensor, sp: Spmd | None, tp: bool, seq: bool) -> torch.Tensor:
+    """The input of a part of a layer over "model": tensor-parallel (``tp``)
+    or computed whole on every rank, from a stream that is sequence-parallel
+    (``seq``: this rank's block, gathered) or whole."""
+    if seq:
+        return gather_seq(x, sp, grad="sum" if tp else "slice")
+    return copy_to(x, sp, ("model",)) if tp else x
+
+
+def region_output(x: torch.Tensor, sp: Spmd | None, tp: bool, seq: bool) -> torch.Tensor:
+    """The output of the part ``region_input`` entered: a tensor-parallel
+    part's partial sums reduced (over the sequence's blocks where ``seq``),
+    a whole part's output cut to this rank's block where ``seq``."""
+    if seq:
+        return reduce_scatter_seq(x, sp) if tp else split_seq(x, sp)
+    return reduce_from(x, sp, ("model",)) if tp else x
 
 
 def use_param(t: torch.Tensor, spec, sp: Spmd | None, tensor_parallel: bool,

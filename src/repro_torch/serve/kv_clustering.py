@@ -136,6 +136,9 @@ def attention_decode_compressed(
     x: torch.Tensor,
     cache: Params,
     index: int,
+    sp=None,
+    centroids_split: bool = True,
+    ring_split: bool = True,
 ):
     """Decode attention over [centroids + recent ring].  x: (B, 1, d).
 
@@ -143,34 +146,55 @@ def attention_decode_compressed(
     most recent tokens exactly; older history lives in the weighted
     centroids.  Returns (out (B, 1, d), the ring's entries); the new token is
     written into the ring in place.
-    """
+
+    With ``sp`` (a ``parallel.collectives.Spmd``) the centroids (with
+    ``centroids_split``) and the ring (with ``ring_split``) are this rank's
+    blocks of them over "model"; a part that is not split is counted by
+    "model"-rank 0 alone.  The rank that holds the new token's ring slot
+    writes it, and the softmax's max and sums are all-reduced over "model"
+    (``layers._sharded_softmax_pv``)."""
+    if not (centroids_split or ring_split):
+        sp = None  # every rank holds the whole cache
     index = int(index)
     b = x.shape[0]
     h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    ring = cache["k"].shape[1]
+    r = 0 if sp is None else sp.rank("model")
+    ring_local = cache["k"].shape[1]
+    split = sp is not None and ring_split
+    ring = ring_local * sp.model if split else ring_local
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q, k_new, v_new = L._qkv(params, dims, x, pos)
     slot = index % ring
+    owner, off = divmod(slot, ring_local) if split else (r, slot)
     ck_ring, cv_ring = cache["k"], cache["v"]
-    ck_ring[:, slot] = k_new[:, 0]
-    cv_ring[:, slot] = v_new[:, 0]
+    if owner == r:
+        ck_ring[:, off] = k_new[:, 0]
+        cv_ring[:, off] = v_new[:, 0]
 
     rep = h // kvh
     qh = q.reshape(b, 1, kvh, rep, hd)
     sqrt_hd = L.f32_sqrt(hd)
-    # Scores over centroids, with the log-cluster-size bias.
-    s_cent = torch.einsum("bqkrh,bskh->bkrqs", qh, cache["ck"]).to(torch.float32)
-    s_cent = s_cent / sqrt_hd + cache["clogw"].permute(0, 2, 1)[:, :, None, None, :]
-    # Scores over the exact recent ring.
-    s_ring = torch.einsum("bqkrh,bskh->bkrqs", qh, ck_ring).to(torch.float32)
-    s_ring = s_ring / sqrt_hd
-    if index < ring:
-        valid = torch.arange(ring, device=x.device) <= slot
-        s_ring = torch.where(valid, s_ring, -1e30)
+    parts = []  # (scores, values) this rank counts
+    if sp is None or centroids_split or r == 0:
+        # Scores over centroids, with the log-cluster-size bias.
+        s_cent = torch.einsum("bqkrh,bskh->bkrqs", qh, cache["ck"]).to(torch.float32)
+        s_cent = s_cent / sqrt_hd + cache["clogw"].permute(0, 2, 1)[:, :, None, None, :]
+        parts.append((s_cent, cache["cv"]))
+    if sp is None or ring_split or r == 0:
+        # Scores over the exact recent ring.
+        s_ring = torch.einsum("bqkrh,bskh->bkrqs", qh, ck_ring).to(torch.float32)
+        s_ring = s_ring / sqrt_hd
+        if index < ring:
+            ring_pos = (r * ring_local if split else 0) + torch.arange(ring_local, device=x.device)
+            s_ring = torch.where(ring_pos <= slot, s_ring, -1e30)
+        parts.append((s_ring, cv_ring))
 
-    scores = torch.cat([s_cent, s_ring], dim=-1)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    vals = torch.cat([cache["cv"], cv_ring], dim=1)
-    out = torch.einsum("bkrqs,bskh->bqkrh", probs, vals).reshape(b, 1, h * hd)
-    out = out @ params["wo"].to(x.dtype)
+    scores = torch.cat([p[0] for p in parts], dim=-1)
+    vals = torch.cat([p[1] for p in parts], dim=1)
+    if sp is None:
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkrqs,bskh->bqkrh", probs, vals)
+    else:
+        out = L._sharded_softmax_pv(scores, vals, sp).to(x.dtype)
+    out = out.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
     return out, {"k": ck_ring, "v": cv_ring}

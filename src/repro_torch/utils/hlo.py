@@ -29,6 +29,10 @@ up the reference's cost model op by op:
   storages, then each storage an op creates from its creation until it is
   freed (a ``weakref`` finalizer on the storage), with the peak.
 
+An op on the meta device (shapes alone: ``parallel.sharding.layer_specs``
+builds a layer there, once a process, to read its parameters' shapes)
+moves no byte and holds no memory: it is not costed.
+
 There is no trip-count parsing: an eager loop dispatches each trip.
 
 These are the quantities of the process that runs the step: one rank of an
@@ -187,6 +191,9 @@ class CostMode(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
+        tensors = _tensors((args, kwargs, out))
+        if tensors and all(t.device.type == "meta" for t in tensors):
+            return out
         self._cost(func, args, kwargs, out)
         for t in _tensors(out):
             self._track(t.untyped_storage())

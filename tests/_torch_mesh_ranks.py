@@ -6,10 +6,10 @@
 spawns four ranks, each of which joins a gloo group through
 ``file://<dir>/init``, reads the reference's draws from ``<dir>/draws.npz``
 (``tests/_torch_mesh_reference.py`` writes them before it computes), runs
-each named architecture on (2, 2) and (4, 1) meshes (and with ``extras``
-the checkpoint, pipeline, compression and compressed-step scenarios) and
-saves what it got to ``<dir>/rank<r>.pt``
-(every rank's hold the gathered trees).  This file
+each named architecture (``mesh_config`` reads the name) on (2, 2) and
+(4, 1) meshes (and with ``extras`` the checkpoint, pipeline, compression
+and compressed-step scenarios) and saves what it got to
+``<dir>/rank<r>.pt`` (every rank's hold the gathered trees).  This file
 imports neither JAX nor the reference package.
 """
 
@@ -45,6 +45,21 @@ def world_of_one(root: Path, shape=(1, 1), names=("data", "model")):
         dist.destroy_process_group()
 
 
+def mesh_config(name: str, get_smoke):
+    """The config a case's name stands for: an architecture's smoke config
+    (``get_smoke``), ``arch@dN`` the same at d_model N, ``arch@seq`` the same
+    config, which the port's ranks run sequence-parallel whatever its width
+    (``transformer.SEQ_SHARD_MIN_D_MODEL`` lowered; the math is the
+    reference's)."""
+    import dataclasses
+
+    arch, _, tag = name.partition("@")
+    cfg = get_smoke(arch)
+    if tag.startswith("d"):
+        cfg = dataclasses.replace(cfg, d_model=int(tag[1:]))
+    return cfg
+
+
 def serve_config(cfg):
     """The config the serving checks run: a MoE at the no-drop capacity
     (E / k), since the expert-parallel capacity follows each data shard's
@@ -72,7 +87,39 @@ def nested(ref, prefix: str) -> dict:
 
 def lm(ref, arch, mesh):
     """lm_loss, its gradients and one AdamW step on ``mesh``; prefill and
-    decode logits on it."""
+    decode logits on it; the rows of each group input that remat saves
+    (``saved_rows``)."""
+    from repro_torch.models import transformer as tfm
+
+    threshold = tfm.SEQ_SHARD_MIN_D_MODEL
+    if arch.endswith("@seq"):
+        tfm.SEQ_SHARD_MIN_D_MODEL = 0
+    try:
+        return _lm(ref, arch, mesh)
+    finally:
+        tfm.SEQ_SHARD_MIN_D_MODEL = threshold
+
+
+def _saved_rows(fn):
+    """``fn()`` and the sequence rows of each group input that
+    ``transformer._rematerialised`` was given (what remat "full" saves)."""
+    from repro_torch.models import transformer as tfm
+
+    rows, inner = [], tfm._rematerialised
+
+    def spy(f, remat, *args):
+        if getattr(f, "func", None) is not None and f.func.__name__ == "group":
+            rows.append(args[0].shape[1])
+        return inner(f, remat, *args)
+
+    tfm._rematerialised = spy
+    try:
+        return fn(), rows
+    finally:
+        tfm._rematerialised = inner
+
+
+def _lm(ref, arch, mesh):
     from repro_torch import convert
     from repro_torch.configs import ShapeConfig, get_smoke_config
     from repro_torch.launch import serve as tserve
@@ -81,7 +128,7 @@ def lm(ref, arch, mesh):
     from repro_torch.optim import optimizers as topt
     from repro_torch.parallel import sharding as sh
 
-    cfg = get_smoke_config(arch)
+    cfg = mesh_config(arch, get_smoke_config)
     params = convert.lm_params_from_numpy(nested(ref, f"{arch}/params"), cfg, mesh=mesh)
     pspecs = sh.param_specs(tfm.init_lm(0, cfg, device="meta"), cfg, mesh)
     full_batch = {k: torch.from_numpy(v) for k, v in nested(ref, f"{arch}/batch").items()}
@@ -93,6 +140,8 @@ def lm(ref, arch, mesh):
     loss, grads = ttrain.loss_and_grads(
         lambda p: tfm.lm_loss(p, cfg, batch, mesh=mesh, dtype=torch.float32), params)
     out = {"loss": float(loss), "grads": sh.gather_tree(grads, pspecs, mesh)}
+    _, out["saved_rows"] = _saved_rows(lambda: tfm.lm_loss(params, cfg, batch, mesh=mesh,
+                                                           dtype=torch.float32, remat="full"))
     # Serving: a prefill of the prompt, then decode steps on fixed tokens.
     serve = ShapeConfig("s", CACHE_LEN, b, "decode")
     serve_cfg = serve_config(cfg)

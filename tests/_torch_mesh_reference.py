@@ -38,6 +38,18 @@ MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
 B, S = 4, 32
 
 
+def mesh_config(name):
+    """The smoke config of a case's name (``arch``, ``arch@dN`` at d_model
+    N, ``arch@seq``: the same config; see ``tests/_torch_mesh_ranks.py``)."""
+    import dataclasses
+
+    arch, _, tag = name.partition("@")
+    cfg = get_smoke_config(arch)
+    if tag.startswith("d"):
+        cfg = dataclasses.replace(cfg, d_model=int(tag[1:]))
+    return cfg
+
+
 def batch_of(cfg, seed):
     """The batch: S positions in all (a vision prefix's patches count), so that
     no attention block is padded (the reference's padded last block reads
@@ -70,8 +82,8 @@ def draw_extras() -> dict:
 
 def main(path, archs, extras):
     out = {}
-    draws = {arch: (tfm.init_lm(jax.random.PRNGKey(sum(map(ord, arch))), get_smoke_config(arch)),
-                    batch_of(get_smoke_config(arch), 100 + sum(map(ord, arch))))
+    draws = {arch: (tfm.init_lm(jax.random.PRNGKey(sum(map(ord, arch))), mesh_config(arch)),
+                    batch_of(mesh_config(arch), 100 + sum(map(ord, arch))))
              for arch in archs}
     for arch, (params, batch) in draws.items():
         out.update(flat(params, f"{arch}/params"))
@@ -84,7 +96,7 @@ def main(path, archs, extras):
     opt = opt_mod.make_optimizer(opt_mod.OptConfig(name="adamw"))
     update = jax.jit(opt.update)
     for arch, (params, batch) in draws.items():
-        cfg = get_smoke_config(arch)
+        cfg = mesh_config(arch)
         for name, shape in MESHES.items():
             mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
             pspecs = sh.param_specs(jax.eval_shape(lambda: params), cfg, mesh)

@@ -1,9 +1,12 @@
 """The port's dry run (``repro_torch.launch.dryrun``): ``cell_skipped`` and
 the overrides as the reference's; one small config's train step costed on
-one device against the reference's compiled step; and one 16 x 16 cell of
+one device against the reference's compiled step; one 16 x 16 cell of
 each kind end to end (256 ranks of a fake group, a subprocess) with the
 invariants of ``tests/test_dryrun.py``, the card's 80 GB in place of the
-v5e's 16 GB."""
+v5e's 16 GB; and the reference's layout on the mesh in the counts: the
+vocab-parallel decode's collective bytes, the prefill's attention split
+over query heads, kimi-k2's sequence-parallel train step under a card's
+80 GB."""
 
 import json
 import os
@@ -136,6 +139,57 @@ def test_dryrun_cells_end_to_end(tmp_path):
     mem = r["memory_analysis"]
     assert (mem["argument_size"] + mem["temp_size"]) < 2 * 80 * 2**30, mem
     assert r2["status"] == "ok"
+    # The vocab-parallel serve: this rank's block of the table gathered over
+    # "data" and the logits over "model", not the whole table (6.5e7 B).
+    assert r2["collective_bytes_per_device"] <= 3.5e7, r2["collectives"]
     assert r["fake_device"] == r2["fake_device"] == ("cuda" if torch.cuda.is_available()
                                                      else "cpu")
     assert res["refused"]
+
+
+_LAYOUT_CELLS = textwrap.dedent("""
+    import json, math
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import sharding as sh
+
+    prefill = dryrun.run_cell("llama3.2-1b", "prefill_32k", multi_pod=False, verbose=False)
+    kimi = {n: dryrun.run_cell("kimi-k2-1t-a32b", "train_4k", multi_pod=False, verbose=False,
+                               overrides={"n_layers": n})["memory_analysis"] for n in (2, 4)}
+    # The full config's arguments: each rank's blocks of its state and batch.
+    cfg = get_config("kimi-k2-1t-a32b")
+    mesh = dryrun.production_device_mesh()
+    _, trees, _, _ = dryrun._step_and_specs(cfg, SHAPES["train_4k"], mesh)
+    layout = make_production_mesh()
+    args = 0
+    for shapes, specs in trees:
+        flat = dict(sh.walk(specs))
+        for path, s in sh.walk(shapes):
+            args += math.prod(sh.local_shape(s.shape, flat[path], layout)) * s.dtype.itemsize
+    print(json.dumps({"prefill": prefill, "kimi": kimi, "kimi_args": args,
+                      "kimi_layers": cfg.n_layers}))
+""")
+
+
+def test_dryrun_counts_the_mesh_layout(tmp_path):
+    """llama3.2-1b's prefill_32k computes each rank's query heads of the
+    attention (useful_ratio 0.033 when it was replicated over "model"), and
+    kimi-k2's train_4k, its residual stream sequence-parallel, fits a card:
+    its full config's arguments plus the temporaries of 2 and 4 layers
+    extrapolated linearly to its 61 under 80e9 B a device.  (The cut
+    configs take AdamW and float32 parameters where the full one takes
+    Adafactor over bf16 ones, so their temporaries bound the full one's
+    from above; their arguments do not extrapolate.)"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", _LAYOUT_CELLS], env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    prefill = res["prefill"]
+    assert prefill["status"] == "ok" and prefill["useful_ratio"] > 0.3, prefill["useful_ratio"]
+    assert prefill["collectives"]["all-to-all"]["count"] == 16  # one a layer, into the cache
+    t2, t4 = (res["kimi"][str(n)]["temp_size"] for n in (2, 4))
+    temp = t4 + (t4 - t2) / 2 * (res["kimi_layers"] - 4)
+    assert res["kimi_args"] + temp < 80e9, (res["kimi_args"], temp)

@@ -153,9 +153,20 @@ _COLLECTIVES = textwrap.dedent("""
     for fn, op in ((lambda t: C.all_reduce(t, sp, ("data",), "max"), "all-reduce"),
                    (lambda t: C.all_gather(t, sp, "data", 0), "all-gather"),
                    (lambda t: C._reduce_scatter_raw(t, sp, "data", 0), "reduce-scatter"),
-                   (lambda t: C.exchange(t, sp, "data", 1, 3), "collective-permute")):
+                   (lambda t: C.exchange(t, sp, "data", 1, 3), "collective-permute"),
+                   (lambda t: C.all_to_all(t, sp, "data", [n // 4] * 4, [n // 4] * 4),
+                    "all-to-all")):
         c = hlo.analyze(fn, x)
         assert dict(c.coll_by_op) == {op: n * 4} and dict(c.coll_count) == {op: 1}, (op, c)
+    # The sequence-parallel pair over "model", forward and backward: each
+    # is one collective a way, under the reference's names.
+    mp = C.Spmd(init_device_mesh("cpu", (4,), mesh_dim_names=("model",)))
+    block = torch.ones((2, 8, n // 16), requires_grad=True)
+    for fn, want in ((C.gather_seq, {"all-gather": n * 4, "reduce-scatter": 4 * n * 4}),
+                     (C.reduce_scatter_seq, {"reduce-scatter": n * 4, "all-gather": n * 4 // 4})):
+        c = hlo.analyze(lambda t: torch.autograd.grad(fn(t, mp).sum(), t), block)
+        assert dict(c.coll_by_op) == want, (fn, dict(c.coll_by_op))
+        assert dict(c.coll_count) == {op: 1 for op in want}, (fn, dict(c.coll_count))
     # A collective without a cost model raises: none is costed as a plain op.
     try:
         hlo.analyze(lambda t: dist.reduce(t, 0), x)
@@ -177,6 +188,13 @@ def test_collectives_over_a_fake_group():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "OK" in out.stdout
+
+
+def test_meta_ops_cost_nothing():
+    """An op on the meta device (shapes alone) moves and holds nothing."""
+    n = 1 << 20
+    c = hlo.analyze(lambda: torch.empty(n, device="meta").mul_(2.0).to(torch.bfloat16))
+    assert c.bytes == 0 and c.peak_bytes == 0 and c.flops == 0
 
 
 def test_a_scalar_scatter_is_charged_at_its_indices():

@@ -40,7 +40,14 @@ from repro_torch.models import transformer as tfm
 from repro_torch.parallel import sharding as sh
 
 sys.path.insert(0, str(Path(__file__).parent))
-from _torch_mesh_ranks import CACHE_LEN, DECODE_STEPS, MESHES, nested, serve_config  # noqa: E402
+from _torch_mesh_ranks import (  # noqa: E402
+    CACHE_LEN,
+    DECODE_STEPS,
+    MESHES,
+    mesh_config,
+    nested,
+    serve_config,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -131,7 +138,8 @@ def check_tree(ref, ranks, arch, mesh, kind):
         err = float(np.max(np.abs(t.numpy() - want)))
         assert err <= LEAF_TOL * scale, (path, err, scale)
         n += 1
-    assert n == len(list(sh.walk(tfm.init_lm(0, get_smoke_config(arch), device="meta"))))
+    assert n == len(list(sh.walk(tfm.init_lm(0, mesh_config(arch, get_smoke_config),
+                                             device="meta"))))
 
 
 def check_ranks_agree(ranks, arch, mesh):
@@ -145,7 +153,7 @@ def check_ranks_agree(ranks, arch, mesh):
 
 def check_serve(ref, ranks, arch, mesh):
     """Prefill and decode logits on the mesh against the port's one card."""
-    cfg = serve_config(get_smoke_config(arch))
+    cfg = serve_config(mesh_config(arch, get_smoke_config))
     params = convert.lm_params_from_numpy(nested(ref, f"{arch}/params"), cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in nested(ref, f"{arch}/batch").items()}
     prompt = {k: v for k, v in batch.items() if k != "labels"}

@@ -59,7 +59,8 @@ def test_prefill_and_decode_match_one_card(runs, arch, mesh):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_compressed_decode_matches_one_card(runs, mesh):
     """jamba's CKM-compressed cache on the mesh (centroids and ring split
-    over "model", gathered for the attention) decodes as on one card."""
+    over "model", each rank attending over its blocks with the softmax's
+    max and sums all-reduced) decodes as on one card."""
     out = runs.ranks[0][f"jamba-v0.1-52b/{mesh}"]["ck"]
     assert len(out["got"]) == len(out["want"]) > 0
     for g, w in zip(out["got"], out["want"]):
